@@ -1,0 +1,491 @@
+#!/usr/bin/env python3
+"""Drive the port's HACC in-situ halo-finding path on one CUDA card.
+
+    python3 chip_smoke.py [--seed 0] [--n-log2 24]
+
+Run from the root of a checkout, on a machine with one CUDA card and the
+CUDA toolkit. Phases, each of which must pass:
+
+1. Build the kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
+   per source, started together) and print ``-Xptxas -v``, the card's name
+   and its power limit.
+2. Each kernel against its plain PyTorch version on the card: the
+   traversal epilogues on a tree of 2^20 clustered points (exact), the
+   segment reductions at the catalog's shapes, 2^24 x 8 and 2^24 x 1.
+3. The whole path on the card against the plain path on the CPU, 2^18
+   particles: labels, core mask, rounds and the catalog's integer fields
+   exact, float fields to a stated tolerance.
+4. The main path: ``InsituAnalyzer`` in simulation mode over two analysis
+   steps of 2^24 particles (4096 Plummer spheres plus 20% background).
+   The launch counters are set to 0 before each step and read after it;
+   every kernel must have launched in each step. The step's time and peak
+   memory are the path's own; the kernels' inputs for phase 5 are recorded
+   afterwards, in an untimed rerun of the second step.
+5. One JSON line with each kernel's launches per analysis step (the
+   second step's; ``launches_by_step`` holds both), time per launch at the
+   main path's inputs, bound with the card's name and power limit beside
+   it, plain version's time and library yardstick.
+
+The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
+or without the port beside this file, it exits nonzero and prints no
+result. It imports nothing of JAX and nothing of the JAX package.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+SRC = Path(__file__).resolve().parent / "src"
+DEV = "cuda"
+
+# H100 SXM data sheet: HBM rate and float32 rate outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# Float operations per node visit of the traversal: per axis two
+# subtractions and two maxes, then three products, two sums, one compare.
+FLOPS_PER_HOP = 3 * 4 + 3 + 2 + 1
+# Drift time step: the typical core velocity moves a particle by about a
+# quarter of the linking length.
+DT = 1e-3
+OVERDENSITY = 1e4
+SPHERES_AT_2_24 = 4096
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def plummer_cloud(seed: int, n: int):
+    """Positions and velocities of ``n`` particles: Plummer spheres with
+    Pareto(1.5) masses (the generator of ``examples/halo_catalog.py``, all
+    spheres drawn at once), plus 20% uniform background at rest.
+
+    Each sphere's scale radius puts its central density at OVERDENSITY
+    times the mean of the unit box, so a core particle has about 200
+    neighbours within the paper's linking length. The number of spheres
+    scales with n (4096 at 2^24), which keeps the spheres' sizes."""
+    rng = np.random.default_rng(seed)
+    n_spheres = max(16, SPHERES_AT_2_24 * n >> 24)
+    n_bg = n // 5
+    w = rng.pareto(1.5, n_spheres) + 1
+    sizes = rng.multinomial(n - n_bg, w / w.sum())
+    centers = rng.uniform(0.1, 0.9, (n_spheres, 3))
+    a_s = (3.0 * sizes / (4.0 * np.pi * OVERDENSITY * n)) ** (1.0 / 3.0)
+    a = np.repeat(a_s, sizes)
+    mtot = np.repeat(sizes / n, sizes)        # G = 1, unit total mass
+    u = rng.uniform(0.02, 0.98, a.size)
+    r = a / np.sqrt(u ** (-2.0 / 3.0) - 1.0)
+    direction = rng.standard_normal((a.size, 3))
+    direction /= np.linalg.norm(direction, axis=1, keepdims=True)
+    pos = np.repeat(centers, sizes, axis=0) + r[:, None] * direction
+    sigma2 = mtot / (6.0 * np.sqrt(r ** 2 + a ** 2))
+    vel = rng.standard_normal((a.size, 3)) * np.sqrt(sigma2)[:, None]
+    pos = np.concatenate([pos, rng.uniform(0, 1, (n_bg, 3))])
+    vel = np.concatenate([vel, np.zeros((n_bg, 3))])
+    pos = np.clip(pos, 0.0, 1.0 - 1e-6).astype(np.float32)
+    return pos, vel.astype(np.float32), n - n_bg
+
+
+def card_identity() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def tap(module, name: str, calls: list, keep_args: bool = True):
+    """Record (args, kwargs, result) of the first call of ``module.name``;
+    with ``keep_args=False`` only its result, the arguments as None."""
+    fn = getattr(module, name)
+
+    def recorded(*args, **kwargs):
+        res = fn(*args, **kwargs)
+        if not calls:
+            calls.append((args, kwargs, res) if keep_args else (None, None, res))
+        return res
+
+    setattr(module, name, recorded)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
+    """Milliseconds per call from CUDA events, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def phase1_build():
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    log(f"[1] built {sorted(logs)} in {time.perf_counter() - t0:.1f} s "
+        f"into {_build.BUILD_DIR}")
+    for name, text in logs.items():
+        log(f"--- nvcc -Xptxas -v: {name}.cu ---\n{text.strip()}")
+    card = card_identity()
+    log(f"[1] card: {card}")
+    return card
+
+
+def phase2_kernels(seed: int, n_tree: int = 1 << 20, n_rows: int = 1 << 24):
+    import torch
+    from repro_torch.core.bvh import build_bvh
+    from repro_torch.core.geometry import scene_bounds
+    from repro_torch.data.pipeline import hacc_benchmark_epsilon
+    from repro_torch.kernels import segment as ks
+    from repro_torch.kernels import wavefront as kw
+
+    n = n_tree
+    pos, _, _ = plummer_cloud(seed + 1, n)
+    pts = torch.from_numpy(pos).to(DEV)
+    bvh = build_bvh(pts, *scene_bounds(pts))
+    eps = hacc_benchmark_epsilon(1.0, n)
+    r2 = torch.full((n,), eps, dtype=torch.float32, device=DEV) ** 2
+    order = bvh.leaf_perm
+    for stop in (None, 2):
+        got = kw.wavefront_count(bvh, pts, r2, stop_at=stop, order=order)
+        want = kw.wavefront_count_plain(bvh, pts, r2, stop)
+        require(torch.equal(got, want), f"wavefront_count stop_at={stop}")
+        log(f"[2] wavefront_count stop_at={stop}: exact over {n} queries, "
+            f"mean count {got.float().mean().item():.2f}")
+    core = kw.wavefront_count(bvh, pts, r2, stop_at=2, order=order) >= 2
+    labels = torch.from_numpy(
+        np.random.default_rng(seed + 2).permutation(n).astype(np.int32)).to(DEV)
+    got = kw.wavefront_min_label(bvh, pts, r2, labels, core, core, n, order=order)
+    want = kw.wavefront_min_label_plain(bvh, pts, r2, labels, core, core, n)
+    require(torch.equal(got, want), "wavefront_min_label")
+    log(f"[2] wavefront_min_label: exact over {int(core.sum())} core queries")
+
+    rng = np.random.default_rng(seed + 3)
+    rows, segs = n_rows, 1 << 20
+    # As in the catalog: ~30 rows per halo, then a noise tail of 20% of the
+    # rows that carries the last id and zero data.
+    tail = rows // 5
+    ids = np.sort(rng.integers(0, segs // 8, rows)).astype(np.int32)
+    ids[-tail:] = ids[-tail]
+    ids_t = torch.from_numpy(ids).to(DEV)
+    data = torch.from_numpy(rng.standard_normal((rows, 8), np.float32)).to(DEV)
+    data[:, 0] = 1.0                          # the count column
+    data[-tail:] = 0.0
+    got = ks.segment_sum_sorted(data, ids_t, segs)
+    want = ks.segment_sum_sorted_plain(data, ids_t, segs)
+    # Atomics add in another order than the scatter: float32 rounding.
+    require(torch.allclose(got, want, rtol=1e-5, atol=1e-4), "segment_sum")
+    require(torch.equal(got[:, 0], want[:, 0]), "segment_sum count column")
+    log(f"[2] segment_sum_sorted {rows}x8: max abs err "
+        f"{(got - want).abs().max().item():.3g}, counts exact")
+    vals = torch.from_numpy(rng.standard_normal((rows, 1), np.float32)).to(DEV)
+    vals[-tail:] = -ks.SEG_NEG_BIG
+    vals[torch.from_numpy(rng.random(rows) < 0.1).to(DEV)] = -ks.SEG_NEG_BIG
+    got = ks.segment_max_sorted(vals, ids_t, segs)
+    want = ks.segment_max_sorted_plain(vals, ids_t, segs)
+    require(torch.equal(got, want), "segment_max")
+    log(f"[2] segment_max_sorted {rows}x1 (mixed signs): exact")
+
+
+def phase3_whole_path(seed: int, cfg, n: int = 1 << 18):
+    import torch
+    from repro_torch.analysis import insitu
+    from repro_torch.data.pipeline import hacc_benchmark_epsilon
+
+    pos, vel, _ = plummer_cloud(seed + 4, n)
+    eps = hacc_benchmark_epsilon(1.0, n)
+    out = {}
+    for dev in (DEV, "cpu"):
+        res_calls, cat_calls = [], []
+        t0 = time.perf_counter()
+        with tap(insitu, "fdbscan", res_calls), \
+                tap(insitu, "halo_catalog", cat_calls):
+            stats = insitu.simulation_halo_stats(pos, vel, cfg, eps, device=dev)
+        stats = {k: float(v) for k, v in stats.items()}
+        log(f"[3] simulation_halo_stats on {dev}: "
+            f"{time.perf_counter() - t0:.1f} s")
+        out[dev] = (res_calls[0][2], cat_calls[0][2], stats)
+    (res_g, cat_g, st_g), (res_c, cat_c, st_c) = out[DEV], out["cpu"]
+    for f in res_g._fields:
+        require(torch.equal(getattr(res_g, f).cpu(), getattr(res_c, f)),
+                f"DbscanResult.{f}")
+    for f in cat_g._fields:
+        a, b = getattr(cat_g, f).cpu(), getattr(cat_c, f)
+        if a.dtype.is_floating_point:
+            # Sums of up to 1e5 float32 terms in another order.
+            require(torch.allclose(a, b, rtol=1e-4, atol=1e-6), f"HaloCatalog.{f}")
+        else:
+            require(torch.equal(a, b), f"HaloCatalog.{f}")
+    for k in st_g:
+        require(abs(st_g[k] - st_c[k]) <= 1e-4 * abs(st_c[k]) + 1e-6, k)
+    log(f"[3] card == CPU at {n} particles: labels, core mask, "
+        f"{int(res_g.num_rounds)} rounds and catalog ints exact; stats {st_g}")
+
+
+def phase4_main_path(seed: int, n: int, cfg):
+    import torch
+    from repro_torch.analysis import insitu
+    from repro_torch.core import dbscan, query
+    from repro_torch.core.bvh import build_bvh
+    from repro_torch.core.geometry import scene_bounds
+    from repro_torch.data.pipeline import hacc_benchmark_epsilon
+    from repro_torch.halos import catalog
+    from repro_torch.kernels.wavefront import wavefront_count
+
+    t0 = time.perf_counter()
+    pos, vel, n_sph = plummer_cloud(seed, n)
+    pos_t = torch.from_numpy(pos).to(DEV)
+    vel_t = torch.from_numpy(vel).to(DEV)
+    del pos, vel
+    eps = hacc_benchmark_epsilon(1.0, n)
+    log(f"[4] {n} particles ({n_sph} in spheres), eps {eps:.6g}; "
+        f"made in {time.perf_counter() - t0:.1f} s")
+
+    analyzer = insitu.InsituAnalyzer(cfg, device=DEV)
+    kernels = kernel_wrappers()
+    r2 = torch.full((n,), eps, dtype=torch.float32, device=DEV) ** 2
+    launches_by_step = []
+    for step in range(2):
+        if step:
+            pos_t = pos_t + vel_t * DT       # step 0's positions are freed
+        # Only fdbscan's result is kept: it lives through the step anyway.
+        res_calls = []
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with tap(insitu, "fdbscan", res_calls, keep_args=False):
+            t0 = time.perf_counter()
+            stats = analyzer.maybe_run({"positions": pos_t, "velocities": vel_t},
+                                       step)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+        launches_by_step.append(launches)
+        labels = res_calls[0][2].labels
+        nprov = int(torch.unique(labels[labels >= 0]).numel())
+        del res_calls, labels
+        log(f"[4] step {step}: {secs:.3f} s, peak memory {peak / 2**30:.2f} GiB, "
+            f"{nprov} provisional halos, launches {launches}")
+        log(f"[4] step {step} stats: {json.dumps(stats)}")
+        require(stats["insitu/halo_overflow"] == 0,
+                f"halo_overflow with {nprov} provisional halos: raise capacity")
+        for k, v in launches.items():
+            require(v > 0, f"kernel {k} was not launched in step {step}")
+
+        bvh = build_bvh(pos_t, *scene_bounds(pos_t))
+        cnt = wavefront_count(bvh, pos_t, r2, order=bvh.leaf_perm).float()
+        pct = torch.quantile(cnt[:n_sph][::16], torch.tensor(
+            [0.5, 0.9, 0.99], device=DEV)).tolist()
+        log(f"[4] step {step}: mean eps-neighbour count {cnt.mean().item():.2f} "
+            f"over all, {cnt[:n_sph].mean().item():.2f} over sphere particles "
+            f"(their 50/90/99th percentiles {pct})")
+        del bvh, cnt
+
+    # The kernels' inputs for phase 5: step 1's path once more, untimed,
+    # keeping each kernel's first call.
+    taps = {"wavefront_count": (query, "wavefront_count"),
+            "wavefront_min_label": (dbscan, "wavefront_min_label"),
+            "segment_sum_sorted": (catalog, "segment_sum_sorted"),
+            "segment_max_sorted": (catalog, "segment_max_sorted")}
+    calls = {k: [] for k in taps}
+    with contextlib.ExitStack() as stack:
+        for k, (mod, name) in taps.items():
+            stack.enter_context(tap(mod, name, calls[k]))
+        insitu.simulation_halo_stats(pos_t, vel_t, cfg, eps, 1, device=DEV)
+    records = {k: v[0] for k, v in calls.items()}
+    return launches_by_step, records
+
+
+def phase5_kernel_line(launches_by_step, records, card):
+    import torch
+    from repro_torch.kernels import segment as ks
+    from repro_torch.kernels import wavefront as kw
+
+    def bound(nbytes, ops):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+        return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+    def tree_bytes(bvh):
+        return sum(t.numel() * t.element_size() for t in
+                   (bvh.leaf_perm, bvh.left_child, bvh.rope, bvh.node_lo,
+                    bvh.node_hi))
+
+    def timed_plain(fn):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return res, start.elapsed_time(end)
+
+    def per_step(name):
+        return {"launches": launches_by_step[-1][name],
+                "launches_by_step": [s[name] for s in launches_by_step],
+                "card": card}
+
+    rows = []
+    wave_src = "src/repro_torch/kernels/csrc/wavefront.cu"
+    wave_ref = "src/repro/kernels/wavefront.py:97"
+
+    (bvh, centers, r2), kw_args, got = records["wavefront_count"]
+    q = centers.shape[0]
+    ms = cuda_ms(torch, lambda: kw.wavefront_count(bvh, centers, r2, **kw_args), 3)
+    lanes = torch.arange(q, device=DEV)
+    (want, hops), plain_ms = timed_plain(lambda: kw.lockstep_traverse(
+        bvh, centers, r2, lanes, torch.zeros(q, dtype=torch.int32, device=DEV),
+        kw.count_epilogue(kw_args.get("stop_at"))))
+    require(torch.equal(got, want), "wavefront_count on the main path's input")
+    b_ms, b_by = bound(tree_bytes(bvh) + q * (4 + 12 + 4 + 4), hops * FLOPS_PER_HOP)
+    rows.append({"name": "wavefront_count", "route": "cuda", "source": wave_src,
+                 "replaces": wave_ref, **per_step("wavefront_count"),
+                 "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                 "hops": hops, "stop_at": kw_args.get("stop_at")})
+
+    (bvh, centers, r2, labels, core, mask, sentinel), kw_args, got = \
+        records["wavefront_min_label"]
+    ms = cuda_ms(torch, lambda: kw.wavefront_min_label(
+        bvh, centers, r2, labels, core, mask, sentinel, **kw_args), 3)
+    lanes = torch.nonzero(mask).flatten()
+    init = torch.full((lanes.numel(),), sentinel, dtype=torch.int32, device=DEV)
+    (best, hops), plain_ms = timed_plain(lambda: kw.lockstep_traverse(
+        bvh, centers, r2, lanes, init, kw.min_label_epilogue(bvh, labels, core)))
+    want = torch.full_like(got, sentinel)
+    want[lanes] = best
+    require(torch.equal(got, want), "wavefront_min_label on the main path's input")
+    nb = tree_bytes(bvh) + q * (4 + 12 + 4 + 1 + 4) + labels.numel() * 5
+    b_ms, b_by = bound(nb, hops * FLOPS_PER_HOP)
+    rows.append({"name": "wavefront_min_label", "route": "cuda",
+                 "source": wave_src, "replaces": wave_ref,
+                 **per_step("wavefront_min_label"), "max_abs_err": 0.0,
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": None, "hops": hops})
+
+    seg_src = "src/repro_torch/kernels/csrc/segment.cu"
+    for name, ref_line, plain, library in (
+            ("segment_sum_sorted", "src/repro/kernels/segment.py:106",
+             ks.segment_sum_sorted_plain,
+             lambda d, s, S: torch.zeros((S, d.shape[1]), device=DEV)
+             .index_add_(0, s, d)),
+            ("segment_max_sorted", "src/repro/kernels/segment.py:133",
+             ks.segment_max_sorted_plain,
+             lambda d, s, S: torch.full((S, d.shape[1]), -ks.SEG_NEG_BIG,
+                                        device=DEV)
+             .index_reduce_(0, s, d, "amax", include_self=True))):
+        (data, seg, nseg), _, got = records[name]
+        wrapper = getattr(ks, name)
+        ms = cuda_ms(torch, lambda: wrapper(data, seg, nseg), 10)
+        plain_ms = cuda_ms(torch, lambda: plain(data, seg, nseg), 3)
+        lib_ms = cuda_ms(torch, lambda: library(data, seg, nseg), 3)
+        want = plain(data, seg, nseg)
+        diff = (got - want).abs()
+        err = diff.max().item()
+        extra = {}
+        if name == "segment_max_sorted":
+            require(err == 0.0, "segment_max on the main path's input")
+        else:
+            # Two summation orders of the same m terms differ by at most
+            # 2 (m - 1) u sum|x| (u = 2^-24, recursive summation's bound);
+            # the largest halo holds ~3e5 rows, far past phase 2's ~30.
+            rows_per = torch.bincount(seg.long(), minlength=nseg).float()
+            abs_sum = plain(data.abs(), seg, nseg)
+            tol = 2.0 * (rows_per - 1).clamp(min=0)[:, None] * 2.0 ** -24 * abs_sum
+            require(bool((diff <= tol).all()), "segment_sum on the main path's input")
+            require(torch.equal(got[:, 0], want[:, 0]),
+                    "segment_sum count column on the main path's input")
+            extra["err_over_bound"] = (diff / tol.clamp(min=1e-30)).max().item()
+        nrow, d = data.shape
+        b_ms, b_by = bound(nrow * d * 4 + nrow * 4 + nseg * d * 4, nrow * d)
+        rows.append({"name": name, "route": "cuda", "source": seg_src,
+                     "replaces": ref_line, **per_step(name),
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                     **extra})
+    for row in rows:
+        log(f"[5] {row['name']}: {row['ms']:.4f} ms/launch x {row['launches']} "
+            f"per step, "
+            f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}), library {row['library_ms']} ms; {card}")
+    print(json.dumps({"kernels": rows}), flush=True)
+
+
+def kernel_wrappers() -> dict:
+    from repro_torch.kernels import segment as ks
+    from repro_torch.kernels import wavefront as kw
+    return {"wavefront_count": kw.wavefront_count,
+            "wavefront_min_label": kw.wavefront_min_label,
+            "segment_sum_sorted": ks.segment_sum_sorted,
+            "segment_max_sorted": ks.segment_max_sorted}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n-log2", type=int, default=24,
+                    help="log2 of the main path's particle count")
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "__init__.py").exists():
+        print(f"chip_smoke: the port is not at {SRC}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.analysis.insitu import InsituConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_all = time.perf_counter()
+    card = phase1_build()
+    cfg = InsituConfig(mode="simulation", cadence=1, min_pts=2,
+                       halo_min_count=10, halo_capacity=1 << 20)
+    t0 = time.perf_counter()
+    phase2_kernels(args.seed)
+    log(f"[2] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase3_whole_path(args.seed, cfg)
+    log(f"[3] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches_by_step, records = phase4_main_path(args.seed, 1 << args.n_log2, cfg)
+    log(f"[4] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase5_kernel_line(launches_by_step, records, card)
+    log(f"[5] done in {time.perf_counter() - t0:.1f} s; "
+        f"total {time.perf_counter() - t_all:.1f} s")
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

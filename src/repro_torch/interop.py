@@ -1,0 +1,40 @@
+"""Carry the JAX package's state into the port's tensors.
+
+This system has no model weights: its state is the particles and the BVH
+over them. These helpers take that state as numpy arrays, as the JAX
+package hands it out, so that a test can run the port's traversal on the
+very tree the reference built.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.bvh import Bvh
+
+__all__ = ["bvh_from_numpy", "morton64_to_int64"]
+
+
+def _t(a, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True)).to(dtype).to(device)
+
+
+def bvh_from_numpy(leaf_perm, left_child, right_child, rope, node_lo, node_hi,
+                   range_left, range_right, device="cpu") -> Bvh:
+    """A port ``Bvh`` from the reference's eight fields as numpy arrays."""
+    i32, f32 = torch.int32, torch.float32
+    return Bvh(leaf_perm=_t(leaf_perm, i32, device),
+               left_child=_t(left_child, i32, device),
+               right_child=_t(right_child, i32, device),
+               rope=_t(rope, i32, device),
+               node_lo=_t(node_lo, f32, device),
+               node_hi=_t(node_hi, f32, device),
+               range_left=_t(range_left, i32, device),
+               range_right=_t(range_right, i32, device))
+
+
+def morton64_to_int64(hi, lo) -> torch.Tensor:
+    """The reference's (hi, lo) uint32 code pair as the port's int64."""
+    hi = np.asarray(hi, np.uint32).astype(np.int64)
+    lo = np.asarray(lo, np.uint32).astype(np.int64)
+    return torch.from_numpy((hi << 32) | lo)

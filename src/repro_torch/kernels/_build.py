@@ -1,0 +1,85 @@
+"""Build and load the port's CUDA kernels (plain C interface, ``ctypes``).
+
+Each ``csrc/<name>.cu`` compiles on first use into its own shared library
+``build/repro_torch/<name>.so`` at the root of the checkout::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/<name>.so <name>.cu
+
+The sources include no PyTorch header, so a build takes seconds. Every C
+entry point takes raw pointers and a ``cudaStream_t`` and returns
+``cudaGetLastError()``; :func:`check` raises on a nonzero code. Nothing
+here runs at import, so ``import repro_torch`` works without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["SOURCES", "BUILD_DIR", "build_all", "library", "check"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("wavefront", "segment")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def _stale(name: str) -> bool:
+    so = BUILD_DIR / f"{name}.so"
+    src = CSRC / f"{name}.cu"
+    return not so.exists() or so.stat().st_mtime < src.stat().st_mtime
+
+
+def build_all(names=SOURCES) -> dict[str, str]:
+    """Compile every stale source, one ``nvcc`` each, all started together.
+    Returns the compiler's output (the ``-Xptxas -v`` summary) per source;
+    raises if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in names:
+        if not _stale(name):
+            continue
+        tmp = BUILD_DIR / f"{name}.{os.getpid()}.tmp.so"
+        cmd = [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = {}, []
+    for name, (tmp, proc) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(name)
+        else:
+            os.replace(tmp, BUILD_DIR / f"{name}.so")
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[f] for f in failed))
+    return logs
+
+
+@functools.cache
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of ``csrc/<name>.cu``, built if stale."""
+    build_all((name,))
+    return ctypes.CDLL(str(BUILD_DIR / f"{name}.so"))
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a C entry point of ``lib`` reported a CUDA error."""
+    if code != 0:
+        msg = lib.cuda_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

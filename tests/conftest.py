@@ -63,3 +63,7 @@ def rng():
 @pytest.fixture
 def clustered_points(rng):
     return make_clustered_points(rng, 400)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "gpu: needs a CUDA card; skips without one")

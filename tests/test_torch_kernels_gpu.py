@@ -1,0 +1,93 @@
+"""Each CUDA kernel of the port against its plain PyTorch version, on the
+card. Marked ``gpu``: without a CUDA card every test here skips.
+
+    python -m pytest -m gpu tests/test_torch_kernels_gpu.py
+
+This file imports no JAX, so it also runs on a machine without it.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.bvh import build_bvh  # noqa: E402
+from repro_torch.core.geometry import scene_bounds  # noqa: E402
+from repro_torch.data.pipeline import make_clustered_points  # noqa: E402
+from repro_torch.kernels import segment as ks  # noqa: E402
+from repro_torch.kernels import wavefront as kw  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _tree(cuda, n, seed):
+    pts = torch.from_numpy(make_clustered_points(np.random.default_rng(seed), n)).to(cuda)
+    return pts, build_bvh(pts, *scene_bounds(pts))
+
+
+@pytest.mark.parametrize("q", [1, 127, 128, 129, 5000])
+@pytest.mark.parametrize("stop_at", [None, 2, 5])
+def test_wavefront_count_matches_plain(cuda, q, stop_at):
+    pts, bvh = _tree(cuda, 4000, q)
+    rng = np.random.default_rng(q + 1)
+    centers = torch.from_numpy(rng.uniform(0, 1, (q, 3)).astype(np.float32)).to(cuda)
+    r2 = torch.from_numpy(rng.uniform(0, 0.003, q).astype(np.float32)).to(cuda)
+    got = kw.wavefront_count(bvh, centers, r2, stop_at=stop_at)
+    want = kw.wavefront_count_plain(bvh, centers, r2, stop_at)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_wavefront_self_join_in_leaf_order(cuda):
+    pts, bvh = _tree(cuda, 6000, 7)
+    r2 = torch.full((pts.shape[0],), 0.01 ** 2, device=cuda)
+    got = kw.wavefront_count(bvh, pts, r2, order=bvh.leaf_perm)
+    torch.testing.assert_close(got, kw.wavefront_count_plain(bvh, pts, r2),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_wavefront_min_label_matches_plain(cuda, seed):
+    pts, bvh = _tree(cuda, 5000, seed)
+    n = pts.shape[0]
+    rng = np.random.default_rng(seed)
+    r2 = torch.full((n,), 0.012 ** 2, device=cuda)
+    labels = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(cuda)
+    core = torch.from_numpy(rng.random(n) < 0.7).to(cuda)
+    for mask in (core, ~core):
+        got = kw.wavefront_min_label(bvh, pts, r2, labels, core, mask, n,
+                                     order=bvh.leaf_perm)
+        want = kw.wavefront_min_label_plain(bvh, pts, r2, labels, core, mask, n)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,segs", [(1, 4), (1000, 7), (100_003, 5000)])
+def test_segment_kernels_match_plain(cuda, n, segs):
+    rng = np.random.default_rng(n)
+    ids = torch.from_numpy(np.sort(rng.integers(-2, segs + 2, n)).astype(np.int32)).to(cuda)
+    data = torch.from_numpy(rng.standard_normal((n, 8), np.float32)).to(cuda)
+    data[:, 0] = 1.0
+    data[n - n // 5:] = 0.0  # a neutral tail, as the catalog's noise rows
+    got = ks.segment_sum_sorted(data, ids, segs)
+    want = ks.segment_sum_sorted_plain(data, ids, segs)
+    # Atomics add in another order than the scatter: float32 rounding only.
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[:, 0], want[:, 0], rtol=0, atol=0)
+    vals = data[:, 1:2].contiguous()
+    vals[torch.from_numpy(rng.random(n) < 0.3).to(cuda)] = -ks.SEG_NEG_BIG
+    torch.testing.assert_close(ks.segment_max_sorted(vals, ids, segs),
+                               ks.segment_max_sorted_plain(vals, ids, segs),
+                               rtol=0, atol=0)
+
+
+def test_launch_counters_count_kernel_launches(cuda):
+    pts, bvh = _tree(cuda, 300, 3)
+    r2 = torch.full((300,), 0.05 ** 2, device=cuda)
+    before = kw.wavefront_count.launches
+    kw.wavefront_count(bvh, pts, r2)
+    assert kw.wavefront_count.launches == before + 1
