@@ -10,21 +10,34 @@ CUDA toolkit. Phases, each of which must pass:
    per source, started together) and print ``-Xptxas -v``, the card's name
    and its power limit.
 2. Each kernel against its plain PyTorch version on the card: the
-   traversal epilogues on a tree of 2^20 clustered points (exact), the
-   segment reductions at the catalog's shapes, 2^24 x 8 and 2^24 x 1.
-3. The whole path on the card against the plain path on the CPU, 2^18
-   particles: labels, core mask, rounds and the catalog's integer fields
-   exact, float fields to a stated tolerance.
+   traversal epilogues (COUNT, MIN_LABEL, FILL at an exact capacity, at
+   half of it and with int64 offsets, FIXED with overflowing and ample
+   buffers) on a tree of 2^20 clustered points (exact), the segment
+   reductions at the catalog's shapes, 2^24 x 8 and 2^24 x 1.
+3. The card against the plain path on the CPU: the in-situ step at 2^18
+   particles (labels, core mask, rounds and the catalog's integer fields
+   exact, float fields to a stated tolerance); at 2^16, ``query_csr``
+   exact, ``query_csr_device`` at half the total, ``query_csr_buffered``
+   from capacity 8 and ``dbscan_graph_cc``, all exact.
 4. The main path: ``InsituAnalyzer`` in simulation mode over two analysis
    steps of 2^24 particles (4096 Plummer spheres plus 20% background).
    The launch counters are set to 0 before each step and read after it;
    every kernel must have launched in each step. The step's time and peak
-   memory are the path's own; the kernels' inputs for phase 5 are recorded
+   memory are the path's own; the kernels' inputs for phase 7 are recorded
    afterwards, in an untimed rerun of the second step.
-5. One JSON line with each kernel's launches per analysis step (the
-   second step's; ``launches_by_step`` holds both), time per launch at the
-   main path's inputs, bound with the card's name and power limit beside
-   it, plain version's time and library yardstick.
+5. Neighbor lists at full size, on phase 4's cloud and eps: ``query_csr``
+   exact (counters set to 0 before it: COUNT 1, FILL 1), then
+   ``query_csr_device`` at half the total with no host synchronisation
+   (``torch.cuda.set_sync_debug_mode("error")``), int64 offsets, the whole
+   fill once through its plain version, and ``query_csr_buffered`` from
+   capacity 32, each against the exact result.
+6. ``dbscan_graph_cc`` on phase 4's generator at the largest power of two
+   n <= 2^24 whose run fits in 60 GB of device memory, with the neighbor
+   capacity at the smallest power of two at or above the largest count;
+   its labels and core mask must equal ``fdbscan``'s on the same points.
+7. One JSON line with each kernel's launches on its path, time per launch
+   at that path's inputs, bound with the card's name and power limit
+   beside it, plain version's time and library yardstick.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the port beside this file, it exits nonzero and prints no
@@ -134,6 +147,12 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def exclusive_scan(torch, counts, dtype):
+    """CSR offsets (q+1,) of ``dtype`` from per-query counts."""
+    return torch.cat([torch.zeros(1, dtype=dtype, device=counts.device),
+                      torch.cumsum(counts, 0, dtype=dtype)])
+
+
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -181,6 +200,26 @@ def phase2_kernels(seed: int, n_tree: int = 1 << 20, n_rows: int = 1 << 24):
     require(torch.equal(got, want), "wavefront_min_label")
     log(f"[2] wavefront_min_label: exact over {int(core.sum())} core queries")
 
+    counts = kw.wavefront_count(bvh, pts, r2, order=order)
+    for dtype, cut in ((torch.int32, 1), (torch.int32, 2), (torch.int64, 1)):
+        offsets = exclusive_scan(torch, counts, dtype)
+        cap = int(offsets[-1]) // cut
+        got = kw.wavefront_fill(bvh, pts, r2, offsets, cap, order=order)
+        want = kw.wavefront_fill_plain(bvh, pts, r2, offsets, cap)
+        require(torch.equal(got, want),
+                f"wavefront_fill {dtype} offsets, capacity total/{cut}")
+        log(f"[2] wavefront_fill, {dtype} offsets, capacity {cap} "
+            f"(total {int(offsets[-1])}): exact")
+    largest = int(counts.max())
+    for cap in (16, 1 << (largest - 1).bit_length()):
+        got = kw.wavefront_fixed(bvh, pts, r2, cap, order=order)
+        want = kw.wavefront_fixed_plain(bvh, pts, r2, cap)
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                f"wavefront_fixed capacity {cap}")
+        log(f"[2] wavefront_fixed capacity {cap} (largest count {largest}): "
+            f"exact")
+    del got, want, counts
+
     rng = np.random.default_rng(seed + 3)
     rows, segs = n_rows, 1 << 20
     # As in the catalog: ~30 rows per halo, then a noise tail of 20% of the
@@ -208,7 +247,7 @@ def phase2_kernels(seed: int, n_tree: int = 1 << 20, n_rows: int = 1 << 24):
     log(f"[2] segment_max_sorted {rows}x1 (mixed signs): exact")
 
 
-def phase3_whole_path(seed: int, cfg, n: int = 1 << 18):
+def phase3_whole_path(seed: int, cfg, n: int = 1 << 18, n_lists: int = 1 << 16):
     import torch
     from repro_torch.analysis import insitu
     from repro_torch.data.pipeline import hacc_benchmark_epsilon
@@ -242,6 +281,42 @@ def phase3_whole_path(seed: int, cfg, n: int = 1 << 18):
     log(f"[3] card == CPU at {n} particles: labels, core mask, "
         f"{int(res_g.num_rounds)} rounds and catalog ints exact; stats {st_g}")
 
+    from repro_torch.core import query as tq
+    from repro_torch.core.bvh import build_bvh
+    from repro_torch.core.dbscan import dbscan_graph_cc
+    from repro_torch.core.geometry import scene_bounds
+    # The neighbor lists run at 2^16: the plain path on the CPU takes a
+    # minute per 2^18 points for these four calls.
+    pos, _, _ = plummer_cloud(seed + 5, n_lists)
+    eps = hacc_benchmark_epsilon(1.0, n_lists)
+    out = {}
+    for dev in (DEV, "cpu"):
+        t0 = time.perf_counter()
+        pts = torch.from_numpy(pos).to(dev)
+        bvh = build_bvh(pts, *scene_bounds(pts))
+        pred = tq.within(pts, eps)
+        # The card takes queries in Morton order, the CPU in index order:
+        # the order changes no result.
+        exact = tq.query_csr(bvh, pred, sort_queries=dev == DEV)
+        cap = int(exact.total) // 2
+        out[dev] = (exact, tq.query_csr_device(bvh, pred, cap),
+                    tq.query_csr_buffered(bvh, pred, capacity=8),
+                    dbscan_graph_cc(pos, eps, 2, device=dev))
+        log(f"[3] neighbor lists and dbscan_graph_cc on {dev}: "
+            f"{time.perf_counter() - t0:.1f} s")
+    for what, got, want in zip(("query_csr", "query_csr_device", "buffered",
+                                "dbscan_graph_cc"), out[DEV], out["cpu"]):
+        for f in want._fields:
+            a, b = getattr(got, f), getattr(want, f)
+            same = torch.equal(a.cpu(), b) if torch.is_tensor(b) else a == b
+            require(same, f"{what}.{f} card vs CPU")
+    exact, trunc, buffered, _ = out[DEV]
+    require(bool(trunc.overflowed), "query_csr_device at half the total")
+    log(f"[3] card == CPU at {n_lists} particles: query_csr ({int(exact.total)} "
+        f"hits), query_csr_device (capacity {trunc.indices.numel()}), "
+        f"query_csr_buffered ({buffered.attempts} attempts) and "
+        f"dbscan_graph_cc (capacity 64) exact")
+
 
 def phase4_main_path(seed: int, n: int, cfg):
     import torch
@@ -263,7 +338,7 @@ def phase4_main_path(seed: int, n: int, cfg):
         f"made in {time.perf_counter() - t0:.1f} s")
 
     analyzer = insitu.InsituAnalyzer(cfg, device=DEV)
-    kernels = kernel_wrappers()
+    kernels = kernel_wrappers(HACC_KERNELS)
     r2 = torch.full((n,), eps, dtype=torch.float32, device=DEV) ** 2
     launches_by_step = []
     for step in range(2):
@@ -304,7 +379,7 @@ def phase4_main_path(seed: int, n: int, cfg):
             f"(their 50/90/99th percentiles {pct})")
         del bvh, cnt
 
-    # The kernels' inputs for phase 5: step 1's path once more, untimed,
+    # The kernels' inputs for phase 7: step 1's path once more, untimed,
     # keeping each kernel's first call.
     taps = {"wavefront_count": (query, "wavefront_count"),
             "wavefront_min_label": (dbscan, "wavefront_min_label"),
@@ -319,34 +394,276 @@ def phase4_main_path(seed: int, n: int, cfg):
     return launches_by_step, records
 
 
-def phase5_kernel_line(launches_by_step, records, card):
+@contextlib.contextmanager
+def sync_debug_error(torch):
+    """Any host synchronisation inside raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def phase5_neighbor_lists(seed: int, n: int, card: str):
+    import torch
+    from repro_torch.core import query as tq
+    from repro_torch.core.bvh import build_bvh
+    from repro_torch.core.geometry import scene_bounds
+    from repro_torch.data.pipeline import hacc_benchmark_epsilon
+    from repro_torch.kernels import wavefront as kw
+
+    pos, _, _ = plummer_cloud(seed, n)
+    pts = torch.from_numpy(pos).to(DEV)
+    del pos
+    eps = hacc_benchmark_epsilon(1.0, n)
+    bvh = build_bvh(pts, *scene_bounds(pts))
+    pred = tq.within(pts, eps)
+    order = bvh.leaf_perm            # a self-join: threads in leaf order
+    kernels = kernel_wrappers()
+
+    for run in range(2):
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        exact = tq.query_csr(bvh, pred, order=order)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+        log(f"[5] query_csr exact at {n} points, run {run}: "
+            f"{int(exact.total)} hits in {secs:.4f} s, peak memory "
+            f"{peak / 2**30:.2f} GiB, launches {launches}")
+        require(launches == {"wavefront_count": 1, "wavefront_fill": 1},
+                "query_csr launches COUNT once and FILL once")
+        if not run:
+            del exact
+    total, secs_exact = int(exact.total), secs
+    require(not bool(exact.overflowed) and exact.indices.numel() == total
+            and bool((exact.indices >= 0).all()), "query_csr exact")
+
+    cap = total // 2
+    with sync_debug_error(torch):
+        trunc = tq.query_csr_device(bvh, pred, cap, order=order)
+    require(bool(trunc.overflowed) and torch.equal(trunc.offsets, exact.offsets)
+            and torch.equal(trunc.indices, exact.indices[:cap]),
+            "query_csr_device at half the total is the exact prefix")
+    del trunc
+    log(f"[5] query_csr_device capacity {cap}: no host sync, overflowed, "
+        f"indices == the exact run's first {cap}")
+
+    wide = tq.query_csr_device(bvh, pred, total, index_dtype=torch.int64,
+                               order=order)
+    require(wide.offsets.dtype == torch.int64
+            and torch.equal(wide.offsets, exact.offsets.long())
+            and torch.equal(wide.indices, exact.indices), "int64 offsets")
+    del wide
+    log("[5] index_dtype=int64: offsets == the int32 offsets, indices equal")
+
+    centers, r2 = pred.centers.contiguous(), tq.squared_radii(pred)
+    fill_args = (bvh, centers, r2, exact.offsets, total)
+    plain, plain_ms, hops = plain_fill(torch, kw, *fill_args)
+    require(torch.equal(plain, exact.indices), "plain fill on the card")
+    del plain
+    log(f"[5] the whole fill through its plain version on the card: "
+        f"bit-equal, {plain_ms:.1f} ms, {hops} hops")
+
+    fixed_calls = []
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with tap(tq, "wavefront_fixed", fixed_calls):
+        buffered = tq.query_csr_buffered(bvh, pred, capacity=32, order=order)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    fixed_launches = kw.wavefront_fixed.launches
+    require(torch.equal(buffered.offsets, exact.offsets)
+            and torch.equal(buffered.indices, exact.indices),
+            "query_csr_buffered == query_csr")
+    require(fixed_launches == buffered.attempts, "one FIXED launch per attempt")
+    log(f"[5] query_csr_buffered from capacity 32: {buffered.attempts} "
+        f"attempts (last capacity {32 << (buffered.attempts - 1)}), "
+        f"{secs:.3f} s, peak memory {peak / 2**30:.2f} GiB (the exact "
+        f"result held beside it), == query_csr")
+    del buffered
+    fixed_args, fixed_kwargs, _ = fixed_calls[0]
+    fixed_calls.clear()
+
+    # The kernels line's rows: FILL at query_csr's inputs, FIXED at
+    # query_csr_buffered's first attempt.
+    wave_src = "src/repro_torch/kernels/csrc/wavefront.cu"
+    ms = cuda_ms(torch, lambda: kw.wavefront_fill(*fill_args, order=order), 3)
+    count_ms = cuda_ms(torch, lambda: kw.wavefront_count(
+        bvh, centers, r2, order=order), 3)
+    log(f"[5] FILL {ms:.3f} ms and COUNT {count_ms:.3f} ms per launch; FILL "
+        f"is {ms / (secs_exact * 1e3):.3f} of the {secs_exact:.4f} s "
+        f"query_csr call")
+    # The cost of the self-join's scattered rows: the same queries, taken
+    # by the same threads in the same order, with their rows laid out in
+    # thread order, so that a warp writes neighbouring rows. The walks are
+    # identical; only where the hits land differs.
+    perm = order.long()
+    p_centers, p_r2 = centers[perm].contiguous(), r2[perm]
+    p_offsets = exclusive_scan(torch, kw.wavefront_count(bvh, p_centers, p_r2),
+                               torch.int32)
+    rows_ms = cuda_ms(torch, lambda: kw.wavefront_fill(
+        bvh, p_centers, p_r2, p_offsets, total), 3)
+    del p_centers, p_r2, p_offsets
+    log(f"[5] FILL with rows in thread order: {rows_ms:.3f} ms (scattered "
+        f"rows: {ms:.3f} ms)")
+    q, offsets = centers.shape[0], exact.offsets
+    # Reads: tree, order, centers, r2 and row starts; writes: the indices.
+    nb = (tree_bytes(bvh) + q * (4 + 12 + 4)
+          + offsets.numel() * offsets.element_size() + total * 4)
+    b_ms, b_by = bound(nb, hops * FLOPS_PER_HOP)
+    rows = [{"name": "wavefront_fill", "route": "cuda", "source": wave_src,
+             "replaces": "src/repro/kernels/wavefront.py:245",
+             "launches": launches.get("wavefront_fill", 0),
+             "path": "query_csr exact",
+             "card": card,
+             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+             "hops": hops, "capacity": total, "queries": q,
+             "count_ms": count_ms, "query_csr_s": secs_exact,
+             "rows_in_thread_order_ms": rows_ms}]
+    del exact, fill_args, offsets
+
+    cap = fixed_args[3]
+    got = kw.wavefront_fixed(*fixed_args, **fixed_kwargs)
+    ms = cuda_ms(torch, lambda: kw.wavefront_fixed(*fixed_args, **fixed_kwargs), 3)
+    want, plain_ms, hops = plain_fixed(torch, kw, *fixed_args)
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            "wavefront_fixed on query_csr_buffered's input")
+    del got, want
+    # Reads: tree, order, centers, r2; writes: the buffer and the counts.
+    nb = tree_bytes(bvh) + q * (4 + 12 + 4) + q * cap * 4 + q * 4
+    b_ms, b_by = bound(nb, hops * FLOPS_PER_HOP)
+    rows.append({"name": "wavefront_fixed", "route": "cuda", "source": wave_src,
+                 "replaces": "src/repro/kernels/wavefront.py:97",
+                 "launches": fixed_launches,
+                 "path": "query_csr_buffered from capacity 32", "card": card,
+                 "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                 "hops": hops, "capacity": cap, "queries": q})
+    return rows
+
+
+def plain_fill(torch, kw, bvh, centers, r2, offsets, capacity):
+    """The plain FILL on the card: indices, milliseconds and hops."""
+    indices = torch.full((capacity,), -1, dtype=torch.int32, device=DEV)
+    lanes, start = kw.fill_lanes(offsets, capacity)
+    (_, hops), ms = timed_once(torch, lambda: kw.lockstep_traverse(
+        bvh, centers, r2, lanes, start, kw.fill_epilogue(bvh, indices)))
+    return indices, ms, hops
+
+
+def plain_fixed(torch, kw, bvh, centers, r2, capacity):
+    """The plain FIXED on the card: (buf, counts), milliseconds and hops."""
+    buf = torch.full((centers.shape[0], capacity), -1, dtype=torch.int32,
+                     device=DEV)
+    lanes, carry0 = kw.fixed_carry(centers.shape[0], DEV)
+    (carry, hops), ms = timed_once(torch, lambda: kw.lockstep_traverse(
+        bvh, centers, r2, lanes, carry0, kw.fixed_epilogue(bvh, buf)))
+    return (buf, carry[:, 0].to(torch.int32)), ms, hops
+
+
+def bound(nbytes, ops):
+    """(least milliseconds, "bytes" or "operations") for moving ``nbytes``
+    once and doing ``ops`` float32 operations on the card."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def tree_bytes(bvh) -> int:
+    return sum(t.numel() * t.element_size() for t in
+               (bvh.leaf_perm, bvh.left_child, bvh.rope, bvh.node_lo,
+                bvh.node_hi))
+
+
+def timed_once(torch, fn):
+    """(result, milliseconds) of one call, from CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return res, start.elapsed_time(end)
+
+
+def phase6_graph_dbscan(seed: int, n_max: int, min_pts: int = 2,
+                        budget: float = 60e9):
+    import torch
+    from repro_torch.core.bvh import build_bvh
+    from repro_torch.core.dbscan import dbscan_graph_cc, fdbscan
+    from repro_torch.core.geometry import scene_bounds
+    from repro_torch.data.pipeline import hacc_benchmark_epsilon
+    from repro_torch.kernels import wavefront as kw
+
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    n = n_max
+    while True:
+        pos, _, _ = plummer_cloud(seed, n)
+        pts = torch.from_numpy(pos).to(DEV)
+        eps = hacc_benchmark_epsilon(1.0, n)
+        bvh = build_bvh(pts, *scene_bounds(pts))
+        r2 = torch.full((n,), eps, dtype=torch.float32, device=DEV) ** 2
+        largest = int(kw.wavefront_count(bvh, pts, r2, order=bvh.leaf_perm).max())
+        cap = 1 << (largest - 1).bit_length()
+        del bvh, r2
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.set_per_process_memory_fraction(min(1.0, budget / total_mem))
+        kw.wavefront_fixed.launches = 0
+        res = None
+        try:
+            t0 = time.perf_counter()
+            res = dbscan_graph_cc(pts, eps, min_pts, cap, device=DEV)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        except torch.cuda.OutOfMemoryError:
+            pass
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+        if res is not None:
+            break
+        torch.cuda.empty_cache()
+        log(f"[6] dbscan_graph_cc at n = {n}, capacity {cap} (largest count "
+            f"{largest}): does not fit in {budget / 1e9:.0f} GB; halving n")
+        n //= 2
+    peak = torch.cuda.max_memory_allocated()
+    launches = kw.wavefront_fixed.launches
+    require(launches == 1, "dbscan_graph_cc launches FIXED once")
+    ref = fdbscan(pts, eps, min_pts, device=DEV)
+    require(torch.equal(res.labels, ref.labels)
+            and torch.equal(res.core_mask, ref.core_mask),
+            "dbscan_graph_cc == fdbscan")
+    nclu = int(torch.unique(res.labels[res.labels >= 0]).numel())
+    cut = (f"cut from {n_max} by the (n, capacity) neighbour buffer"
+           if n < n_max else "not cut")
+    log(f"[6] dbscan_graph_cc at n = {n} ({cut}), capacity {cap} (largest "
+        f"count {largest}), "
+        f"min_pts {min_pts}: {secs:.3f} s, peak memory {peak / 2**30:.2f} GiB "
+        f"({peak / 1e9:.2f} GB), FIXED launches {launches}, {nclu} clusters; "
+        f"labels and core mask == fdbscan bit for bit")
+
+
+def phase7_kernel_line(launches_by_step, records, nl_rows, card):
     import torch
     from repro_torch.kernels import segment as ks
     from repro_torch.kernels import wavefront as kw
 
-    def bound(nbytes, ops):
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-        return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
-
-    def tree_bytes(bvh):
-        return sum(t.numel() * t.element_size() for t in
-                   (bvh.leaf_perm, bvh.left_child, bvh.rope, bvh.node_lo,
-                    bvh.node_hi))
-
-    def timed_plain(fn):
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        res = fn()
-        end.record()
-        torch.cuda.synchronize()
-        return res, start.elapsed_time(end)
-
     def per_step(name):
         return {"launches": launches_by_step[-1][name],
                 "launches_by_step": [s[name] for s in launches_by_step],
-                "card": card}
+                "path": "InsituAnalyzer step", "card": card}
 
     rows = []
     wave_src = "src/repro_torch/kernels/csrc/wavefront.cu"
@@ -356,7 +673,7 @@ def phase5_kernel_line(launches_by_step, records, card):
     q = centers.shape[0]
     ms = cuda_ms(torch, lambda: kw.wavefront_count(bvh, centers, r2, **kw_args), 3)
     lanes = torch.arange(q, device=DEV)
-    (want, hops), plain_ms = timed_plain(lambda: kw.lockstep_traverse(
+    (want, hops), plain_ms = timed_once(torch, lambda: kw.lockstep_traverse(
         bvh, centers, r2, lanes, torch.zeros(q, dtype=torch.int32, device=DEV),
         kw.count_epilogue(kw_args.get("stop_at"))))
     require(torch.equal(got, want), "wavefront_count on the main path's input")
@@ -373,7 +690,7 @@ def phase5_kernel_line(launches_by_step, records, card):
         bvh, centers, r2, labels, core, mask, sentinel, **kw_args), 3)
     lanes = torch.nonzero(mask).flatten()
     init = torch.full((lanes.numel(),), sentinel, dtype=torch.int32, device=DEV)
-    (best, hops), plain_ms = timed_plain(lambda: kw.lockstep_traverse(
+    (best, hops), plain_ms = timed_once(torch, lambda: kw.lockstep_traverse(
         bvh, centers, r2, lanes, init, kw.min_label_epilogue(bvh, labels, core)))
     want = torch.full_like(got, sentinel)
     want[lanes] = best
@@ -426,21 +743,29 @@ def phase5_kernel_line(launches_by_step, records, card):
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                      **extra})
+    rows += nl_rows
     for row in rows:
-        log(f"[5] {row['name']}: {row['ms']:.4f} ms/launch x {row['launches']} "
-            f"per step, "
+        log(f"[7] {row['name']}: {row['ms']:.4f} ms/launch x {row['launches']} "
+            f"per run of {row['path']}, "
             f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}), library {row['library_ms']} ms; {card}")
     print(json.dumps({"kernels": rows}), flush=True)
 
 
-def kernel_wrappers() -> dict:
+HACC_KERNELS = ("wavefront_count", "wavefront_min_label", "segment_sum_sorted",
+                "segment_max_sorted")
+
+
+def kernel_wrappers(names=None) -> dict:
     from repro_torch.kernels import segment as ks
     from repro_torch.kernels import wavefront as kw
-    return {"wavefront_count": kw.wavefront_count,
-            "wavefront_min_label": kw.wavefront_min_label,
-            "segment_sum_sorted": ks.segment_sum_sorted,
-            "segment_max_sorted": ks.segment_max_sorted}
+    every = {"wavefront_count": kw.wavefront_count,
+             "wavefront_min_label": kw.wavefront_min_label,
+             "wavefront_fill": kw.wavefront_fill,
+             "wavefront_fixed": kw.wavefront_fixed,
+             "segment_sum_sorted": ks.segment_sum_sorted,
+             "segment_max_sorted": ks.segment_max_sorted}
+    return every if names is None else {k: every[k] for k in names}
 
 
 def main(argv=None) -> int:
@@ -477,8 +802,14 @@ def main(argv=None) -> int:
     launches_by_step, records = phase4_main_path(args.seed, 1 << args.n_log2, cfg)
     log(f"[4] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase5_kernel_line(launches_by_step, records, card)
-    log(f"[5] done in {time.perf_counter() - t0:.1f} s; "
+    nl_rows = phase5_neighbor_lists(args.seed, 1 << args.n_log2, card)
+    log(f"[5] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase6_graph_dbscan(args.seed, 1 << args.n_log2)
+    log(f"[6] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase7_kernel_line(launches_by_step, records, nl_rows, card)
+    log(f"[7] done in {time.perf_counter() - t0:.1f} s; "
         f"total {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

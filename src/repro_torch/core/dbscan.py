@@ -1,4 +1,5 @@
-"""FDBSCAN; port of ``repro/core/dbscan.py`` (``fdbscan`` and its passes).
+"""DBSCAN; port of ``repro/core/dbscan.py`` (``fdbscan`` and its passes,
+and ``dbscan_graph_cc``).
 
 Phase 1 counts ε-neighbours with early exit at ``min_pts``; phase 2 runs
 min-label hooking plus pointer jumping to a fixpoint, each round's labels
@@ -7,6 +8,12 @@ smallest root among their core neighbours. Both traversals are the
 wavefront kernel's epilogues. Hooking is a deterministic scatter-min, so
 labels (the smallest original index per cluster) and the number of rounds
 are the reference's exactly.
+
+``dbscan_graph_cc`` is the paper's pre-callback baseline: it stores the
+ε-graph in fixed per-point buffers (``query_fixed``), then runs connected
+components over the core-core edges. It needs O(n·capacity) memory, and
+its result is right only where no neighborhood exceeds the capacity; the
+port keeps both drawbacks, as the reference documents them.
 """
 from __future__ import annotations
 
@@ -17,14 +24,14 @@ import torch
 from repro_torch.core import union_find
 from repro_torch.core.bvh import Bvh, build_bvh
 from repro_torch.core.geometry import scene_bounds
-from repro_torch.core.query import query_count, squared_radii, within
+from repro_torch.core.query import query_count, query_fixed, squared_radii, within
 from repro_torch.device import as_tensor_on, resolve_device
 from repro_torch.kernels.wavefront import wavefront_min_label
 
 NOISE = -1
 
 __all__ = ["NOISE", "DbscanResult", "count_neighbors", "min_core_label_on",
-           "union_rounds", "fdbscan"]
+           "union_rounds", "fdbscan", "dbscan_graph_cc"]
 
 
 class DbscanResult(NamedTuple):
@@ -118,3 +125,49 @@ def fdbscan(points, eps, min_pts: int, *, early_stop: bool = True,
     return DbscanResult(labels=labels, core_mask=core,
                         num_rounds=torch.tensor(rounds, dtype=torch.int32,
                                                  device=dev))
+
+
+def dbscan_graph_cc(points, eps, min_pts: int, neighbor_capacity: int = 64,
+                    use_64bit: bool = True, *, device=None) -> DbscanResult:
+    """The pre-callback baseline: store the ε-graph, then run connected
+    components. Surplus neighbours overwrite the last slot of a point's
+    buffer, so the result is right only where no neighborhood exceeds
+    ``neighbor_capacity``. Runs on ``device`` (``None``: the CUDA card).
+
+    The edges handed to ``connected_components`` are the valid core-core
+    slots only; the reference passes all ``n·capacity`` slots with a mask,
+    and masked edges are no-ops, so the labels are the same."""
+    if not use_64bit:
+        raise NotImplementedError(
+            "use_64bit=False is not ported yet (ROADMAP A8)")
+    dev = resolve_device(device)
+    points = as_tensor_on(points, torch.float32, dev)
+    n = points.shape[0]
+    lo, hi = scene_bounds(points)
+    bvh = build_bvh(points, lo, hi)
+
+    nbrs, counts, _overflow = query_fixed(bvh, within(points, eps),
+                                          neighbor_capacity,
+                                          order=bvh.leaf_perm)
+    core = counts >= min_pts
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+
+    # Core-core edges from the stored graph. The buffer is this function's
+    # own, so its -1 padding is clamped to 0 in place (the reference's
+    # clip) rather than beside a copy: the buffer is the O(n·capacity)
+    # term that bounds n.
+    nbr_core = nbrs >= 0
+    flat = nbrs.clamp_(min=0).view(-1)
+    nbr_core &= core.index_select(0, flat).view(nbrs.shape)
+    src, slot = (nbr_core & core[:, None]).nonzero(as_tuple=True)
+    parent = union_find.connected_components(n, src, nbrs[src, slot])
+    del src, slot
+    parent = torch.where(core, parent, ids)
+
+    # Border: min core-neighbour root from the stored graph.
+    cand = parent.index_select(0, flat).view(nbrs.shape)
+    border = cand.masked_fill_(~nbr_core, n).amin(dim=1)
+    labels = _finish_labels(parent, border, core, n)
+    return DbscanResult(labels=labels, core_mask=core,
+                        num_rounds=torch.tensor(1, dtype=torch.int32,
+                                                device=dev))

@@ -1,10 +1,12 @@
-"""63-bit Morton codes; port of ``repro/core/morton.py`` (64-bit subset).
+"""Morton codes; port of ``repro/core/morton.py`` (30-bit and 63-bit codes
+and their sorts; ``common_prefix_length32`` and the 32-bit build remain).
 
-The reference holds a code as a ``(hi, lo)`` pair of uint32, because JAX
-runs without x64. PyTorch has no unsigned 32-bit shifts or comparisons on
-the CPU, so the port holds the same code as one int64, ``hi << 32 | lo``:
-63 bits fit, the sign bit stays clear, and signed int64 order is the
-reference's lexicographic ``(hi, lo)`` order.
+The reference holds a 63-bit code as a ``(hi, lo)`` pair of uint32, and a
+30-bit code as one uint32, because JAX runs without x64. PyTorch has no
+unsigned 32-bit shifts or comparisons on the CPU, so the port holds both
+as int64: ``hi << 32 | lo`` for the 63-bit code, the uint32 value for the
+30-bit one. The sign bit stays clear, so signed int64 order is the
+reference's order.
 
 Bit layout (as the reference): coordinate bit ``i`` of x, y, z lands at
 code bits ``3i + 2``, ``3i + 1`` and ``3i``.
@@ -15,7 +17,9 @@ import torch
 
 __all__ = [
     "normalize_points",
+    "morton32",
     "morton64",
+    "sort_by_morton32",
     "sort_by_morton64",
     "common_prefix_length64",
 ]
@@ -44,13 +48,31 @@ def _expand_bits_21(v: torch.Tensor) -> torch.Tensor:
     return v
 
 
-def morton64(unit_points: torch.Tensor) -> torch.Tensor:
-    """63-bit codes (int64) for points in [0, 1)^3. Quantization clamps in
-    float space before the integer cast, as the reference does."""
-    q = torch.clamp(torch.floor(unit_points * float(_BINS)), 0.0,
-                    float(_BINS - 1)).to(torch.int64)
+def _interleave(unit_points: torch.Tensor, bins: int) -> torch.Tensor:
+    """Quantize [0, 1)^3 to ``bins`` per axis and interleave, x highest.
+    The clamp is in float space, before the integer cast, as the
+    reference's ``_quantize``."""
+    q = torch.clamp(torch.floor(unit_points * float(bins)), 0.0,
+                    float(bins - 1)).to(torch.int64)
     return ((_expand_bits_21(q[:, 0]) << 2) | (_expand_bits_21(q[:, 1]) << 1)
             | _expand_bits_21(q[:, 2]))
+
+
+def morton32(unit_points: torch.Tensor) -> torch.Tensor:
+    """30-bit codes (int64 holding the reference's uint32) for points in
+    [0, 1)^3, 10 bits per axis."""
+    return _interleave(unit_points, 1 << 10)
+
+
+def morton64(unit_points: torch.Tensor) -> torch.Tensor:
+    """63-bit codes (int64) for points in [0, 1)^3, 21 bits per axis."""
+    return _interleave(unit_points, _BINS)
+
+
+def sort_by_morton32(codes: torch.Tensor) -> torch.Tensor:
+    """Stable argsort: equal codes keep index order, as ``jnp.argsort(...,
+    stable=True)``."""
+    return torch.sort(codes, stable=True).indices
 
 
 def sort_by_morton64(codes: torch.Tensor) -> torch.Tensor:

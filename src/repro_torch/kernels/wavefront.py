@@ -1,16 +1,25 @@
-"""Rope traversal with a fused epilogue; port of the Pallas TPU kernel
-``wavefront_traverse`` (``repro/kernels/wavefront.py:97``).
+"""Rope traversal with a fused epilogue; port of the Pallas TPU kernels
+``wavefront_traverse`` (``repro/kernels/wavefront.py:97``) and
+``wavefront_fill_round`` (``repro/kernels/wavefront.py:245``).
 
 The reference kernel takes arbitrary Python callbacks through a
 ``make_fns`` factory. A CUDA kernel cannot, so the port has a closed set
-of two epilogues, one wrapper each, both instantiations of one template in
+of four epilogues, one wrapper each, all instantiations of one template in
 ``csrc/wavefront.cu``:
 
 * :func:`wavefront_count` — ε-hit counts with optional early exit at
   ``stop_at`` (``query_count``, ``repro/core/query.py:990-993``);
 * :func:`wavefront_min_label` — the minimum ``obj_labels[j]`` over core
   objects ``j`` hit, ``sentinel`` if none, for queries in ``queries_mask``
-  (``min_core_label_on``, ``repro/core/dbscan.py:111-113``).
+  (``min_core_label_on``, ``repro/core/dbscan.py:111-113``);
+* :func:`wavefront_fill` — the fill pass of the count-then-fill CSR
+  protocol: hit ``k`` of query ``qi`` goes to ``offsets[qi] + k`` when that
+  is below ``capacity`` (``_csr_fill``, ``repro/core/query.py:1039``), in
+  one traversal where the reference resumes chunk rounds of
+  ``wavefront_fill_round``;
+* :func:`wavefront_fixed` — per-query buffers of ``capacity`` slots, surplus
+  hits overwriting the last slot, and the true counts (``query_fixed``,
+  ``repro/core/query.py:1000``).
 
 A wrapper launches the kernel for CUDA tensors and runs the plain PyTorch
 version for CPU tensors; ``<wrapper>.launches`` counts kernel launches.
@@ -30,9 +39,12 @@ from repro_torch.core.bvh import SENTINEL, Bvh
 from repro_torch.core.geometry import point_aabb_dist2
 from repro_torch.kernels import _build
 
-__all__ = ["wavefront_count", "wavefront_min_label",
-           "wavefront_count_plain", "wavefront_min_label_plain",
-           "lockstep_traverse", "count_epilogue", "min_label_epilogue"]
+__all__ = ["wavefront_count", "wavefront_min_label", "wavefront_fill",
+           "wavefront_fixed", "wavefront_count_plain",
+           "wavefront_min_label_plain", "wavefront_fill_plain",
+           "wavefront_fixed_plain", "lockstep_traverse", "count_epilogue",
+           "min_label_epilogue", "fill_epilogue", "fixed_epilogue",
+           "fill_lanes", "fixed_carry"]
 
 _INT32_MAX = 2**31 - 1
 
@@ -69,7 +81,7 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _TREE = [_P, _P, _P, _P, _P, _I]
 
 
@@ -79,7 +91,11 @@ def _lib() -> ctypes.CDLL:
     lib.wavefront_count.argtypes = _TREE + [_P, _P, _P, _I, _I, _P, _P]
     lib.wavefront_min_label.argtypes = _TREE + [_P, _P, _P, _I, _P, _P, _P,
                                                 _I, _P, _P]
-    lib.wavefront_count.restype = lib.wavefront_min_label.restype = _I
+    lib.wavefront_fill.argtypes = _TREE + [_P, _P, _P, _I, _P, _I, _L, _P, _P]
+    lib.wavefront_fixed.argtypes = _TREE + [_P, _P, _P, _I, _L, _P, _P, _P]
+    for fn in (lib.wavefront_count, lib.wavefront_min_label,
+               lib.wavefront_fill, lib.wavefront_fixed):
+        fn.restype = _I
     lib.cuda_error_string.argtypes = [_I]
     lib.cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -140,6 +156,39 @@ def min_label_epilogue(bvh: Bvh, obj_labels, obj_core):
     return epilogue
 
 
+def fill_epilogue(bvh: Bvh, indices):
+    """FILL: the carry is the next write position (int64). A hit goes to
+    ``indices[position]``; done once the position reaches
+    ``indices.numel()``, since every later hit would be dropped."""
+    n, capacity = bvh.num_leaves, indices.numel()
+    leaf_perm = bvh.leaf_perm
+
+    def epilogue(pos, node, leaf_hit):
+        w = torch.nonzero(leaf_hit).flatten()
+        indices[pos[w]] = leaf_perm[node[w] - (n - 1)]
+        pos = pos + leaf_hit.to(pos.dtype)
+        return pos, pos >= capacity
+    return epilogue
+
+
+def fixed_epilogue(bvh: Bvh, buf):
+    """FIXED: the carry is ``(m, 2)`` int64, the hits so far and the query
+    index. Hit ``k`` goes to ``buf[query, min(k, capacity - 1)]``; never
+    done."""
+    n, capacity = bvh.num_leaves, buf.shape[1]
+    leaf_perm, flat = bvh.leaf_perm, buf.view(-1)
+
+    def epilogue(carry, node, leaf_hit):
+        count, qi = carry[:, 0], carry[:, 1]
+        if capacity:
+            w = torch.nonzero(leaf_hit).flatten()
+            slot = count[w].clamp(max=capacity - 1)
+            flat[qi[w] * capacity + slot] = leaf_perm[node[w] - (n - 1)]
+        count = count + leaf_hit.to(count.dtype)
+        return torch.stack([count, qi], 1), torch.zeros_like(leaf_hit)
+    return epilogue
+
+
 def wavefront_count_plain(bvh: Bvh, centers, r2, stop_at=None):
     """ε-hit counts per query, saturating at ``stop_at`` when it is set."""
     q = centers.shape[0]
@@ -160,6 +209,43 @@ def wavefront_min_label_plain(bvh: Bvh, centers, r2, obj_labels, obj_core,
         bvh, centers, r2, lanes, out[lanes],
         min_label_epilogue(bvh, obj_labels, obj_core))[0]
     return out
+
+
+def fill_lanes(offsets, capacity: int):
+    """The queries FILL walks, those whose row starts below ``capacity``,
+    and their first write positions (int64)."""
+    start = offsets[:-1].long()
+    lanes = torch.nonzero(start < capacity).flatten()
+    return lanes, start[lanes]
+
+
+def wavefront_fill_plain(bvh: Bvh, centers, r2, offsets, capacity: int):
+    """(capacity,) int32: hit ``k`` of query ``qi``, in traversal order, at
+    ``offsets[qi] + k`` when that is below ``capacity``; -1 elsewhere."""
+    indices = torch.full((capacity,), -1, dtype=torch.int32,
+                         device=centers.device)
+    lanes, start = fill_lanes(offsets, capacity)
+    lockstep_traverse(bvh, centers, r2, lanes, start,
+                      fill_epilogue(bvh, indices))
+    return indices
+
+
+def fixed_carry(q: int, device):
+    """FIXED's initial carry: zero hits, and each query's own index."""
+    lanes = torch.arange(q, device=device)
+    return lanes, torch.stack([torch.zeros_like(lanes), lanes], 1)
+
+
+def wavefront_fixed_plain(bvh: Bvh, centers, r2, capacity: int):
+    """``(buf (q, capacity) int32, counts (q,) int32)``: hit ``k`` of each
+    query at slot ``min(k, capacity - 1)`` of its row, -1 in unused slots,
+    and the true hit counts."""
+    buf = torch.full((centers.shape[0], capacity), -1, dtype=torch.int32,
+                     device=centers.device)
+    lanes, carry0 = fixed_carry(centers.shape[0], centers.device)
+    carry = lockstep_traverse(bvh, centers, r2, lanes, carry0,
+                              fixed_epilogue(bvh, buf))[0]
+    return buf, carry[:, 0].to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -217,5 +303,64 @@ def wavefront_min_label(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
     return out
 
 
+def wavefront_fill(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
+                   offsets: torch.Tensor, capacity: int, *,
+                   order: torch.Tensor | None = None) -> torch.Tensor:
+    """(capacity,) int32 CSR indices: hit ``k`` of query ``qi``, in
+    traversal order, at ``offsets[qi] + k`` when that is below
+    ``capacity``; hits at or past it are dropped, and -1 fills the rest.
+    ``offsets`` is the (q+1,) int32 or int64 exclusive scan of the counts;
+    positions are int64 in the kernel either way. ``order`` is the order
+    in which threads take queries; it changes no result."""
+    _check_inputs(bvh, centers, r2, order)
+    q, capacity = centers.shape[0], int(capacity)
+    if offsets.dtype not in (torch.int32, torch.int64) \
+            or offsets.shape != (q + 1,) or capacity < 0:
+        raise ValueError("offsets must be (q+1,) int32 or int64 and "
+                         "capacity >= 0")
+    if not centers.is_cuda:
+        return wavefront_fill_plain(bvh, centers, r2, offsets, capacity)
+    indices = torch.full((capacity,), -1, dtype=torch.int32,
+                         device=centers.device)
+    if q == 0 or capacity == 0:
+        return indices
+    lib = _lib()
+    code = lib.wavefront_fill(
+        *_tree_args(bvh), _ptr(order), _ptr(centers), _ptr(r2), q,
+        _ptr(offsets), int(offsets.dtype == torch.int64), capacity,
+        _ptr(indices), _stream())
+    _build.check(lib, code, "wavefront_fill")
+    wavefront_fill.launches += 1
+    return indices
+
+
+def wavefront_fixed(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
+                    capacity: int, *, order: torch.Tensor | None = None):
+    """``(buf, counts)``: ``buf`` (q, capacity) int32 holds hit ``k`` of
+    each query, in traversal order, at slot ``min(k, capacity - 1)`` (so
+    the last slot ends with the last hit), -1 in unused slots; ``counts``
+    (q,) int32 the true hit counts. ``order`` changes no result."""
+    _check_inputs(bvh, centers, r2, order)
+    q, capacity = centers.shape[0], int(capacity)
+    if capacity < 0:
+        raise ValueError("capacity must be >= 0")
+    if not centers.is_cuda:
+        return wavefront_fixed_plain(bvh, centers, r2, capacity)
+    buf = torch.full((q, capacity), -1, dtype=torch.int32,
+                     device=centers.device)
+    counts = torch.empty(q, dtype=torch.int32, device=centers.device)
+    if q == 0:
+        return buf, counts
+    lib = _lib()
+    code = lib.wavefront_fixed(
+        *_tree_args(bvh), _ptr(order), _ptr(centers), _ptr(r2), q, capacity,
+        _ptr(buf), _ptr(counts), _stream())
+    _build.check(lib, code, "wavefront_fixed")
+    wavefront_fixed.launches += 1
+    return buf, counts
+
+
 wavefront_count.launches = 0
 wavefront_min_label.launches = 0
+wavefront_fill.launches = 0
+wavefront_fixed.launches = 0

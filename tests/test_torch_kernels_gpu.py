@@ -10,6 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import query as tq  # noqa: E402
 from repro_torch.core.bvh import build_bvh  # noqa: E402
 from repro_torch.core.geometry import scene_bounds  # noqa: E402
 from repro_torch.data.pipeline import make_clustered_points  # noqa: E402
@@ -91,3 +92,48 @@ def test_launch_counters_count_kernel_launches(cuda):
     before = kw.wavefront_count.launches
     kw.wavefront_count(bvh, pts, r2)
     assert kw.wavefront_count.launches == before + 1
+
+
+def _offsets(counts, dtype):
+    return torch.cat([torch.zeros(1, dtype=dtype, device=counts.device),
+                      torch.cumsum(counts, 0, dtype=dtype)])
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("cut", [1, 2, 0])
+def test_wavefront_fill_matches_plain(cuda, dtype, cut):
+    """Exact capacity, half of it (truncation), and capacity 0."""
+    pts, bvh = _tree(cuda, 6000, 11)
+    r2 = torch.full((pts.shape[0],), 0.02 ** 2, device=cuda)
+    offsets = _offsets(kw.wavefront_count(bvh, pts, r2), dtype)
+    capacity = int(offsets[-1]) // cut if cut else 0
+    got = kw.wavefront_fill(bvh, pts, r2, offsets, capacity, order=bvh.leaf_perm)
+    want = kw.wavefront_fill_plain(bvh, pts, r2, offsets, capacity)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("capacity", [0, 1, 8, 512])
+def test_wavefront_fixed_matches_plain(cuda, capacity):
+    pts, bvh = _tree(cuda, 5000, 12)
+    rng = np.random.default_rng(capacity)
+    r2 = torch.from_numpy(rng.uniform(0, 0.03, 5000).astype(np.float32) ** 2).to(cuda)
+    got = kw.wavefront_fixed(bvh, pts, r2, capacity, order=bvh.leaf_perm)
+    want = kw.wavefront_fixed_plain(bvh, pts, r2, capacity)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_csr_device_makes_no_host_sync(cuda):
+    pts, bvh = _tree(cuda, 4000, 13)
+    pred = tq.within(pts, 0.02)
+    counts = tq.query_count(bvh, pred)
+    torch.cuda.synchronize()
+    before = (kw.wavefront_count.launches, kw.wavefront_fill.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = tq.query_csr_device(bvh, pred, 5000, order=bvh.leaf_perm)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (kw.wavefront_count.launches, kw.wavefront_fill.launches) == \
+        (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(res.offsets.diff(), counts, rtol=0, atol=0)
