@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the port's HACC in-situ halo-finding path on one CUDA card.
+"""Drive every path of the port on one CUDA card.
 
     python3 chip_smoke.py [--seed 0] [--n-log2 24]
+
+The paths: HACC in-situ halo finding, ArborX's neighbor lists, the
+adjacency-graph DBSCAN, the grid DBSCAN and the eps-pairwise ops.
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. Phases, each of which must pass:
@@ -13,17 +16,22 @@ CUDA toolkit. Phases, each of which must pass:
    traversal epilogues (COUNT, MIN_LABEL, FILL at an exact capacity, at
    half of it and with int64 offsets, FIXED with overflowing and ample
    buffers) on a tree of 2^20 clustered points (exact), the segment
-   reductions at the catalog's shapes, 2^24 x 8 and 2^24 x 1.
+   reductions at the catalog's shapes, 2^24 x 8 and 2^24 x 1; the stencil
+   kernels on 2^21 uniform points in 128^3 eps-cells at capacities 16 and
+   48, every slot, and the all-pairs kernels at 3000 x 5000 for d = 1, 3,
+   64 and 100 (all bit-exact).
 3. The card against the plain path on the CPU: the in-situ step at 2^18
    particles (labels, core mask, rounds and the catalog's integer fields
    exact, float fields to a stated tolerance); at 2^16, ``query_csr``
    exact, ``query_csr_device`` at half the total, ``query_csr_buffered``
-   from capacity 8 and ``dbscan_graph_cc``, all exact.
+   from capacity 8 and ``dbscan_graph_cc``, all exact; ``fdbscan_grid``
+   and ``fdbscan_grid_auto`` (from capacity 2) at 2^18 uniform points,
+   and ``eps_neighbor_counts``/``eps_min_label`` at 2^12 x 64, all exact.
 4. The main path: ``InsituAnalyzer`` in simulation mode over two analysis
    steps of 2^24 particles (4096 Plummer spheres plus 20% background).
    The launch counters are set to 0 before each step and read after it;
    every kernel must have launched in each step. The step's time and peak
-   memory are the path's own; the kernels' inputs for phase 7 are recorded
+   memory are the path's own; the kernels' inputs for phase 9 are recorded
    afterwards, in an untimed rerun of the second step.
 5. Neighbor lists at full size, on phase 4's cloud and eps: ``query_csr``
    exact (counters set to 0 before it: COUNT 1, FILL 1), then
@@ -35,7 +43,19 @@ CUDA toolkit. Phases, each of which must pass:
    n <= 2^24 whose run fits in 60 GB of device memory, with the neighbor
    capacity at the smallest power of two at or above the largest count;
    its labels and core mask must equal ``fdbscan``'s on the same points.
-7. One JSON line with each kernel's launches on its path, time per launch
+7. Grid DBSCAN at full size: 2^24 uniform points in the unit cube, eps =
+   2^-8 (the mean spacing, 256^3 cells), ``min_pts = 5``:
+   ``fdbscan_grid_auto`` from capacity 4, then ``fdbscan_grid`` at the
+   capacity it found, timed, with stencil_count 1 and stencil_min_label
+   rounds + 1 launches; both kernels against their plain versions at the
+   path's own inputs; and the grid's counts against the exact ``fdbscan``
+   counts, every difference explained by pairs inside the rounding band of
+   the grid's distance formula.
+8. The all-pairs ops at full size: 2^16 points in d = 64 from 64 Gaussian
+   clusters, eps the 1% quantile of the pairwise distances of a 512-row
+   sample; ``eps_neighbor_counts`` then ``eps_min_label`` (core = counts
+   >= 5), each kernel against its plain version.
+9. One JSON line with each kernel's launches on its path, time per launch
    at that path's inputs, bound with the card's name and power limit
    beside it, plain version's time and library yardstick.
 
@@ -69,6 +89,8 @@ FLOPS_PER_HOP = 3 * 4 + 3 + 2 + 1
 DT = 1e-3
 OVERDENSITY = 1e4
 SPHERES_AT_2_24 = 4096
+# scikit-learn DBSCAN's default min_samples, the point itself counted.
+GRID_MIN_PTS = 5
 
 
 def log(msg: str) -> None:
@@ -379,7 +401,7 @@ def phase4_main_path(seed: int, n: int, cfg):
             f"(their 50/90/99th percentiles {pct})")
         del bvh, cnt
 
-    # The kernels' inputs for phase 7: step 1's path once more, untimed,
+    # The kernels' inputs for phase 9: step 1's path once more, untimed,
     # keeping each kernel's first call.
     taps = {"wavefront_count": (query, "wavefront_count"),
             "wavefront_min_label": (dbscan, "wavefront_min_label"),
@@ -655,7 +677,421 @@ def phase6_graph_dbscan(seed: int, n_max: int, min_pts: int = 2,
         f"labels and core mask == fdbscan bit for bit")
 
 
-def phase7_kernel_line(launches_by_step, records, nl_rows, card):
+def pair_ops(d: int) -> int:
+    """Float operations per pair test of the eps-pairwise kernels at width
+    d: d products and d sums for x.y, the norm sum, 2 x.y, the difference
+    and the compare."""
+    return 2 * d + 4
+
+
+def occupied_pair_tests(torch, cell_pts, nbr, chunk: int = 1 << 20) -> int:
+    """Pair tests between occupied slots of a stencil pass: the sum over
+    cells of the cell's points times the points of its stencil's cells.
+    A padded slot sits at BIG and needs no arithmetic; the sink row and
+    ids outside [0, ncells] hold none."""
+    from repro_torch.kernels.pairwise import BIG
+    occ = (cell_pts[:, :, 0] < BIG).sum(1)
+    ncells = nbr.shape[0]
+    total = 0
+    for lo in range(0, ncells, chunk):
+        hi = min(lo + chunk, ncells)
+        ids = nbr[lo:hi].long()
+        ids = torch.where((ids >= 0) & (ids <= ncells), ids, ncells)
+        total += int((occ[lo:hi] * occ[ids].sum(1)).sum())
+    return total
+
+
+def uniform_cube(seed: int, n: int):
+    return np.random.default_rng(seed).random((n, 3), dtype=np.float32)
+
+
+def grid_eps(n: int) -> float:
+    """The power of two nearest the mean spacing n^(-1/3) of n points in
+    the unit cube; binning by a power of two is exact."""
+    return 2.0 ** -round(np.log2(n) / 3)
+
+
+def gaussian_clusters(seed: int, n: int, d: int = 64, k: int = 64):
+    """n points in d dimensions from k Gaussian clusters of equal weight:
+    centres N(0, 1), spread 0.05 per axis."""
+    rng = np.random.default_rng(seed)
+    centres = rng.standard_normal((k, d))
+    pts = centres[rng.integers(0, k, n)] + 0.05 * rng.standard_normal((n, d))
+    return pts.astype(np.float32)
+
+
+def quantile_eps(pts, q: float, seed: int, rows: int = 512) -> float:
+    """sqrt of the q-quantile of the squared pairwise distances over a
+    seeded sample of ``rows`` points, as the reference's in-situ analysis
+    picks eps (``eps_quantile = 0.01`` over ``sample_rows = 512``)."""
+    rng = np.random.default_rng(seed)
+    sample = pts[rng.choice(len(pts), min(rows, len(pts)), replace=False)]
+    s = sample.astype(np.float64)
+    d2 = ((s[:, None] - s[None]) ** 2).sum(-1)
+    return float(np.sqrt(np.quantile(d2[np.triu_indices(len(s), 1)], q)))
+
+
+def device_profile(torch, fn, top: int = 8):
+    """Wall seconds of ``fn()`` under ``torch.profiler``, the device's busy
+    seconds in it, and its ``top`` kernels as (ms, launches, name)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # Device-side events only: the operators that launched them carry the
+    # same time again.
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    return wall, busy, [(e.self_device_time_total / 1e3, e.count, e.key[:60])
+                        for e in events[:top]]
+
+
+def phase2_pairwise_kernels(seed: int, n_log2: int = 21):
+    import torch
+    from repro_torch.core import fdbscan_grid as tgrid
+    from repro_torch.kernels import pairwise as kp
+    from repro_torch.kernels.ops import eps_squared
+
+    n = 1 << n_log2
+    eps = grid_eps(n)
+    pts = torch.from_numpy(uniform_cube(seed + 6, n)).to(DEV)
+    dims = tgrid.grid_dims_for(np.zeros(3), np.ones(3), eps)
+    nbr = tgrid.stencil_neighbor_map(dims, device=DEV)
+    eps2 = eps_squared(eps)
+    rng = np.random.default_rng(seed + 7)
+    labels = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(DEV)
+    core = torch.from_numpy(rng.random(n) < 0.5).to(DEV)
+    for cap in (16, 48):             # 48 is not a multiple of a warp
+        bins = tgrid.bin_points(pts, np.zeros(3, np.float32), eps, dims, cap)
+        require(not bool(bins.overflowed), f"capacity {cap} overflows")
+        slot = bins.slot_of_point.long()
+        lab = tgrid._scatter_slots(labels, kp.SENTINEL_LABEL, bins, slot)
+        cor = tgrid._scatter_slots(core, False, bins, slot, dtype=torch.bool)
+        got = kp.stencil_count(bins.cell_pts, nbr, eps2)
+        require(torch.equal(got, kp.stencil_count_plain(bins.cell_pts, nbr, eps2)),
+                f"stencil_count capacity {cap}")
+        mean = got.view(-1)[slot].float().mean().item()
+        got = kp.stencil_min_label(bins.cell_pts, lab, cor, nbr, eps2)
+        want = kp.stencil_min_label_plain(bins.cell_pts, lab, cor, nbr, eps2)
+        require(torch.equal(got, want), f"stencil_min_label capacity {cap}")
+        log(f"[2] stencil_count and stencil_min_label, {dims} cells, capacity "
+            f"{cap}: exact at all {got.numel()} slots (padded ones included); "
+            f"mean count {mean:.3f} over {n} points")
+        del bins, slot, lab, cor, got, want
+    del pts, nbr, labels, core
+
+    for d in (1, 3, 64, 100):
+        x = rng.random((3000, d), dtype=np.float32)
+        y = rng.random((5000, d), dtype=np.float32)
+        eps2 = eps_squared(quantile_eps(np.concatenate([x, y]), 0.01, seed + d))
+        xt, yt = torch.from_numpy(x).to(DEV), torch.from_numpy(y).to(DEV)
+        lab = torch.from_numpy(rng.permutation(5000).astype(np.int32)).to(DEV)
+        cor = torch.from_numpy(rng.random(5000) < 0.4).to(DEV)
+        got = kp.pairwise_count(xt, yt, eps2)
+        require(torch.equal(got, kp.pairwise_count_plain(xt, yt, eps2)),
+                f"pairwise_count d={d}")
+        got_m = kp.pairwise_min_label(xt, yt, lab, cor, eps2)
+        want_m = kp.pairwise_min_label_plain(xt, yt, lab, cor, eps2)
+        require(torch.equal(got_m, want_m), f"pairwise_min_label d={d}")
+        log(f"[2] pairwise_count and pairwise_min_label 3000 x 5000, d={d}: "
+            f"exact; mean count {got.float().mean().item():.2f}, "
+            f"{int((got_m != kp.SENTINEL_LABEL).sum())} rows with a core hit")
+
+
+def phase3_grid_and_pairwise(seed: int, n: int = 1 << 18, n_pairs: int = 1 << 12):
+    import torch
+    from repro_torch.core import fdbscan_grid as tgrid
+    from repro_torch.kernels import ops
+
+    pts = uniform_cube(seed + 8, n)
+    eps = grid_eps(n)
+    lo, hi = np.zeros(3, np.float32), np.ones(3, np.float32)
+    dims = tgrid.grid_dims_for(lo, hi, eps)
+    # The CPU runs the auto driver only (its last attempt is fdbscan_grid
+    # at the capacity it found): the plain path there takes ~40 s a run.
+    t0 = time.perf_counter()
+    auto_c, info_c = tgrid.fdbscan_grid_auto(
+        pts, eps, GRID_MIN_PTS, scene_lo=lo, scene_hi=hi, capacity=2,
+        with_info=True, device="cpu")
+    log(f"[3] fdbscan_grid_auto on cpu: {time.perf_counter() - t0:.1f} s, {info_c}")
+    t0 = time.perf_counter()
+    auto_g, info_g = tgrid.fdbscan_grid_auto(
+        pts, eps, GRID_MIN_PTS, scene_lo=lo, scene_hi=hi, capacity=2,
+        with_info=True, device=DEV)
+    grid_g, ovf = tgrid.fdbscan_grid(pts, eps, GRID_MIN_PTS, scene_lo=lo,
+                                     grid_dims=dims, capacity=info_c.capacity,
+                                     device=DEV)
+    log(f"[3] fdbscan_grid_auto and fdbscan_grid on {DEV}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    require(tuple(info_g) == tuple(info_c), "GridAutoInfo card vs CPU")
+    require(not bool(ovf), "fdbscan_grid overflowed at the auto capacity")
+    for what, res in (("fdbscan_grid_auto", auto_g), ("fdbscan_grid", grid_g)):
+        for f in auto_c._fields:
+            require(torch.equal(getattr(res, f).cpu(), getattr(auto_c, f)),
+                    f"{what}.{f} card vs CPU")
+    nclu = int(torch.unique(auto_c.labels[auto_c.labels >= 0]).numel())
+    log(f"[3] card == CPU at {n} uniform points, eps {eps}, dims {dims}: "
+        f"{info_c}, {int(auto_c.num_rounds)} rounds, "
+        f"{int(auto_c.core_mask.sum())} core points, {nclu} clusters; labels, "
+        f"core mask, rounds and overflowed exact")
+
+    x = gaussian_clusters(seed + 9, n_pairs)
+    eps = quantile_eps(x, 0.01, seed + 10)
+    out = {}
+    for dev in (DEV, "cpu"):
+        xt = torch.from_numpy(x).to(dev)
+        counts = ops.eps_neighbor_counts(xt, xt, eps)
+        ids = torch.arange(n_pairs, dtype=torch.int32, device=dev)
+        out[dev] = (counts, ops.eps_min_label(xt, xt, ids, counts >= 5, eps))
+    for what, a, b in zip(("eps_neighbor_counts", "eps_min_label"), out[DEV],
+                          out["cpu"]):
+        require(torch.equal(a.cpu(), b), f"{what} card vs CPU")
+    log(f"[3] card == CPU: eps_neighbor_counts and eps_min_label at "
+        f"{n_pairs} x 64, eps {eps:.6g}, mean count "
+        f"{out['cpu'][0].float().mean().item():.1f}")
+
+
+def phase7_grid(seed: int, n: int, card: str):
+    import torch
+    from repro_torch.core import fdbscan_grid as tgrid
+    from repro_torch.core import query as tq
+    from repro_torch.core.bvh import build_bvh
+    from repro_torch.core.dbscan import count_neighbors, fdbscan
+    from repro_torch.core.geometry import scene_bounds
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pairwise as kp
+
+    t0 = time.perf_counter()
+    pts = torch.from_numpy(uniform_cube(seed + 11, n)).to(DEV)
+    eps = grid_eps(n)
+    lo, hi = np.zeros(3, np.float32), np.ones(3, np.float32)
+    dims = tgrid.grid_dims_for(lo, hi, eps)
+    log(f"[7] {n} uniform points, eps {eps} ({dims} cells), min_pts "
+        f"{GRID_MIN_PTS}; made in {time.perf_counter() - t0:.1f} s")
+    kernels = {"stencil_count": kp.stencil_count,
+               "stencil_min_label": kp.stencil_min_label}
+
+    def zero():
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    held = zero()               # earlier phases' tensors, counted in the peak
+    t0 = time.perf_counter()
+    auto, info = tgrid.fdbscan_grid_auto(pts, eps, GRID_MIN_PTS, scene_lo=lo,
+                                         scene_hi=hi, capacity=4,
+                                         with_info=True, device=DEV)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    rounds = int(auto.num_rounds)
+    peak = torch.cuda.max_memory_allocated() - held
+    log(f"[7] fdbscan_grid_auto from capacity 4: {info}, {secs:.3f} s, peak "
+        f"memory {peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held "
+        f"before, {rounds} rounds, launches {launches}")
+    require(launches == {"stencil_count": 1, "stencil_min_label": rounds + 1},
+            "overflowing attempts launch nothing; the last one 1 and rounds + 1")
+    cap = info.capacity
+
+    runs = []
+    for run in range(2):
+        held = zero()
+        t0 = time.perf_counter()
+        res, ovf = tgrid.fdbscan_grid(pts, eps, GRID_MIN_PTS, scene_lo=lo,
+                                      grid_dims=dims, capacity=cap, device=DEV)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - held
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        rounds = int(res.num_rounds)
+        runs.append(secs)
+        log(f"[7] fdbscan_grid capacity {cap}, run {run}: {secs:.4f} s, peak "
+            f"memory {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB) above the "
+            f"{held / 2**30:.2f} GiB held before, {rounds} rounds, launches "
+            f"{launches}")
+        require(not bool(ovf), "fdbscan_grid overflowed at the auto capacity")
+        require(launches == {"stencil_count": 1, "stencil_min_label": rounds + 1},
+                "fdbscan_grid launches stencil_count 1, stencil_min_label "
+                "rounds + 1")
+    for f in res._fields:
+        require(torch.equal(getattr(res, f), getattr(auto, f)),
+                f"fdbscan_grid.{f} == fdbscan_grid_auto's")
+    del auto
+    wall, busy, top = device_profile(torch, lambda: tgrid.fdbscan_grid(
+        pts, eps, GRID_MIN_PTS, scene_lo=lo, grid_dims=dims, capacity=cap,
+        device=DEV))
+    log(f"[7] one fdbscan_grid run under torch.profiler: wall {wall:.4f} s, "
+        f"device busy {busy:.4f} s, idle share {1 - busy / wall:.3f}; device "
+        f"time by kernel: " + "; ".join(
+            f"{ms:.3f} ms x{cnt} {name}" for ms, cnt, name in top))
+
+    # The kernels' inputs: the same run once more, untimed, keeping the
+    # count pass and the first min-label pass (tapped where the path calls
+    # them, so that the wrappers' counters stay untouched).
+    count_calls, min_calls = [], []
+    with tap(ops, "cell_stencil_counts", count_calls), \
+            tap(ops, "cell_stencil_min_label", min_calls):
+        tgrid.fdbscan_grid(pts, eps, GRID_MIN_PTS, scene_lo=lo, grid_dims=dims,
+                           capacity=cap, device=DEV)
+    rows = []
+    for name, calls, plain in (
+            ("stencil_count", count_calls, kp.stencil_count_plain),
+            ("stencil_min_label", min_calls, kp.stencil_min_label_plain)):
+        tapped, _, got = calls[0]
+        args = (*tapped[:-1], ops.eps_squared(tapped[-1]))
+        want, plain_ms = timed_once(torch, lambda: plain(*args))
+        require(torch.equal(got, want), f"{name} on the grid path's input")
+        del want
+        ms = cuda_ms(torch, lambda: kernels[name](*args), 3)
+        cell_pts, nbr = args[0], args[-2]
+        ncells, s = nbr.shape
+        c, d = cell_pts.shape[1:]
+        padded = ncells * s * c * c
+        pairs = occupied_pair_tests(torch, cell_pts, nbr)
+        # Reads: the cells, the map (labels and core too); writes: (ncells, C).
+        nb = sum(t.numel() * t.element_size() for t in args[:-1]) + ncells * c * 4
+        b_ms, b_by = bound(nb, pairs * pair_ops(d))
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/pairwise.cu",
+                     "replaces": ("src/repro/kernels/pairwise.py:166"
+                                  if name == "stencil_count" else
+                                  "src/repro/kernels/pairwise.py:197"),
+                     "launches": launches[name],
+                     "path": f"fdbscan_grid at {n} points, capacity {cap}",
+                     "card": card, "max_abs_err": 0.0, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None, "pair_tests": pairs,
+                     "padded_pair_tests": padded, "bytes": nb,
+                     "ops_per_pair": pair_ops(d), "fdbscan_grid_s": runs})
+        log(f"[7] {name} on the path's input == its plain version "
+            f"({plain_ms:.1f} ms); kernel {ms:.3f} ms, bound {b_ms:.3f} ms "
+            f"({b_by}: {nb} bytes, {pairs} pair tests between occupied slots;"
+            f" the kernel makes {padded}, padded slots included)")
+    counts_cells = count_calls[0][2]
+    del count_calls, min_calls, args, tapped
+
+    # The grid's per-point counts against the exact (Σ(x−y)²) BVH counts.
+    bins = tgrid.bin_points(pts, lo, eps, dims, cap)
+    grid_counts = tgrid._gather_slots(counts_cells, bins.slot_of_point.long(), 0)
+    del bins, counts_cells
+    bvh = build_bvh(pts, *scene_bounds(pts))
+    exact = count_neighbors(bvh, pts, eps, order=bvh.leaf_perm)
+    diff = grid_counts - exact
+    idx = torch.nonzero(diff).flatten()
+    # Every pair the expanded formula can put on the other side of eps lies
+    # in the band |d² − eps²| <= 8u(‖x‖² + ‖y‖² + 2|x·y|), u = 2^-24, so
+    # within sqrt(eps² + 96u) < 1.25 eps in the unit cube: find them there.
+    csr = tq.query_csr(bvh, tq.within(pts[idx], 1.25 * eps), sort_queries=True)
+    rows_of = torch.repeat_interleave(
+        torch.arange(idx.numel(), device=DEV), csr.offsets.diff().long())
+    xi = pts[idx].double()[rows_of]
+    yj = pts[csr.indices.long()].double()
+    d2 = ((xi - yj) ** 2).sum(1)
+    xx, yy, xy = (xi * xi).sum(1), (yj * yj).sum(1), (xi * yj).sum(1)
+    band = 8 * 2.0 ** -24 * (xx + yy + 2 * xy.abs())
+    in_band = ((d2 - eps * eps).abs() <= band).int()
+    band_pairs = torch.zeros(idx.numel(), dtype=torch.int32, device=DEV)
+    band_pairs.index_add_(0, rows_of, in_band)
+    explained = bool((band_pairs >= diff[idx].abs()).all())
+    del xi, yj, d2, xx, yy, xy, band, in_band, csr, rows_of, bvh
+
+    ref = fdbscan(pts, eps, GRID_MIN_PTS, device=DEV)
+    pairs = (int(exact.sum(dtype=torch.int64)) - n) // 2
+    ndiff = idx.numel()
+    core_diff = int((res.core_mask != ref.core_mask).sum())
+    label_diff = int((res.labels != ref.labels).sum())
+    nclu = int(torch.unique(res.labels[res.labels >= 0]).numel())
+    log(f"[7] against fdbscan: {pairs} eps-pairs; {ndiff} points "
+        f"({ndiff / n:.5f}) with a different count (grid - exact: "
+        f"{int((diff > 0).sum())} more, {int((diff < 0).sum())} fewer, "
+        f"largest |difference| {int(diff.abs().max()) if ndiff else 0}, "
+        f"sum of |differences| {int(diff.abs().sum(dtype=torch.int64))}), "
+        f"{int(band_pairs.sum())} band pairs at them; {core_diff} core flags "
+        f"and {label_diff} labels differ; grid {nclu} clusters, fdbscan "
+        f"{int(torch.unique(ref.labels[ref.labels >= 0]).numel())}; "
+        f"fdbscan {int(ref.num_rounds)} rounds, grid {rounds}")
+    require(explained, "every count difference is explained by band pairs")
+    del pts, ref, res, exact, grid_counts, diff, idx, band_pairs
+
+    return rows
+
+
+def phase8_all_pairs(seed: int, n: int, card: str):
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pairwise as kp
+
+    x_np = gaussian_clusters(seed + 12, n)
+    eps = quantile_eps(x_np, 0.01, seed + 13)
+    x = torch.from_numpy(x_np).to(DEV)
+    del x_np
+    ids = torch.arange(n, dtype=torch.int32, device=DEV)
+    kernels = {"pairwise_count": kp.pairwise_count,
+               "pairwise_min_label": kp.pairwise_min_label}
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    counts = ops.eps_neighbor_counts(x, x, eps)
+    core = counts >= 5
+    minlab = ops.eps_min_label(x, x, ids, core, eps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    log(f"[8] {n} x 64 from 64 clusters, eps {eps:.6g}: eps_neighbor_counts "
+        f"+ eps_min_label in {secs:.4f} s, launches {launches}; mean count "
+        f"{counts.float().mean().item():.1f}, {int(core.sum())} core, "
+        f"{int((minlab != kp.SENTINEL_LABEL).sum())} rows with a core hit")
+    require(launches == {"pairwise_count": 1, "pairwise_min_label": 1},
+            "one launch of each all-pairs kernel")
+    eps2 = ops.eps_squared(eps)
+    eps_t = torch.tensor(eps, dtype=torch.float32)
+    sentinel = kp.SENTINEL_LABEL
+    rows = []
+    for name, args, got, plain, library in (
+            ("pairwise_count", (x, x, eps2), counts, kp.pairwise_count_plain,
+             lambda: (torch.cdist(x, x) <= eps_t).sum(1)),
+            ("pairwise_min_label", (x, x, ids, core, eps2), minlab,
+             kp.pairwise_min_label_plain,
+             lambda: torch.where((torch.cdist(x, x) <= eps_t) & core,
+                                 ids, sentinel).amin(1))):
+        want, plain_ms = timed_once(torch, lambda: plain(*args))
+        require(torch.equal(got, want), f"{name} on the all-pairs input")
+        del want
+        ms = cuda_ms(torch, lambda: kernels[name](*args), 3)
+        lib_ms = cuda_ms(torch, library, 3)
+        torch.cuda.empty_cache()
+        m, d = x.shape
+        nb = sum(t.numel() * t.element_size() for t in args[:-1]
+                 if torch.is_tensor(t)) + m * 4
+        b_ms, b_by = bound(nb, m * n * pair_ops(d))
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/pairwise.cu",
+                     "replaces": ("src/repro/kernels/pairwise.py:91"
+                                  if name == "pairwise_count" else
+                                  "src/repro/kernels/pairwise.py:113"),
+                     "launches": launches[name],
+                     "path": f"eps_neighbor_counts + eps_min_label, {n} x {d}",
+                     "card": card, "max_abs_err": 0.0, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": lib_ms,
+                     "library": "torch.cdist <= eps, then sum / masked amin",
+                     "pair_tests": m * n, "ops_per_pair": pair_ops(d)})
+        log(f"[8] {name} == its plain version ({plain_ms:.1f} ms); kernel "
+            f"{ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), cdist {lib_ms:.3f} ms")
+    return rows
+
+
+def phase9_kernel_line(launches_by_step, records, more_rows, card):
     import torch
     from repro_torch.kernels import segment as ks
     from repro_torch.kernels import wavefront as kw
@@ -743,9 +1179,9 @@ def phase7_kernel_line(launches_by_step, records, nl_rows, card):
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                      **extra})
-    rows += nl_rows
+    rows += more_rows
     for row in rows:
-        log(f"[7] {row['name']}: {row['ms']:.4f} ms/launch x {row['launches']} "
+        log(f"[9] {row['name']}: {row['ms']:.4f} ms/launch x {row['launches']} "
             f"per run of {row['path']}, "
             f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}), library {row['library_ms']} ms; {card}")
@@ -757,6 +1193,7 @@ HACC_KERNELS = ("wavefront_count", "wavefront_min_label", "segment_sum_sorted",
 
 
 def kernel_wrappers(names=None) -> dict:
+    from repro_torch.kernels import pairwise as kp
     from repro_torch.kernels import segment as ks
     from repro_torch.kernels import wavefront as kw
     every = {"wavefront_count": kw.wavefront_count,
@@ -764,7 +1201,11 @@ def kernel_wrappers(names=None) -> dict:
              "wavefront_fill": kw.wavefront_fill,
              "wavefront_fixed": kw.wavefront_fixed,
              "segment_sum_sorted": ks.segment_sum_sorted,
-             "segment_max_sorted": ks.segment_max_sorted}
+             "segment_max_sorted": ks.segment_max_sorted,
+             "stencil_count": kp.stencil_count,
+             "stencil_min_label": kp.stencil_min_label,
+             "pairwise_count": kp.pairwise_count,
+             "pairwise_min_label": kp.pairwise_min_label}
     return every if names is None else {k: every[k] for k in names}
 
 
@@ -794,9 +1235,11 @@ def main(argv=None) -> int:
                        halo_min_count=10, halo_capacity=1 << 20)
     t0 = time.perf_counter()
     phase2_kernels(args.seed)
+    phase2_pairwise_kernels(args.seed)
     log(f"[2] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase3_whole_path(args.seed, cfg)
+    phase3_grid_and_pairwise(args.seed)
     log(f"[3] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches_by_step, records = phase4_main_path(args.seed, 1 << args.n_log2, cfg)
@@ -808,8 +1251,15 @@ def main(argv=None) -> int:
     phase6_graph_dbscan(args.seed, 1 << args.n_log2)
     log(f"[6] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase7_kernel_line(launches_by_step, records, nl_rows, card)
-    log(f"[7] done in {time.perf_counter() - t0:.1f} s; "
+    grid_rows = phase7_grid(args.seed, 1 << args.n_log2, card)
+    log(f"[7] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    pair_rows = phase8_all_pairs(args.seed, 1 << (args.n_log2 - 8), card)
+    log(f"[8] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase9_kernel_line(launches_by_step, records, nl_rows + grid_rows + pair_rows,
+                       card)
+    log(f"[9] done in {time.perf_counter() - t0:.1f} s; "
         f"total {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,8 @@ is never imported here. Plain tensor code is PyTorch; each Pallas TPU kernel
 of the ported slice is a CUDA C++ kernel for ``sm_90a`` under
 ``kernels/csrc/``, compiled on first use (see ``kernels/_build.py``).
 
-Entry points (``fdbscan``, ``halo_catalog``, ``simulation_halo_stats``,
+Entry points (``fdbscan``, ``dbscan_graph_cc``, ``fdbscan_grid``,
+``fdbscan_grid_auto``, ``halo_catalog``, ``simulation_halo_stats``,
 ``InsituAnalyzer``) run on the card unless the caller passes
 ``device="cpu"``; without a card and without that request they raise.
 """

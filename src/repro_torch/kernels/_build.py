@@ -23,7 +23,7 @@ from pathlib import Path
 __all__ = ["SOURCES", "BUILD_DIR", "build_all", "library", "check"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("wavefront", "segment")
+SOURCES = ("wavefront", "segment", "pairwise")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

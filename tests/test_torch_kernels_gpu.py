@@ -14,6 +14,8 @@ from repro_torch.core import query as tq  # noqa: E402
 from repro_torch.core.bvh import build_bvh  # noqa: E402
 from repro_torch.core.geometry import scene_bounds  # noqa: E402
 from repro_torch.data.pipeline import make_clustered_points  # noqa: E402
+from repro_torch.core import fdbscan_grid as tgrid  # noqa: E402
+from repro_torch.kernels import pairwise as kp  # noqa: E402
 from repro_torch.kernels import segment as ks  # noqa: E402
 from repro_torch.kernels import wavefront as kw  # noqa: E402
 
@@ -137,3 +139,76 @@ def test_csr_device_makes_no_host_sync(cuda):
     assert (kw.wavefront_count.launches, kw.wavefront_fill.launches) == \
         (before[0] + 1, before[1] + 1)
     torch.testing.assert_close(res.offsets.diff(), counts, rtol=0, atol=0)
+
+
+def _cells(cuda, ncells, cap, d, seed, fill=0.6):
+    """Slot-padded cells with about ``fill`` of the slots occupied, the
+    sink last; a stencil map of 27 random ids, some of them the sink and
+    some out of range (those read the sink too)."""
+    rng = np.random.default_rng(seed)
+    pts = np.full((ncells + 1, cap, d), kp.BIG, np.float32)
+    occ = rng.random((ncells, cap)) < fill
+    pts[:-1][occ] = rng.random((int(occ.sum()), d)).astype(np.float32) * 0.4
+    nbr = rng.integers(-3, ncells + 4, (ncells, 27)).astype(np.int32)
+    labels = rng.permutation((ncells + 1) * cap).astype(np.int32).reshape(ncells + 1, cap)
+    core = rng.random((ncells + 1, cap)) < 0.5
+    return [torch.from_numpy(a).to(cuda) for a in (pts, nbr, labels, core)]
+
+
+@pytest.mark.parametrize("cap", [1, 4, 16, 48, 1100])
+@pytest.mark.parametrize("d", [1, 3])
+def test_stencil_kernels_match_plain(cuda, cap, d):
+    cell_pts, nbr, labels, core = _cells(cuda, 300 if cap < 1000 else 5, cap, d, cap + d)
+    eps2 = float(np.float32(0.15) ** 2)
+    got = kp.stencil_count(cell_pts, nbr, eps2)
+    torch.testing.assert_close(got, kp.stencil_count_plain(cell_pts, nbr, eps2),
+                               rtol=0, atol=0)
+    assert int(got.max()) > 0
+    got = kp.stencil_min_label(cell_pts, labels, core, nbr, eps2)
+    want = kp.stencil_min_label_plain(cell_pts, labels, core, nbr, eps2)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m,n", [(1, 1), (129, 1000), (3001, 257), (0, 5), (7, 0)])
+@pytest.mark.parametrize("d", [1, 3, 64, 100])
+def test_pairwise_kernels_match_plain(cuda, m, n, d):
+    rng = np.random.default_rng(m * 7 + n + d)
+    x = torch.from_numpy(rng.random((m, d)).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.random((n, d)).astype(np.float32)).to(cuda)
+    labels = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(cuda)
+    core = torch.from_numpy(rng.random(n) < 0.4).to(cuda)
+    eps2 = float(np.float32(0.35 * d ** 0.5) ** 2)
+    torch.testing.assert_close(kp.pairwise_count(x, y, eps2),
+                               kp.pairwise_count_plain(x, y, eps2), rtol=0, atol=0)
+    torch.testing.assert_close(kp.pairwise_min_label(x, y, labels, core, eps2),
+                               kp.pairwise_min_label_plain(x, y, labels, core, eps2),
+                               rtol=0, atol=0)
+
+
+def test_pairwise_launch_counters(cuda):
+    x = torch.rand((10, 3), device=cuda)
+    before = (kp.pairwise_count.launches, kp.pairwise_min_label.launches)
+    kp.pairwise_count(x, x, 0.1)
+    kp.pairwise_count(x[:0], x, 0.1)             # empty: nothing launched
+    kp.pairwise_min_label(x, x, torch.zeros(10, dtype=torch.int32, device=cuda),
+                          torch.ones(10, dtype=torch.bool, device=cuda), 0.1)
+    assert (kp.pairwise_count.launches, kp.pairwise_min_label.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+def test_fdbscan_grid_card_equals_cpu(cuda):
+    pts = np.random.default_rng(21).uniform(0, 1, (20000, 3)).astype(np.float32)
+    lo, eps = np.zeros(3, np.float32), 2.0 ** -5
+    dims = tgrid.grid_dims_for(lo, np.ones(3), eps)
+    before = (kp.stencil_count.launches, kp.stencil_min_label.launches)
+    got, ovf = tgrid.fdbscan_grid(pts, eps, 5, scene_lo=lo, grid_dims=dims,
+                                  capacity=16, device=cuda)
+    rounds = int(got.num_rounds)
+    assert (kp.stencil_count.launches, kp.stencil_min_label.launches) == \
+        (before[0] + 1, before[1] + rounds + 1)
+    want, want_ovf = tgrid.fdbscan_grid(pts, eps, 5, scene_lo=lo, grid_dims=dims,
+                                        capacity=16, device="cpu")
+    assert bool(ovf) == bool(want_ovf)
+    for f in want._fields:
+        torch.testing.assert_close(getattr(got, f).cpu(), getattr(want, f),
+                                   rtol=0, atol=0)
