@@ -11,15 +11,19 @@ CUDA toolkit. Phases, each of which must pass:
 
 1. Build the kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
    per source, started together) and print ``-Xptxas -v``, the card's name
-   and its power limit.
+   and its power limit. The all-pairs tile kernel must spill nothing, and
+   its SASS (``cuobjdump -sass``) and its prologue's hold no ``FFMA``,
+   ``HMMA`` or ``HGMMA``.
 2. Each kernel against its plain PyTorch version on the card: the
    traversal epilogues (COUNT, MIN_LABEL, FILL at an exact capacity, at
    half of it and with int64 offsets, FIXED with overflowing and ample
    buffers) on a tree of 2^20 clustered points (exact), the segment
    reductions at the catalog's shapes, 2^24 x 8 and 2^24 x 1; the stencil
    kernels on 2^21 uniform points in 128^3 eps-cells at capacities 16 and
-   48, every slot, and the all-pairs kernels at 3000 x 5000 for d = 1, 3,
-   64 and 100 (all bit-exact).
+   48, every slot, and the all-pairs kernels at m x n = 1 x 5000, 129 x
+   257 and 3001 x 5003 for d = 1, 3, 64, 100 and 257, at 300 x 70,000
+   (candidates split across blocks) and at exact ties, eps2 the plain
+   version's own d2 of chosen pairs (all bit-exact).
 3. The card against the plain path on the CPU: the in-situ step at 2^18
    particles (labels, core mask, rounds and the catalog's integer fields
    exact, float fields to a stated tolerance); at 2^16, ``query_csr``
@@ -54,7 +58,10 @@ CUDA toolkit. Phases, each of which must pass:
 8. The all-pairs ops at full size: 2^16 points in d = 64 from 64 Gaussian
    clusters, eps the 1% quantile of the pairwise distances of a 512-row
    sample; ``eps_neighbor_counts`` then ``eps_min_label`` (core = counts
-   >= 5), each kernel against its plain version.
+   >= 5), each kernel against its plain version, with the issue floor of
+   the exact order (pair tests x (2d + 4) FP32 instructions over the SMs'
+   128 lanes a clock at the card's top SM clock) and the kernel's share of
+   it.
 9. One JSON line with each kernel's launches on its path, time per launch
    at that path's inputs, bound with the card's name and power limit
    beside it, plain version's time and library yardstick.
@@ -67,7 +74,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -128,6 +138,14 @@ def plummer_cloud(seed: int, n: int):
     return pos, vel.astype(np.float32), n - n_bg
 
 
+def sm_clock_hz() -> float:
+    """The card's top SM clock (``nvidia-smi --query-gpu=clocks.max.sm``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
 def card_identity() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -180,6 +198,71 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def ptxas_report(text: str) -> dict:
+    """{mangled kernel: {"registers", "spill_stores", "spill_loads"}} from
+    an ``nvcc -Xptxas -v`` log."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                      r"spill loads", line)):
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+SASS_OPS = ("FFMA", "HMMA", "HGMMA", "FMUL", "FADD")
+
+
+def sass_counts(so: Path) -> dict:
+    """{mangled kernel: {opcode: count}} over ``SASS_OPS`` in the SASS of
+    the shared library ``so``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out, name = {}, None
+    pattern = re.compile(r"\b(" + "|".join(SASS_OPS) + r")\b")
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = dict.fromkeys(SASS_OPS, 0)
+        elif name and "/*" in line:
+            for op in pattern.findall(line.split(";")[0]):
+                out[name][op] += 1
+    return out
+
+
+def tile_kernel_report():
+    """Registers, spills and SASS opcode counts of the all-pairs kernels,
+    keyed by epilogue ("pairwise_count": COUNT, "pairwise_min_label":
+    MIN_LABEL; "pairwise_norms": the prologue both launch). Fails if a
+    tile kernel spills or any of them holds an FFMA, HMMA or HGMMA."""
+    from repro_torch.kernels import _build
+    ptxas = ptxas_report(_build.build_log("pairwise"))
+    sass = sass_counts(_build.BUILD_DIR / "pairwise.so")
+    keys = {"pairwise_count": "pairwise_tile_kernelILi0E",
+            "pairwise_min_label": "pairwise_tile_kernelILi1E",
+            "pairwise_norms": "pairwise_norms_kernel"}
+    out = {}
+    for key, tag in keys.items():
+        pt = [v for k, v in ptxas.items() if tag in k]
+        ss = [v for k, v in sass.items() if tag in k]
+        require(len(pt) == 1 and len(ss) == 1, f"{key}: one kernel named {tag}")
+        out[key] = {**pt[0], "sass": ss[0]}
+        bad = {op: ss[0][op] for op in ("FFMA", "HMMA", "HGMMA") if ss[0][op]}
+        require(not bad, f"{key}: SASS holds {bad}")
+        if key != "pairwise_norms":
+            require(pt[0]["spill_stores"] == pt[0]["spill_loads"] == 0,
+                    f"{key}: ptxas reports spills {pt[0]}")
+    return out
+
+
 def phase1_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -188,9 +271,13 @@ def phase1_build():
         f"into {_build.BUILD_DIR}")
     for name, text in logs.items():
         log(f"--- nvcc -Xptxas -v: {name}.cu ---\n{text.strip()}")
+    tiles = tile_kernel_report()
+    for key, rep in tiles.items():
+        log(f"[1] {key}: {rep['registers']} registers, spills "
+            f"{rep['spill_stores']}/{rep['spill_loads']} bytes, SASS {rep['sass']}")
     card = card_identity()
     log(f"[1] card: {card}")
-    return card
+    return card, tiles
 
 
 def phase2_kernels(seed: int, n_tree: int = 1 << 20, n_rows: int = 1 << 24):
@@ -787,22 +874,56 @@ def phase2_pairwise_kernels(seed: int, n_log2: int = 21):
         del bins, slot, lab, cor, got, want
     del pts, nbr, labels, core
 
-    for d in (1, 3, 64, 100):
-        x = rng.random((3000, d), dtype=np.float32)
-        y = rng.random((5000, d), dtype=np.float32)
-        eps2 = eps_squared(quantile_eps(np.concatenate([x, y]), 0.01, seed + d))
-        xt, yt = torch.from_numpy(x).to(DEV), torch.from_numpy(y).to(DEV)
-        lab = torch.from_numpy(rng.permutation(5000).astype(np.int32)).to(DEV)
-        cor = torch.from_numpy(rng.random(5000) < 0.4).to(DEV)
-        got = kp.pairwise_count(xt, yt, eps2)
-        require(torch.equal(got, kp.pairwise_count_plain(xt, yt, eps2)),
-                f"pairwise_count d={d}")
-        got_m = kp.pairwise_min_label(xt, yt, lab, cor, eps2)
-        want_m = kp.pairwise_min_label_plain(xt, yt, lab, cor, eps2)
-        require(torch.equal(got_m, want_m), f"pairwise_min_label d={d}")
-        log(f"[2] pairwise_count and pairwise_min_label 3000 x 5000, d={d}: "
+    def held(x, y, lab, cor, eps2, what):
+        got = kp.pairwise_count(x, y, eps2)
+        require(torch.equal(got, kp.pairwise_count_plain(x, y, eps2)),
+                f"pairwise_count {what}")
+        got_m = kp.pairwise_min_label(x, y, lab, cor, eps2)
+        require(torch.equal(got_m, kp.pairwise_min_label_plain(x, y, lab, cor, eps2)),
+                f"pairwise_min_label {what}")
+        return got, got_m
+
+    def rows(*shape):
+        return torch.from_numpy(rng.random(shape, dtype=np.float32)).to(DEV)
+
+    # m and n off multiples of the 128-row tile and of 4; D below, at and
+    # past the 16-feature chunk, and one that does not divide it.
+    for (m, n), d in itertools.product(((1, 5000), (129, 257), (3001, 5003)),
+                                       (1, 3, 64, 100, 257)):
+        x, y = rows(m, d), rows(n, d)
+        eps2 = eps_squared(quantile_eps(torch.cat([x, y]).cpu().numpy(), 0.01,
+                                        seed + d))
+        lab = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(DEV)
+        cor = torch.from_numpy(rng.random(n) < 0.4).to(DEV)
+        got, got_m = held(x, y, lab, cor, eps2, f"{m} x {n}, d={d}")
+        log(f"[2] pairwise_count and pairwise_min_label {m} x {n}, d={d}: "
             f"exact; mean count {got.float().mean().item():.2f}, "
             f"{int((got_m != kp.SENTINEL_LABEL).sum())} rows with a core hit")
+    # m << n: 3 row tiles, the candidates split across blocks.
+    x, y = rows(300, 64), rows(70_000, 64)
+    eps2 = eps_squared(quantile_eps(y.cpu().numpy(), 0.01, seed + 4))
+    lab = torch.from_numpy(rng.permutation(70_000).astype(np.int32)).to(DEV)
+    cor = torch.from_numpy(rng.random(70_000) < 0.4).to(DEV)
+    got, _ = held(x, y, lab, cor, eps2, "300 x 70000 (split candidates)")
+    log(f"[2] all-pairs kernels 300 x 70000, d=64, candidates split: exact; "
+        f"mean count {got.float().mean().item():.1f}")
+    # Exact ties: eps2 the plain version's own d2 of a chosen pair, whose
+    # label is made the least, so that the tie decides its row's label.
+    ties = 0
+    for d in (3, 64, 257):
+        x, y = rows(700, d), rows(900, d)
+        d2 = kp._d2(x, kp._sq_norms(x), y, kp._sq_norms(y))
+        cor = torch.ones(900, dtype=torch.bool, device=DEV)
+        for i, j in zip(rng.integers(0, 700, 8), rng.integers(0, 900, 8)):
+            eps2 = float(d2[i, j])
+            require(np.float32(eps2) == d2[i, j].item(), "a tie at eps")
+            lab = torch.from_numpy(rng.permutation(900).astype(np.int32)).to(DEV)
+            lab[j] = -1
+            _, got_m = held(x, y, lab, cor, eps2, f"tie at d={d}")
+            require(int(got_m[i]) == -1, f"the tie pair decides its row, d={d}")
+            ties += int((d2 == d2[i, j]).sum())
+    log(f"[2] all-pairs kernels at exact ties (d = 3, 64, 257; 8 values of "
+        f"eps2 each, the plain d2 of a pair; {ties} tie pairs): exact")
 
 
 def phase3_grid_and_pairwise(seed: int, n: int = 1 << 18, n_pairs: int = 1 << 12):
@@ -1025,7 +1146,7 @@ def phase7_grid(seed: int, n: int, card: str):
     return rows
 
 
-def phase8_all_pairs(seed: int, n: int, card: str):
+def phase8_all_pairs(seed: int, n: int, card: str, tiles: dict):
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import pairwise as kp
@@ -1056,6 +1177,10 @@ def phase8_all_pairs(seed: int, n: int, card: str):
     eps2 = ops.eps_squared(eps)
     eps_t = torch.tensor(eps, dtype=torch.float32)
     sentinel = kp.SENTINEL_LABEL
+    # Without FMA each of a pair's 2d + 4 operations is one FP32
+    # instruction; an SM issues 128 lanes of them a clock.
+    clock = sm_clock_hz()
+    lanes = torch.cuda.get_device_properties(0).multi_processor_count * 128
     rows = []
     for name, args, got, plain, library in (
             ("pairwise_count", (x, x, eps2), counts, kp.pairwise_count_plain,
@@ -1074,6 +1199,9 @@ def phase8_all_pairs(seed: int, n: int, card: str):
         nb = sum(t.numel() * t.element_size() for t in args[:-1]
                  if torch.is_tensor(t)) + m * 4
         b_ms, b_by = bound(nb, m * n * pair_ops(d))
+        floor_ms = m * n * pair_ops(d) / (lanes * clock) * 1e3
+        require(floor_ms <= ms, f"{name} faster than the FP32 issue floor")
+        rep = tiles[name]
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/pairwise.cu",
                      "replaces": ("src/repro/kernels/pairwise.py:91"
@@ -1085,9 +1213,16 @@ def phase8_all_pairs(seed: int, n: int, card: str):
                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": lib_ms,
                      "library": "torch.cdist <= eps, then sum / masked amin",
-                     "pair_tests": m * n, "ops_per_pair": pair_ops(d)})
+                     "pair_tests": m * n, "ops_per_pair": pair_ops(d),
+                     "exact_floor_ms": floor_ms, "sm_clock_hz": clock,
+                     "fp32_issue_share": floor_ms / ms,
+                     "registers": rep["registers"],
+                     "spill_bytes": rep["spill_stores"] + rep["spill_loads"],
+                     "sass": rep["sass"]})
         log(f"[8] {name} == its plain version ({plain_ms:.1f} ms); kernel "
-            f"{ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), cdist {lib_ms:.3f} ms")
+            f"{ms:.3f} ms, exact-order floor {floor_ms:.3f} ms at "
+            f"{clock / 1e6:.0f} MHz (share {floor_ms / ms:.3f}), bound "
+            f"{b_ms:.3f} ms ({b_by}), cdist {lib_ms:.3f} ms")
     return rows
 
 
@@ -1230,7 +1365,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
-    card = phase1_build()
+    card, tiles = phase1_build()
     cfg = InsituConfig(mode="simulation", cadence=1, min_pts=2,
                        halo_min_count=10, halo_capacity=1 << 20)
     t0 = time.perf_counter()
@@ -1254,7 +1389,7 @@ def main(argv=None) -> int:
     grid_rows = phase7_grid(args.seed, 1 << args.n_log2, card)
     log(f"[7] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    pair_rows = phase8_all_pairs(args.seed, 1 << (args.n_log2 - 8), card)
+    pair_rows = phase8_all_pairs(args.seed, 1 << (args.n_log2 - 8), card, tiles)
     log(f"[8] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase9_kernel_line(launches_by_step, records, nl_rows + grid_rows + pair_rows,

@@ -6,6 +6,10 @@ Each ``csrc/<name>.cu`` compiles on first use into its own shared library
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/<name>.so <name>.cu
 
+The compiler's output (the ``-Xptxas -v`` summary: registers, shared
+memory and spills per kernel) is kept beside the library as
+``build/repro_torch/<name>.log`` (:func:`build_log`).
+
 The sources include no PyTorch header, so a build takes seconds. Every C
 entry point takes raw pointers and a ``cudaStream_t`` and returns
 ``cudaGetLastError()``; :func:`check` raises on a nonzero code. Nothing
@@ -20,7 +24,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "library", "check"]
+__all__ = ["SOURCES", "BUILD_DIR", "build_all", "build_log", "library", "check"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("wavefront", "segment", "pairwise")
@@ -64,11 +68,17 @@ def build_all(names=SOURCES) -> dict[str, str]:
         if proc.returncode != 0:
             failed.append(name)
         else:
+            (BUILD_DIR / f"{name}.log").write_text(logs[name])
             os.replace(tmp, BUILD_DIR / f"{name}.so")
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[f] for f in failed))
     return logs
+
+
+def build_log(name: str) -> str:
+    """The compiler's output of the last build of ``csrc/<name>.cu``."""
+    return (BUILD_DIR / f"{name}.log").read_text()
 
 
 @functools.cache

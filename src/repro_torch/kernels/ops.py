@@ -4,10 +4,12 @@
 
 ``eps2`` is ``float32(eps)`` squared in float32, as the reference computes
 it (``ops.py:77``, ``:103``). The reference pads rows to 128 with ``BIG``
-and features to a multiple of 8 with zeros before its kernel; the port
-does not pad. A zero feature adds an exact 0 to every sum, and a padded
-row lies ~1e15 away from every real one and is sliced off as a query, so
-no real row's result changes.
+and features to a multiple of 8 with zeros before its kernel; these
+wrappers pad nothing. A zero feature adds an exact 0 to every sum, and a
+padded row lies ~1e15 away from every real one and is sliced off as a
+query, so no real row's result changes. (The all-pairs kernel's wrapper
+pads its own transposed copies to whole tiles and masks the padding by
+index, ``kernels/pairwise.py``.)
 """
 from __future__ import annotations
 

@@ -1,16 +1,24 @@
-"""ε-neighbour counts and min core labels over candidate tiles; port of the
-Pallas TPU kernels ``stencil_count``, ``stencil_min_label``,
-``pairwise_count`` and ``pairwise_min_label``
-(``repro/kernels/pairwise.py:166``, ``:197``, ``:91`` and ``:113``).
+"""ε-neighbour counts and min core labels; port of the Pallas TPU kernels
+``stencil_count``, ``stencil_min_label``, ``pairwise_count`` and
+``pairwise_min_label`` (``repro/kernels/pairwise.py:166``, ``:197``,
+``:91`` and ``:113``).
 
-Two candidate sets, two epilogues, one CUDA template (``csrc/pairwise.cu``):
+Two candidate sets, two epilogues, two CUDA kernels in ``csrc/pairwise.cu``:
 
-* **stencil** — points binned into ε-cells of a fixed capacity C,
-  ``cell_pts`` (ncells+1, C, D) padded with ``BIG``, the last cell all
-  padding (the sink); each slot of cell ``i`` is tested against every slot
-  of the cells ``nbr_map[i, :]``. Padded query slots hold garbage, as in the
-  reference (``BIG`` against ``BIG`` gives d² = 0).
-* **all pairs** — every row of ``x`` (m, D) against every row of ``y`` (n, D).
+* **stencil** (``eps_kernel``) — points binned into ε-cells of a fixed
+  capacity C, ``cell_pts`` (ncells+1, C, D) padded with ``BIG``, the last
+  cell all padding (the sink); each slot of cell ``i`` is tested against
+  every slot of the cells ``nbr_map[i, :]``. Padded query slots hold
+  garbage, as in the reference (``BIG`` against ``BIG`` gives d² = 0).
+  Bound by bytes on the H100; one block per cell, the stencil's cells
+  staged in shared memory.
+* **all pairs** (``pairwise_tile_kernel``) — every row of ``x`` (m, D)
+  against every row of ``y`` (n, D). Bound by operations: 2D + 4 per pair,
+  each one FP32 instruction since no FMA is allowed, so the floor is the
+  SMs' FP32 issue rate (128 lanes a clock each). The kernel is shaped as a
+  register-tiled SGEMM: 128 × 128 tiles, an 8 × 8 micro-tile of
+  accumulators per thread, both operands k-major in shared memory through
+  double-buffered ``cp.async``.
 
 Epilogues: COUNT, the number of candidates with d² <= eps2; MIN_LABEL, the
 min label over candidates within eps2 whose core flag is set,
@@ -25,15 +33,29 @@ formula, not the exact Σ(x−y)² of the rest of the port (ROADMAP C2)::
 
 all in float32, summed left to right over D. The plain versions use
 separate torch ``*``, ``+`` and ``-`` (no matmul, no ``sum``, no
-``addcmul``), so nothing fuses or reorders; the kernel rounds each step
+``addcmul``), so nothing fuses or reorders; the kernels round each step
 with ``__fmul_rn``/``__fadd_rn``/``__fsub_rn``. Kernel and plain version
 are then equal bit for bit at every slot, the padded ones included.
 Against JAX they agree away from ties at ε only: XLA's ``dot_general``
 may sum in another order.
 
+What the all-pairs wrappers allocate on the card (``torch.empty``, freed
+when the call returns; the caching allocator hands the memory out again
+only in the order of the stream the kernel runs on): x and y transposed
+to (D, mp) and (D, np), mp and np the row counts rounded up to whole
+128-row tiles, the padding zero (:func:`k_major`); a float32 scratch of
+mp + np squared norms, written once by the kernel's prologue; for
+MIN_LABEL an int32 scratch of np labels, ``SENTINEL_LABEL`` where the core
+flag is off or the row is padding. The output is filled with 0 (COUNT) or
+``SENTINEL_LABEL`` (MIN_LABEL) before the launch, since the kernel
+combines partial results into it with ``atomicAdd`` or ``atomicMin``.
+Padded candidates are masked by index and padded query rows are never
+written, so the padding's values never reach a result.
+
 A wrapper launches the kernel for CUDA tensors and runs the plain version
-for CPU tensors; ``<wrapper>.launches`` counts kernel launches. ``nbr_map``
-entries outside ``[0, ncells]`` read the sink cell in both.
+for CPU tensors; ``<wrapper>.launches`` counts kernel launches (one per
+call that has work; the all-pairs prologue is part of the launch).
+``nbr_map`` entries outside ``[0, ncells]`` read the sink cell in both.
 """
 from __future__ import annotations
 
@@ -47,15 +69,17 @@ from repro_torch.kernels import _build
 BIG = 1e15                  # padding coordinate; BIG**2 is finite in float32
 SENTINEL_LABEL = 2**31 - 1  # int32 max: "no core neighbour"
 
-__all__ = ["BIG", "SENTINEL_LABEL", "stencil_count", "stencil_min_label",
-           "pairwise_count", "pairwise_min_label", "stencil_count_plain",
-           "stencil_min_label_plain", "pairwise_count_plain",
-           "pairwise_min_label_plain"]
+__all__ = ["BIG", "SENTINEL_LABEL", "TILE", "stencil_count",
+           "stencil_min_label", "pairwise_count", "pairwise_min_label",
+           "stencil_count_plain", "stencil_min_label_plain",
+           "pairwise_count_plain", "pairwise_min_label_plain", "k_major"]
+
+TILE = 128                  # rows of x per block and of y per tile (all pairs)
 
 # Elements of one (rows, candidates) distance tile in the plain versions.
 _PLAIN_TILE = 1 << 24
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
 
 @functools.cache
@@ -64,8 +88,9 @@ def _lib() -> ctypes.CDLL:
     lib.stencil_count.argtypes = [_P, _P, _I, _I, _I, _I, _F, _P, _P]
     lib.stencil_min_label.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _F,
                                       _P, _P]
-    lib.pairwise_count.argtypes = [_P, _P, _I, _I, _I, _F, _P, _P]
-    lib.pairwise_min_label.argtypes = [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P]
+    lib.pairwise_count.argtypes = [_P, _P, _I, _I, _L, _L, _I, _F, _P, _P, _P]
+    lib.pairwise_min_label.argtypes = [_P, _P, _P, _P, _I, _I, _L, _L, _I, _F,
+                                       _P, _P, _P, _P]
     for fn in (lib.stencil_count, lib.stencil_min_label, lib.pairwise_count,
                lib.pairwise_min_label):
         fn.restype = _I
@@ -87,15 +112,19 @@ def _sq_norms(p: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _hits(q, qn, c, cn, eps2: float) -> torch.Tensor:
+def _d2(q, qn, c, cn) -> torch.Tensor:
     """(..., A, D) queries and (..., B, D) candidates with their squared
-    norms -> (..., A, B) bool, d2 <= eps2 in the contract's order."""
+    norms -> (..., A, B) float32 d2 in the contract's order."""
     xy = torch.zeros(q.shape[:-1] + (c.shape[-2],), dtype=torch.float32,
                      device=q.device)
     for k in range(q.shape[-1]):
         xy = xy + q[..., :, None, k] * c[..., None, :, k]
-    d2 = (qn[..., :, None] + cn[..., None, :]) - 2.0 * xy
-    return d2 <= torch.tensor(eps2, dtype=torch.float32)
+    return (qn[..., :, None] + cn[..., None, :]) - 2.0 * xy
+
+
+def _hits(q, qn, c, cn, eps2: float) -> torch.Tensor:
+    """d2 <= eps2, (..., A, B) bool."""
+    return _d2(q, qn, c, cn) <= torch.tensor(eps2, dtype=torch.float32)
 
 
 def _epilogue(hit, labels, core):
@@ -227,18 +256,13 @@ def _check_pairwise(x, y, labels=None, core=None):
            "all inputs must be on one device")
 
 
-def _launch(name: str, shape, device, *args) -> tuple[torch.Tensor, bool]:
-    """An int32 output of ``shape`` filled by the C entry point ``name``
-    (``args``, then the output and the stream), and whether it launched:
-    an empty output launches nothing."""
-    out = torch.empty(shape, dtype=torch.int32, device=device)
-    if out.numel() == 0:
-        return out, False
+def _launch(name: str, out: torch.Tensor, *args) -> None:
+    """Run the C entry point ``name`` on ``args``, then ``out`` and the
+    current stream; raise on a CUDA error."""
     lib = _lib()
     code = getattr(lib, name)(*args, out.data_ptr(),
                               torch.cuda.current_stream().cuda_stream)
     _build.check(lib, code, name)
-    return out, True
 
 
 def stencil_count(cell_pts: torch.Tensor, nbr_map: torch.Tensor,
@@ -250,10 +274,11 @@ def stencil_count(cell_pts: torch.Tensor, nbr_map: torch.Tensor,
         return stencil_count_plain(cell_pts, nbr_map, eps2)
     _, cap, d = cell_pts.shape
     ncells, s = nbr_map.shape
-    out, launched = _launch("stencil_count", (ncells, cap), cell_pts.device,
-                            cell_pts.data_ptr(), nbr_map.data_ptr(), ncells,
-                            cap, d, s, eps2)
-    stencil_count.launches += launched
+    out = torch.empty((ncells, cap), dtype=torch.int32, device=cell_pts.device)
+    if out.numel():
+        _launch("stencil_count", out, cell_pts.data_ptr(), nbr_map.data_ptr(),
+                ncells, cap, d, s, eps2)
+        stencil_count.launches += 1
     return out
 
 
@@ -269,12 +294,46 @@ def stencil_min_label(cell_pts: torch.Tensor, cell_labels: torch.Tensor,
                                        nbr_map, eps2)
     _, cap, d = cell_pts.shape
     ncells, s = nbr_map.shape
-    out, launched = _launch("stencil_min_label", (ncells, cap),
-                            cell_pts.device, cell_pts.data_ptr(),
-                            cell_labels.data_ptr(), cell_core.data_ptr(),
-                            nbr_map.data_ptr(), ncells, cap, d, s, eps2)
-    stencil_min_label.launches += launched
+    out = torch.empty((ncells, cap), dtype=torch.int32, device=cell_pts.device)
+    if out.numel():
+        _launch("stencil_min_label", out, cell_pts.data_ptr(),
+                cell_labels.data_ptr(), cell_core.data_ptr(),
+                nbr_map.data_ptr(), ncells, cap, d, s, eps2)
+        stencil_min_label.launches += 1
     return out
+
+
+def k_major(t: torch.Tensor) -> torch.Tensor:
+    """(r, D) -> (D, rp) float32: ``t`` transposed, its rows rounded up to
+    whole ``TILE``-row tiles with zeros, so that one feature of a tile is
+    one aligned run of memory."""
+    r, d = t.shape
+    rp = -(-r // TILE) * TILE
+    out = torch.empty((d, rp), dtype=torch.float32, device=t.device)
+    out[:, :r] = t.t()
+    out[:, r:] = 0.0
+    return out
+
+
+def _pairwise_kernel(name: str, out, x, y, eps2, labels=None, core=None) -> bool:
+    """Launch the all-pairs kernel ``name`` into ``out``, already filled
+    with its epilogue's neutral value; whether it launched: with no pair
+    there is nothing to do."""
+    (m, d), n = x.shape, y.shape[0]
+    if not (m and n):
+        return False
+    xt, yt = k_major(x), k_major(y)
+    mp, np_ = xt.shape[1], yt.shape[1]
+    norms = torch.empty((mp + np_,), dtype=torch.float32, device=x.device)
+    if labels is None:
+        _launch(name, out, xt.data_ptr(), yt.data_ptr(), m, n, mp, np_, d,
+                eps2, norms.data_ptr())
+    else:
+        lc = torch.empty((np_,), dtype=torch.int32, device=x.device)
+        _launch(name, out, xt.data_ptr(), yt.data_ptr(), labels.data_ptr(),
+                core.data_ptr(), m, n, mp, np_, d, eps2, norms.data_ptr(),
+                lc.data_ptr())
+    return True
 
 
 def pairwise_count(x: torch.Tensor, y: torch.Tensor, eps2: float) -> torch.Tensor:
@@ -283,11 +342,8 @@ def pairwise_count(x: torch.Tensor, y: torch.Tensor, eps2: float) -> torch.Tenso
     _check_pairwise(x, y)
     if not x.is_cuda:
         return pairwise_count_plain(x, y, eps2)
-    (m, d), n = x.shape, y.shape[0]
-    xt = x.t().contiguous()      # (D, m): a warp reads one feature coalesced
-    out, launched = _launch("pairwise_count", (m,), x.device, xt.data_ptr(),
-                            y.data_ptr(), m, n, d, eps2)
-    pairwise_count.launches += launched
+    out = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
+    pairwise_count.launches += _pairwise_kernel("pairwise_count", out, x, y, eps2)
     return out
 
 
@@ -299,12 +355,10 @@ def pairwise_min_label(x: torch.Tensor, y: torch.Tensor, labels: torch.Tensor,
     _check_pairwise(x, y, labels, core)
     if not x.is_cuda:
         return pairwise_min_label_plain(x, y, labels, core, eps2)
-    (m, d), n = x.shape, y.shape[0]
-    xt = x.t().contiguous()
-    out, launched = _launch("pairwise_min_label", (m,), x.device,
-                            xt.data_ptr(), y.data_ptr(), labels.data_ptr(),
-                            core.data_ptr(), m, n, d, eps2)
-    pairwise_min_label.launches += launched
+    out = torch.full((x.shape[0],), SENTINEL_LABEL, dtype=torch.int32,
+                     device=x.device)
+    pairwise_min_label.launches += _pairwise_kernel(
+        "pairwise_min_label", out, x, y, eps2, labels, core)
     return out
 
 

@@ -169,8 +169,11 @@ def test_stencil_kernels_match_plain(cuda, cap, d):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("m,n", [(1, 1), (129, 1000), (3001, 257), (0, 5), (7, 0)])
-@pytest.mark.parametrize("d", [1, 3, 64, 100])
+# m and n off multiples of the 128-row tile and of 4, the empty cases; D
+# below, at and past the 16-feature chunk, and one that does not divide it.
+@pytest.mark.parametrize("m,n", [(1, 1), (129, 1000), (3001, 257), (0, 5), (7, 0),
+                                 (1, 5000), (129, 257), (3001, 5003)])
+@pytest.mark.parametrize("d", [1, 3, 64, 100, 257])
 def test_pairwise_kernels_match_plain(cuda, m, n, d):
     rng = np.random.default_rng(m * 7 + n + d)
     x = torch.from_numpy(rng.random((m, d)).astype(np.float32)).to(cuda)
@@ -183,6 +186,49 @@ def test_pairwise_kernels_match_plain(cuda, m, n, d):
     torch.testing.assert_close(kp.pairwise_min_label(x, y, labels, core, eps2),
                                kp.pairwise_min_label_plain(x, y, labels, core, eps2),
                                rtol=0, atol=0)
+
+
+def test_pairwise_kernels_split_candidates(cuda):
+    """m << n: 3 row tiles, so the candidate tiles are split across blocks
+    and the parts meet in the output's atomics."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.random((300, 64)).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.random((70_000, 64)).astype(np.float32)).to(cuda)
+    labels = torch.from_numpy(rng.permutation(70_000).astype(np.int32)).to(cuda)
+    core = torch.from_numpy(rng.random(70_000) < 0.4).to(cuda)
+    eps2 = float(np.float32(2.6) ** 2)
+    got = kp.pairwise_count(x, y, eps2)
+    torch.testing.assert_close(got, kp.pairwise_count_plain(x, y, eps2), rtol=0, atol=0)
+    assert 0 < int(got.min()) and int(got.max()) < 70_000
+    torch.testing.assert_close(kp.pairwise_min_label(x, y, labels, core, eps2),
+                               kp.pairwise_min_label_plain(x, y, labels, core, eps2),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("d", [3, 64, 257])
+def test_pairwise_kernels_exact_ties(cuda, d):
+    """eps2 set to the plain version's own d2 of chosen pairs, so that
+    d2 <= eps2 holds with equality there: a kernel that summed in another
+    order or fused a multiply-add would move those pairs across eps."""
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.random((700, d)).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.random((900, d)).astype(np.float32)).to(cuda)
+    labels = torch.from_numpy(rng.permutation(900).astype(np.int32)).to(cuda)
+    core = torch.ones(900, dtype=torch.bool, device=cuda)
+    d2 = kp._d2(x, kp._sq_norms(x), y, kp._sq_norms(y))
+    for i, j in zip(rng.integers(0, 700, 8), rng.integers(0, 900, 8)):
+        eps2 = float(d2[i, j])
+        assert np.float32(eps2) == d2[i, j].item()   # the pair ties at eps
+        torch.testing.assert_close(kp.pairwise_count(x, y, eps2),
+                                   kp.pairwise_count_plain(x, y, eps2),
+                                   rtol=0, atol=0)
+        # The tie pair's own label is the row's min: the tie decides it.
+        lab = labels.clone()
+        lab[j] = -1
+        got = kp.pairwise_min_label(x, y, lab, core, eps2)
+        torch.testing.assert_close(got, kp.pairwise_min_label_plain(x, y, lab, core, eps2),
+                                   rtol=0, atol=0)
+        assert int(got[i]) == -1
 
 
 def test_pairwise_launch_counters(cuda):

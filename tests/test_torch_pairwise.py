@@ -182,3 +182,31 @@ def test_wrappers_check_inputs_and_cpu_launches_nothing():
     kp.pairwise_count(x, x, eps2)
     kp.stencil_count(cell_pts, torch.full((2, 27), 2, dtype=torch.int32), eps2)
     assert kp.pairwise_count.launches == kp.stencil_count.launches == 0
+
+
+@pytest.mark.parametrize("r,d", [(1, 3), (128, 5), (129, 64), (300, 257), (0, 2)])
+def test_k_major_pads_rows_to_whole_tiles(r, d):
+    """The all-pairs kernel's operand layout: (r, D) -> (D, rp), rp the
+    least multiple of TILE at or above r, the padding zero."""
+    t = torch.from_numpy(np.random.default_rng(r + d).random((r, d), dtype=np.float32))
+    got = kp.k_major(t)
+    rp = -(-r // kp.TILE) * kp.TILE
+    assert got.shape == (d, rp) and got.dtype == torch.float32 and got.is_contiguous()
+    assert rp % kp.TILE == 0 and rp - r < kp.TILE
+    assert torch.equal(got[:, :r], t.t())
+    assert not bool(got[:, r:].any())
+
+
+def test_plain_d2_is_the_hit_test():
+    """``_d2`` is the contract's d2, and a hit is d2 <= eps2 with ties
+    included: eps2 set to a pair's own d2 makes that pair a hit."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.random((40, 7), dtype=np.float32))
+    y = torch.from_numpy(rng.random((50, 7), dtype=np.float32))
+    xn, yn = kp._sq_norms(x), kp._sq_norms(y)
+    d2 = kp._d2(x, xn, y, yn)
+    eps2 = float(d2[5, 9])
+    assert torch.equal(kp._hits(x, xn, y, yn, eps2), d2 <= d2[5, 9])
+    assert bool(kp._hits(x, xn, y, yn, eps2)[5, 9])
+    want = (d2 <= d2[5, 9]).sum(1, dtype=torch.int32)
+    assert torch.equal(kp.pairwise_count(x, y, eps2), want)
