@@ -13,9 +13,14 @@ CUDA toolkit. Phases, each of which must pass:
    per source, started together) and print ``-Xptxas -v``, the card's name
    and its power limit. The all-pairs tile kernel must spill nothing, and
    its SASS (``cuobjdump -sass``) and its prologue's hold no ``FFMA``,
-   ``HMMA`` or ``HGMMA``.
+   ``HMMA`` or ``HGMMA``. No instance of the traversal kernel (and not its
+   pack prologue) may spill or hold an ``FFMA``, and each traversal
+   instance must read its node records with 128-bit loads
+   (``LDG.E.128``); their registers and counts of 128-bit and narrower
+   ``LDG`` are printed.
 2. Each kernel against its plain PyTorch version on the card: the
-   traversal epilogues (COUNT, MIN_LABEL, FILL at an exact capacity, at
+   traversal's node records (``pack_tree``, bit for bit) and its
+   epilogues (COUNT, MIN_LABEL, FILL at an exact capacity, at
    half of it and with int64 offsets, FIXED with overflowing and ample
    buffers) on a tree of 2^20 clustered points (exact), the segment
    reductions at the catalog's shapes, 2^24 x 8 and 2^24 x 1; the stencil
@@ -64,7 +69,11 @@ CUDA toolkit. Phases, each of which must pass:
    it.
 9. One JSON line with each kernel's launches on its path, time per launch
    at that path's inputs, bound with the card's name and power limit
-   beside it, plain version's time and library yardstick.
+   beside it, plain version's time and library yardstick. The traversal
+   rows add their hops, hops per second, the time of one pack of the tree
+   (in ``ms`` for FILL and FIXED, whose paths pack at each launch; not for
+   COUNT and MIN_LABEL, which share ``fdbscan``'s one pack) and the
+   instance's registers.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the port beside this file, it exits nonzero and prints no
@@ -221,7 +230,8 @@ SASS_OPS = ("FFMA", "HMMA", "HGMMA", "FMUL", "FADD")
 
 def sass_counts(so: Path) -> dict:
     """{mangled kernel: {opcode: count}} over ``SASS_OPS`` in the SASS of
-    the shared library ``so``."""
+    the shared library ``so``, and its global loads split into 128-bit
+    ones ("LDG.128") and narrower ones ("LDG.other")."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", str(so)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
@@ -231,10 +241,29 @@ def sass_counts(so: Path) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            out[name] = dict.fromkeys(SASS_OPS, 0)
+            out[name] = dict.fromkeys(SASS_OPS + ("LDG.128", "LDG.other"), 0)
         elif name and "/*" in line:
-            for op in pattern.findall(line.split(";")[0]):
+            instr = line.split(";")[0]
+            for op in pattern.findall(instr):
                 out[name][op] += 1
+            if m := re.search(r"\bLDG((?:\.\w+)*)", instr):
+                out[name]["LDG.128" if ".128" in m.group(1) else "LDG.other"] += 1
+    return out
+
+
+def kernel_report(source: str, tags: dict) -> dict:
+    """{key: {"registers", "spill_stores", "spill_loads", "sass"}} of the
+    kernels of ``csrc/<source>.cu`` whose mangled names hold ``tags[key]``,
+    from the build's ``-Xptxas -v`` log and ``cuobjdump -sass``."""
+    from repro_torch.kernels import _build
+    ptxas = ptxas_report(_build.build_log(source))
+    sass = sass_counts(_build.BUILD_DIR / f"{source}.so")
+    out = {}
+    for key, tag in tags.items():
+        pt = [v for k, v in ptxas.items() if tag in k]
+        ss = [v for k, v in sass.items() if tag in k]
+        require(len(pt) == 1 and len(ss) == 1, f"{key}: one kernel named {tag}")
+        out[key] = {**pt[0], "sass": ss[0]}
     return out
 
 
@@ -243,23 +272,45 @@ def tile_kernel_report():
     keyed by epilogue ("pairwise_count": COUNT, "pairwise_min_label":
     MIN_LABEL; "pairwise_norms": the prologue both launch). Fails if a
     tile kernel spills or any of them holds an FFMA, HMMA or HGMMA."""
-    from repro_torch.kernels import _build
-    ptxas = ptxas_report(_build.build_log("pairwise"))
-    sass = sass_counts(_build.BUILD_DIR / "pairwise.so")
-    keys = {"pairwise_count": "pairwise_tile_kernelILi0E",
-            "pairwise_min_label": "pairwise_tile_kernelILi1E",
-            "pairwise_norms": "pairwise_norms_kernel"}
-    out = {}
-    for key, tag in keys.items():
-        pt = [v for k, v in ptxas.items() if tag in k]
-        ss = [v for k, v in sass.items() if tag in k]
-        require(len(pt) == 1 and len(ss) == 1, f"{key}: one kernel named {tag}")
-        out[key] = {**pt[0], "sass": ss[0]}
-        bad = {op: ss[0][op] for op in ("FFMA", "HMMA", "HGMMA") if ss[0][op]}
+    out = kernel_report("pairwise", {
+        "pairwise_count": "pairwise_tile_kernelILi0E",
+        "pairwise_min_label": "pairwise_tile_kernelILi1E",
+        "pairwise_norms": "pairwise_norms_kernel"})
+    for key, rep in out.items():
+        bad = {op: rep["sass"][op] for op in ("FFMA", "HMMA", "HGMMA")
+               if rep["sass"][op]}
         require(not bad, f"{key}: SASS holds {bad}")
         if key != "pairwise_norms":
-            require(pt[0]["spill_stores"] == pt[0]["spill_loads"] == 0,
-                    f"{key}: ptxas reports spills {pt[0]}")
+            require(rep["spill_stores"] == rep["spill_loads"] == 0,
+                    f"{key}: ptxas reports spills {rep}")
+    return out
+
+
+# The traversal template's instances (epilogue, offset type) and its pack
+# prologue, by a tag of their mangled names.
+WAVEFRONT_KERNELS = {"wavefront_count": "wavefront_kernelILi0EiE",
+                     "wavefront_min_label": "wavefront_kernelILi1EiE",
+                     "wavefront_fill": "wavefront_kernelILi2EiE",
+                     "wavefront_fill_int64": "wavefront_kernelILi2ExE",
+                     "wavefront_fixed": "wavefront_kernelILi3EiE",
+                     "wavefront_pack": "pack_kernel"}
+
+
+def wavefront_report():
+    """Registers, spills, SASS opcode and load counts of every instance of
+    the traversal kernel and of its pack prologue. Fails if one spills or
+    holds an FFMA (a contracted multiply-add would round the distance
+    otherwise than the plain version), or if a traversal instance has
+    fewer than two 128-bit loads (the halves of an internal node's record;
+    with fewer, records would be read in pieces)."""
+    out = kernel_report("wavefront", WAVEFRONT_KERNELS)
+    for key, rep in out.items():
+        require(rep["spill_stores"] == rep["spill_loads"] == 0,
+                f"{key}: ptxas reports spills {rep}")
+        require(rep["sass"]["FFMA"] == 0, f"{key}: SASS holds an FFMA")
+        if key != "wavefront_pack":
+            require(rep["sass"]["LDG.128"] >= 2,
+                    f"{key}: fewer than two 128-bit loads {rep['sass']}")
     return out
 
 
@@ -271,13 +322,13 @@ def phase1_build():
         f"into {_build.BUILD_DIR}")
     for name, text in logs.items():
         log(f"--- nvcc -Xptxas -v: {name}.cu ---\n{text.strip()}")
-    tiles = tile_kernel_report()
-    for key, rep in tiles.items():
+    tiles, wave = tile_kernel_report(), wavefront_report()
+    for key, rep in {**tiles, **wave}.items():
         log(f"[1] {key}: {rep['registers']} registers, spills "
             f"{rep['spill_stores']}/{rep['spill_loads']} bytes, SASS {rep['sass']}")
     card = card_identity()
     log(f"[1] card: {card}")
-    return card, tiles
+    return card, tiles, wave
 
 
 def phase2_kernels(seed: int, n_tree: int = 1 << 20, n_rows: int = 1 << 24):
@@ -295,6 +346,12 @@ def phase2_kernels(seed: int, n_tree: int = 1 << 20, n_rows: int = 1 << 24):
     eps = hacc_benchmark_epsilon(1.0, n)
     r2 = torch.full((n,), eps, dtype=torch.float32, device=DEV) ** 2
     order = bvh.leaf_perm
+    got, want = kw.pack_tree(bvh), kw.pack_tree_plain(bvh)
+    for f in got._fields:
+        require(torch.equal(getattr(got, f).view(torch.int32),
+                            getattr(want, f).view(torch.int32)), f"pack_tree {f}")
+    log(f"[2] pack_tree: {n - 1} internal and {n} leaf records bit-equal "
+        f"to the plain version")
     for stop in (None, 2):
         got = kw.wavefront_count(bvh, pts, r2, stop_at=stop, order=order)
         want = kw.wavefront_count_plain(bvh, pts, r2, stop)
@@ -514,7 +571,7 @@ def sync_debug_error(torch):
         torch.cuda.set_sync_debug_mode(0)
 
 
-def phase5_neighbor_lists(seed: int, n: int, card: str):
+def phase5_neighbor_lists(seed: int, n: int, card: str, wave: dict):
     import torch
     from repro_torch.core import query as tq
     from repro_torch.core.bvh import build_bvh
@@ -637,7 +694,9 @@ def phase5_neighbor_lists(seed: int, n: int, card: str):
              "card": card,
              "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-             "hops": hops, "capacity": total, "queries": q,
+             **traversal_fields(torch, kw, bvh, hops, ms, wave,
+                                "wavefront_fill"),
+             "capacity": total, "queries": q,
              "count_ms": count_ms, "query_csr_s": secs_exact,
              "rows_in_thread_order_ms": rows_ms}]
     del exact, fill_args, offsets
@@ -658,7 +717,9 @@ def phase5_neighbor_lists(seed: int, n: int, card: str):
                  "path": "query_csr_buffered from capacity 32", "card": card,
                  "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                 "hops": hops, "capacity": cap, "queries": q})
+                 **traversal_fields(torch, kw, bvh, hops, ms, wave,
+                                    "wavefront_fixed"),
+                 "capacity": cap, "queries": q})
     return rows
 
 
@@ -679,6 +740,18 @@ def plain_fixed(torch, kw, bvh, centers, r2, capacity):
     (carry, hops), ms = timed_once(torch, lambda: kw.lockstep_traverse(
         bvh, centers, r2, lanes, carry0, kw.fixed_epilogue(bvh, buf)))
     return (buf, carry[:, 0].to(torch.int32)), ms, hops
+
+
+def traversal_fields(torch, kw, bvh, hops: int, ms: float, wave: dict,
+                     key: str, shared: bool = False) -> dict:
+    """A traversal row's hops, hops per second, the time of one pack of
+    the tree alone, whether ``ms`` holds a pack per launch (not where the
+    path's traversals share one, ``shared``), and the registers of the
+    kernel instance."""
+    return {"hops": hops, "ghops_per_s": hops / ms * 1e-6,
+            "pack_ms": cuda_ms(torch, lambda: kw.pack_tree(bvh), 5),
+            "pack_per_launch": not shared,
+            "registers": wave[key]["registers"]}
 
 
 def bound(nbytes, ops):
@@ -1226,7 +1299,7 @@ def phase8_all_pairs(seed: int, n: int, card: str, tiles: dict):
     return rows
 
 
-def phase9_kernel_line(launches_by_step, records, more_rows, card):
+def phase9_kernel_line(launches_by_step, records, more_rows, card, wave):
     import torch
     from repro_torch.kernels import segment as ks
     from repro_torch.kernels import wavefront as kw
@@ -1242,7 +1315,10 @@ def phase9_kernel_line(launches_by_step, records, more_rows, card):
 
     (bvh, centers, r2), kw_args, got = records["wavefront_count"]
     q = centers.shape[0]
-    ms = cuda_ms(torch, lambda: kw.wavefront_count(bvh, centers, r2, **kw_args), 3)
+    # As on the path: fdbscan's traversals share one pack of the tree.
+    with kw.shared_pack(bvh):
+        ms = cuda_ms(torch, lambda: kw.wavefront_count(bvh, centers, r2, **kw_args),
+                     3)
     lanes = torch.arange(q, device=DEV)
     (want, hops), plain_ms = timed_once(torch, lambda: kw.lockstep_traverse(
         bvh, centers, r2, lanes, torch.zeros(q, dtype=torch.int32, device=DEV),
@@ -1253,12 +1329,15 @@ def phase9_kernel_line(launches_by_step, records, more_rows, card):
                  "replaces": wave_ref, **per_step("wavefront_count"),
                  "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                 "hops": hops, "stop_at": kw_args.get("stop_at")})
+                 **traversal_fields(torch, kw, bvh, hops, ms, wave,
+                                    "wavefront_count", shared=True),
+                 "stop_at": kw_args.get("stop_at")})
 
     (bvh, centers, r2, labels, core, mask, sentinel), kw_args, got = \
         records["wavefront_min_label"]
-    ms = cuda_ms(torch, lambda: kw.wavefront_min_label(
-        bvh, centers, r2, labels, core, mask, sentinel, **kw_args), 3)
+    with kw.shared_pack(bvh):
+        ms = cuda_ms(torch, lambda: kw.wavefront_min_label(
+            bvh, centers, r2, labels, core, mask, sentinel, **kw_args), 3)
     lanes = torch.nonzero(mask).flatten()
     init = torch.full((lanes.numel(),), sentinel, dtype=torch.int32, device=DEV)
     (best, hops), plain_ms = timed_once(torch, lambda: kw.lockstep_traverse(
@@ -1272,7 +1351,9 @@ def phase9_kernel_line(launches_by_step, records, more_rows, card):
                  "source": wave_src, "replaces": wave_ref,
                  **per_step("wavefront_min_label"), "max_abs_err": 0.0,
                  "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                 "bound_by": b_by, "library_ms": None, "hops": hops})
+                 "bound_by": b_by, "library_ms": None,
+                 **traversal_fields(torch, kw, bvh, hops, ms, wave,
+                                    "wavefront_min_label", shared=True)})
 
     seg_src = "src/repro_torch/kernels/csrc/segment.cu"
     for name, ref_line, plain, library in (
@@ -1316,10 +1397,12 @@ def phase9_kernel_line(launches_by_step, records, more_rows, card):
                      **extra})
     rows += more_rows
     for row in rows:
+        hops = (f", {row['ghops_per_s']:.1f} Ghops/s, pack {row['pack_ms']:.4f} "
+                f"ms, {row['registers']} registers" if "hops" in row else "")
         log(f"[9] {row['name']}: {row['ms']:.4f} ms/launch x {row['launches']} "
             f"per run of {row['path']}, "
             f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}), library {row['library_ms']} ms; {card}")
+            f"({row['bound_by']}), library {row['library_ms']} ms{hops}; {card}")
     print(json.dumps({"kernels": rows}), flush=True)
 
 
@@ -1365,7 +1448,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
-    card, tiles = phase1_build()
+    card, tiles, wave = phase1_build()
     cfg = InsituConfig(mode="simulation", cadence=1, min_pts=2,
                        halo_min_count=10, halo_capacity=1 << 20)
     t0 = time.perf_counter()
@@ -1380,7 +1463,7 @@ def main(argv=None) -> int:
     launches_by_step, records = phase4_main_path(args.seed, 1 << args.n_log2, cfg)
     log(f"[4] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    nl_rows = phase5_neighbor_lists(args.seed, 1 << args.n_log2, card)
+    nl_rows = phase5_neighbor_lists(args.seed, 1 << args.n_log2, card, wave)
     log(f"[5] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase6_graph_dbscan(args.seed, 1 << args.n_log2)
@@ -1393,7 +1476,7 @@ def main(argv=None) -> int:
     log(f"[8] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase9_kernel_line(launches_by_step, records, nl_rows + grid_rows + pair_rows,
-                       card)
+                       card, wave)
     log(f"[9] done in {time.perf_counter() - t0:.1f} s; "
         f"total {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)

@@ -26,7 +26,7 @@ from repro_torch.core.bvh import Bvh, build_bvh
 from repro_torch.core.geometry import scene_bounds
 from repro_torch.core.query import query_count, query_fixed, squared_radii, within
 from repro_torch.device import as_tensor_on, resolve_device
-from repro_torch.kernels.wavefront import wavefront_min_label
+from repro_torch.kernels.wavefront import shared_pack, wavefront_min_label
 
 NOISE = -1
 
@@ -114,13 +114,15 @@ def fdbscan(points, eps, min_pts: int, *, early_stop: bool = True,
     lo, hi = scene_bounds(points)
     bvh = build_bvh(points, lo, hi)
 
-    counts = count_neighbors(bvh, points, eps,
-                             min_pts if early_stop else None,
-                             order=bvh.leaf_perm)
-    core = counts >= min_pts
-    parent, rounds = union_rounds(bvh, points, eps, core, n)
-    border = min_core_label_on(bvh, points, eps, parent, core, ~core, n,
-                               order=bvh.leaf_perm)
+    # All the traversals of this tree read one packed copy of it.
+    with shared_pack(bvh):
+        counts = count_neighbors(bvh, points, eps,
+                                 min_pts if early_stop else None,
+                                 order=bvh.leaf_perm)
+        core = counts >= min_pts
+        parent, rounds = union_rounds(bvh, points, eps, core, n)
+        border = min_core_label_on(bvh, points, eps, parent, core, ~core, n,
+                                   order=bvh.leaf_perm)
     labels = _finish_labels(parent, border, core, n)
     return DbscanResult(labels=labels, core_mask=core,
                         num_rounds=torch.tensor(rounds, dtype=torch.int32,

@@ -29,13 +29,48 @@
 // (q, capacity) buffer, so surplus hits overwrite the last slot, and
 // returns the true count.
 //
-// What bounds it: dependent loads. Every hop reads one node box (24 bytes)
-// and one rope or child index, and the next address depends on them. The
-// node arrays are read-only, so they go through the non-coherent cache
-// (`__ldg`). The work is data dependent: the hops each query needs. FILL and
-// FIXED add one 4-byte store per hit; in a self-join a warp's 32 queries
-// own 32 rows far apart in the output, so each store instruction touches up
-// to 32 sectors (left as it is, and measured).
+// Node records. The kernel reads the tree as ArborX keeps it, one record
+// per node with the box and the links together, packed from the `Bvh`
+// fields by `pack_kernel` (a prologue the wrappers launch before a
+// traversal, or once for all of `fdbscan`'s traversals of one tree):
+//   * internal node i (0 .. n-2): 32 bytes, two float4,
+//     {lo.x, lo.y, lo.z, bits(left_child)} {hi.x, hi.y, hi.z, bits(rope)};
+//   * leaf k (node n-1+k): 16 bytes, one float4, {x, y, z, bits(rope)}; a
+//     leaf's box is its point (`build_bvh`: node_lo == node_hi at leaves).
+// Indices travel as raw int32 bits in the w lanes: SENTINEL = -1 is a NaN
+// pattern, and only bit copies (never a float operation) touch it.
+// A hop is one dependent fetch: an internal hop issues both 16-byte loads
+// of its record together, a leaf hop one (`LDG.E.128`, non-coherent path),
+// and the next node comes from registers already loaded: left_child on a
+// hit, rope on a miss (at a leaf both w lanes are the rope). A leaf hop
+// also reads one int32 key in leaf order, issued with the record rather
+// than after the test, so a hit costs no second round trip: MIN_LABEL's
+// key is the object's label where it is core and `sentinel` elsewhere
+// (built by the wrapper with one gather per launch; the carry starts at
+// `sentinel` and only decreases, so a `sentinel` key changes nothing),
+// FILL's and FIXED's the object index (`leaf_perm`); COUNT reads none.
+//
+// What bounds it (tools/wavefront_variants.py on an H100 80GB HBM3 at
+// 700 W; COUNT and MIN_LABEL on the 2^24-point in-situ self-join): not
+// the bytes or the float operations (MIN_LABEL takes 15x its bound), and
+// at full occupancy not the latency of the dependent fetch alone. With
+// 128-thread blocks and the L1/shared split fixed, capping the warps an
+// SM holds leaves the time almost unchanged from 64 warps to 32 and
+// doubles it with each halving below: under 32 warps latency bounds it,
+// above, the memory hierarchy's throughput for the node records. Blocks
+// of 512 threads are 8% (COUNT) and 13% (MIN_LABEL) faster than blocks of
+// 128, and 1024 gains no more; only the early-exit COUNT of `fdbscan`
+// (stop_at = 2, 3 ms) lost about 6%. The likely reason, not measured (no
+// hardware counter was read), is L1 locality: threads take queries in
+// Morton order, so the warps of one block walk neighbouring subtrees on
+// one SM, while 16 small blocks on an SM come from far apart. Hence 512
+// threads a block and `__launch_bounds__(512, 3)`: at least 3 blocks, 48
+// of an SM's 64 warps, resident, each thread within 42 registers (ptxas
+// uses 22-26, so 4 blocks fit; `chip_smoke.py` phase 1 checks that no
+// instance spills). The work is data dependent: the hops each query
+// needs. FILL and FIXED add one 4-byte store per hit; in a self-join a
+// warp's 32 queries own 32 rows far apart in the output, so each store
+// instruction touches up to 32 sectors (rows in thread order save 7%).
 //
 // Exactness: the hop rule is `_one_stackless` (src/repro/core/query.py:182):
 // at a leaf, run the leaf test, the epilogue only on a hit, then follow the
@@ -52,7 +87,9 @@
 namespace {
 
 constexpr int kSentinel = -1;
-constexpr int kThreads = 128;
+constexpr int kThreads = 512;
+constexpr int kMinBlocks = 3;
+constexpr int kPackThreads = 256;
 
 enum Epilogue { COUNT = 0, MIN_LABEL = 1, FILL = 2, FIXED = 3 };
 
@@ -60,22 +97,19 @@ __device__ __forceinline__ float axis_gap(float p, float lo, float hi) {
   return fmaxf(fmaxf(__fsub_rn(lo, p), __fsub_rn(p, hi)), 0.0f);
 }
 
+// Squared distance from (px, py, pz) to the box [lo.xyz, hi.xyz].
 __device__ __forceinline__ float point_box_dist2(float px, float py, float pz,
-                                                 const float* __restrict__ lo,
-                                                 const float* __restrict__ hi,
-                                                 int node) {
-  const float dx = axis_gap(px, __ldg(lo + 3 * node), __ldg(hi + 3 * node));
-  const float dy = axis_gap(py, __ldg(lo + 3 * node + 1), __ldg(hi + 3 * node + 1));
-  const float dz = axis_gap(pz, __ldg(lo + 3 * node + 2), __ldg(hi + 3 * node + 2));
+                                                 const float4& lo, const float4& hi) {
+  const float dx = axis_gap(px, lo.x, hi.x);
+  const float dy = axis_gap(py, lo.y, hi.y);
+  const float dz = axis_gap(pz, lo.z, hi.z);
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
 }
 
 struct Tree {
-  const int* leaf_perm;
-  const int* left_child;
-  const int* rope;
-  const float* node_lo;
-  const float* node_hi;
+  const float4* inner;   // (n-1) x 2 records of the internal nodes
+  const float4* leaves;  // (n,) records of the leaves, in leaf order
+  const int* key;        // (n,) what a hit reads, in leaf order (COUNT: null)
   int n;
 };
 
@@ -84,8 +118,6 @@ struct Tree {
 template <typename Off>
 struct Epi {
   int stop_at;              // COUNT: early exit at this count (INT_MAX: never)
-  const int* obj_labels;    // MIN_LABEL: label per object
-  const bool* obj_core;     // MIN_LABEL: core flag per object
   const bool* qmask;        // MIN_LABEL: queries to run (null: all)
   int sentinel;             // MIN_LABEL: result where no core object is hit
   const Off* offsets;       // FILL: row start per query
@@ -94,12 +126,12 @@ struct Epi {
 };
 
 // COUNT: carry = hits so far; done when it reaches stop_at.
-// MIN_LABEL: carry = min label over core objects hit; never done.
+// MIN_LABEL: carry = min key over objects hit; never done.
 // FILL: writes hits at offsets[qi] + k below capacity; done at capacity.
 // FIXED: carry = hits so far; hit k goes to slot min(k, capacity - 1).
 // `out[qi]` receives the carry (FILL has none and writes no `out`).
 template <int EPI, typename Off>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 wavefront_kernel(Tree t, const int* __restrict__ order,
                  const float* __restrict__ centers, const float* __restrict__ r2,
                  int q, Epi<Off> e, int* __restrict__ out) {
@@ -123,33 +155,54 @@ wavefront_kernel(Tree t, const int* __restrict__ order,
   const int first_leaf = t.n - 1;
   int node = 0;
   while (node != kSentinel) {
-    const bool hit = point_box_dist2(px, py, pz, t.node_lo, t.node_hi, node) <= rr;
-    if (node >= first_leaf) {
-      if (hit) {
-        if constexpr (EPI == COUNT) {
-          ++carry;
-          if (carry >= e.stop_at) break;
-        } else if constexpr (EPI == MIN_LABEL) {
-          const int obj = __ldg(t.leaf_perm + (node - first_leaf));
-          if (e.obj_core[obj]) carry = min(carry, __ldg(e.obj_labels + obj));
-        } else if constexpr (EPI == FILL) {
-          e.indices[pos] = __ldg(t.leaf_perm + (node - first_leaf));
-          if (++pos >= e.capacity) break;
-        } else {
-          if (e.capacity > 0) {
-            const long long slot = min(static_cast<long long>(carry), e.capacity - 1);
-            e.indices[static_cast<long long>(qi) * e.capacity + slot] =
-                __ldg(t.leaf_perm + (node - first_leaf));
-          }
-          ++carry;
+    const bool leaf = node >= first_leaf;
+    const int k = node - first_leaf;
+    const float4* rec = leaf ? t.leaves + k : t.inner + 2 * node;
+    const float4 lo = __ldg(rec);
+    const float4 hi = leaf ? lo : __ldg(rec + 1);
+    // A leaf's key is fetched with its record, not after the test.
+    int key = 0;
+    if constexpr (EPI != COUNT) key = leaf ? __ldg(t.key + k) : 0;
+    const bool hit = point_box_dist2(px, py, pz, lo, hi) <= rr;
+    if constexpr (EPI == MIN_LABEL) {
+      carry = (leaf && hit) ? min(carry, key) : carry;
+    } else if (leaf && hit) {
+      if constexpr (EPI == COUNT) {
+        ++carry;
+        if (carry >= e.stop_at) break;
+      } else if constexpr (EPI == FILL) {
+        e.indices[pos] = key;
+        if (++pos >= e.capacity) break;
+      } else {
+        if (e.capacity > 0) {
+          const long long slot = min(static_cast<long long>(carry), e.capacity - 1);
+          e.indices[static_cast<long long>(qi) * e.capacity + slot] = key;
         }
+        ++carry;
       }
-      node = __ldg(t.rope + node);
-    } else {
-      node = hit ? __ldg(t.left_child + node) : __ldg(t.rope + node);
     }
+    // At a leaf both w lanes hold the rope.
+    node = hit ? __float_as_int(lo.w) : __float_as_int(hi.w);
   }
   if constexpr (EPI != FILL) out[qi] = carry;
+}
+
+// One thread per node: node i's box and links into its record.
+__global__ void __launch_bounds__(kPackThreads)
+pack_kernel(const float* __restrict__ node_lo, const float* __restrict__ node_hi,
+            const int* __restrict__ left_child, const int* __restrict__ rope, int n,
+            float4* __restrict__ inner, float4* __restrict__ leaves) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= 2LL * n - 1) return;
+  const float* lo = node_lo + 3 * i;
+  const float link = __int_as_float(rope[i]);
+  if (i < n - 1) {
+    const float* hi = node_hi + 3 * i;
+    inner[2 * i] = make_float4(lo[0], lo[1], lo[2], __int_as_float(left_child[i]));
+    inner[2 * i + 1] = make_float4(hi[0], hi[1], hi[2], link);
+  } else {
+    leaves[i - (n - 1)] = make_float4(lo[0], lo[1], lo[2], link);
+  }
 }
 
 template <int EPI, typename Off>
@@ -161,6 +214,11 @@ int launch(const Tree& t, const int* order, const float* centers, const float* r
   return static_cast<int>(cudaGetLastError());
 }
 
+Tree tree(const float* inner, const float* leaves, const int* key, int n) {
+  return Tree{reinterpret_cast<const float4*>(inner),
+              reinterpret_cast<const float4*>(leaves), key, n};
+}
+
 }  // namespace
 
 extern "C" {
@@ -169,40 +227,50 @@ const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// stop_at < 0 means no early exit.
-int wavefront_count(const int* leaf_perm, const int* left_child, const int* rope,
-                    const float* node_lo, const float* node_hi, int n,
+// node_lo, node_hi: (2n-1, 3) float32; left_child: (n-1,); rope: (2n-1,)
+// int32. inner: (n-1, 8) and leaves: (n, 4) float32, 16-byte aligned.
+int wavefront_pack(const float* node_lo, const float* node_hi, const int* left_child,
+                   const int* rope, int n, float* inner, float* leaves,
+                   cudaStream_t stream) {
+  const long long nodes = 2LL * n - 1;
+  const int blocks = static_cast<int>((nodes + kPackThreads - 1) / kPackThreads);
+  pack_kernel<<<blocks, kPackThreads, 0, stream>>>(
+      node_lo, node_hi, left_child, rope, n, reinterpret_cast<float4*>(inner),
+      reinterpret_cast<float4*>(leaves));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// In every traversal entry, inner and leaves are `wavefront_pack`'s
+// records and key is (n,) int32 in leaf order. stop_at < 0 means no early
+// exit.
+int wavefront_count(const float* inner, const float* leaves, const int* key, int n,
                     const int* order, const float* centers, const float* r2, int q,
                     int stop_at, int* out, cudaStream_t stream) {
-  const Tree t{leaf_perm, left_child, rope, node_lo, node_hi, n};
   Epi<int> e{};
   e.stop_at = stop_at < 0 ? INT_MAX : stop_at;
-  return launch<COUNT>(t, order, centers, r2, q, e, out, stream);
+  return launch<COUNT>(tree(inner, leaves, key, n), order, centers, r2, q, e, out,
+                       stream);
 }
 
-int wavefront_min_label(const int* leaf_perm, const int* left_child, const int* rope,
-                        const float* node_lo, const float* node_hi, int n,
+// key[k]: the label of leaf k's object where it is core, else sentinel.
+int wavefront_min_label(const float* inner, const float* leaves, const int* key, int n,
                         const int* order, const float* centers, const float* r2,
-                        int q, const int* obj_labels, const bool* obj_core,
-                        const bool* qmask, int sentinel, int* out,
+                        int q, const bool* qmask, int sentinel, int* out,
                         cudaStream_t stream) {
-  const Tree t{leaf_perm, left_child, rope, node_lo, node_hi, n};
   Epi<int> e{};
-  e.obj_labels = obj_labels;
-  e.obj_core = obj_core;
   e.qmask = qmask;
   e.sentinel = sentinel;
-  return launch<MIN_LABEL>(t, order, centers, r2, q, e, out, stream);
+  return launch<MIN_LABEL>(tree(inner, leaves, key, n), order, centers, r2, q, e, out,
+                           stream);
 }
 
-// offsets: (q + 1,) int32 (offsets_64 == 0) or int64; indices: (capacity,)
-// int32, set to -1 by the caller.
-int wavefront_fill(const int* leaf_perm, const int* left_child, const int* rope,
-                   const float* node_lo, const float* node_hi, int n,
+// key: leaf_perm. offsets: (q + 1,) int32 (offsets_64 == 0) or int64;
+// indices: (capacity,) int32, set to -1 by the caller.
+int wavefront_fill(const float* inner, const float* leaves, const int* key, int n,
                    const int* order, const float* centers, const float* r2, int q,
                    const void* offsets, int offsets_64, long long capacity,
                    int* indices, cudaStream_t stream) {
-  const Tree t{leaf_perm, left_child, rope, node_lo, node_hi, n};
+  const Tree t = tree(inner, leaves, key, n);
   if (offsets_64) {
     Epi<long long> e{};
     e.offsets = static_cast<const long long*>(offsets);
@@ -217,16 +285,16 @@ int wavefront_fill(const int* leaf_perm, const int* left_child, const int* rope,
   return launch<FILL>(t, order, centers, r2, q, e, nullptr, stream);
 }
 
-// buf: (q, capacity) int32, set to -1 by the caller; counts: (q,) int32.
-int wavefront_fixed(const int* leaf_perm, const int* left_child, const int* rope,
-                    const float* node_lo, const float* node_hi, int n,
+// key: leaf_perm. buf: (q, capacity) int32, set to -1 by the caller;
+// counts: (q,) int32.
+int wavefront_fixed(const float* inner, const float* leaves, const int* key, int n,
                     const int* order, const float* centers, const float* r2, int q,
                     long long capacity, int* buf, int* counts, cudaStream_t stream) {
-  const Tree t{leaf_perm, left_child, rope, node_lo, node_hi, n};
   Epi<int> e{};
   e.capacity = capacity;
   e.indices = buf;
-  return launch<FIXED>(t, order, centers, r2, q, e, counts, stream);
+  return launch<FIXED>(tree(inner, leaves, key, n), order, centers, r2, q, e, counts,
+                       stream);
 }
 
 }  // extern "C"

@@ -27,11 +27,22 @@ The plain version is the lockstep wavefront of the reference kernel
 (``repro/kernels/wavefront.py:180-215``): every live query advances one
 rope hop per iteration, and queries drop out of the working set when they
 finish.
+
+The kernel reads the tree as packed node records (:func:`pack_tree`):
+an internal node's box with its left child and rope in 32 bytes, a leaf's
+point with its rope in 16, indices as raw int32 bits. A wrapper packs the
+tree before it launches the traversal, once per call, or once for all the
+traversals of a tree inside :func:`shared_pack`; a leaf hop reads one
+int32 key (:func:`min_label_keys` for MIN_LABEL, ``leaf_perm`` for FILL
+and FIXED).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
+from typing import NamedTuple
 
 import torch
 
@@ -40,7 +51,8 @@ from repro_torch.core.geometry import point_aabb_dist2
 from repro_torch.kernels import _build
 
 __all__ = ["wavefront_count", "wavefront_min_label", "wavefront_fill",
-           "wavefront_fixed", "wavefront_count_plain",
+           "wavefront_fixed", "PackedTree", "pack_tree", "pack_tree_plain",
+           "shared_pack", "min_label_keys", "wavefront_count_plain",
            "wavefront_min_label_plain", "wavefront_fill_plain",
            "wavefront_fixed_plain", "lockstep_traverse", "count_epilogue",
            "min_label_epilogue", "fill_epilogue", "fixed_epilogue",
@@ -70,11 +82,17 @@ def _ptr(t: torch.Tensor | None) -> int | None:
     return t.data_ptr()
 
 
-def _tree_args(bvh: Bvh):
-    if bvh.leaf_perm.dtype != torch.int32 or bvh.node_lo.dtype != torch.float32:
-        raise ValueError("Bvh index fields must be int32 and boxes float32")
-    return [_ptr(bvh.leaf_perm), _ptr(bvh.left_child), _ptr(bvh.rope),
-            _ptr(bvh.node_lo), _ptr(bvh.node_hi), bvh.num_leaves]
+def _vec_ptr(t: torch.Tensor) -> int:
+    """The address of a tensor the kernel reads as float4 records."""
+    if t.data_ptr() % 16:
+        raise ValueError("packed tree records must be 16-byte aligned, got "
+                         f"address {t.data_ptr():#x}")
+    return _ptr(t)
+
+
+def _tree_args(packed: "PackedTree", key: torch.Tensor | None):
+    return [_vec_ptr(packed.inner), _vec_ptr(packed.leaves), _ptr(key),
+            packed.leaves.shape[0]]
 
 
 def _stream() -> int:
@@ -82,23 +100,106 @@ def _stream() -> int:
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_TREE = [_P, _P, _P, _P, _P, _I]
+_TREE = [_P, _P, _P, _I]
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.library("wavefront")
+    lib.wavefront_pack.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P]
     lib.wavefront_count.argtypes = _TREE + [_P, _P, _P, _I, _I, _P, _P]
-    lib.wavefront_min_label.argtypes = _TREE + [_P, _P, _P, _I, _P, _P, _P,
-                                                _I, _P, _P]
+    lib.wavefront_min_label.argtypes = _TREE + [_P, _P, _P, _I, _P, _I, _P,
+                                                _P]
     lib.wavefront_fill.argtypes = _TREE + [_P, _P, _P, _I, _P, _I, _L, _P, _P]
     lib.wavefront_fixed.argtypes = _TREE + [_P, _P, _P, _I, _L, _P, _P, _P]
-    for fn in (lib.wavefront_count, lib.wavefront_min_label,
-               lib.wavefront_fill, lib.wavefront_fixed):
+    for fn in (lib.wavefront_pack, lib.wavefront_count,
+               lib.wavefront_min_label, lib.wavefront_fill,
+               lib.wavefront_fixed):
         fn.restype = _I
     lib.cuda_error_string.argtypes = [_I]
     lib.cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+# ---------------------------------------------------------------------------
+# Packed node records
+# ---------------------------------------------------------------------------
+
+class PackedTree(NamedTuple):
+    """The tree as the kernel reads it, float32 with int32 bits in the
+    last column (``Tensor.view``, never a conversion: ``SENTINEL`` is a NaN
+    pattern). ``inner[i]`` = lo.xyz, left_child, hi.xyz, rope of internal
+    node i; ``leaves[k]`` = x, y, z, rope of leaf k (node n-1+k), whose
+    box is its point."""
+
+    inner: torch.Tensor   # (n-1, 8)
+    leaves: torch.Tensor  # (n, 4)
+
+
+def pack_tree_plain(bvh: Bvh) -> PackedTree:
+    """:func:`pack_tree` in torch ops: bit copies of the ``Bvh`` fields."""
+    n, i32 = bvh.num_leaves, torch.int32
+    lo, hi, rope = bvh.node_lo.view(i32), bvh.node_hi.view(i32), bvh.rope
+    inner = torch.cat([lo[:n - 1], bvh.left_child[:, None], hi[:n - 1],
+                       rope[:n - 1, None]], 1)
+    leaves = torch.cat([lo[n - 1:], rope[n - 1:, None]], 1)
+    return PackedTree(inner.view(torch.float32), leaves.view(torch.float32))
+
+
+def pack_tree(bvh: Bvh) -> PackedTree:
+    """The node records of ``bvh`` (a tree from ``build_bvh``: leaf boxes
+    are points, so only ``node_lo`` is read at leaves). On the card the
+    pack kernel of ``csrc/wavefront.cu`` writes them; for CPU tensors its
+    plain version. Extra memory: (n-1)·32 + n·16 bytes."""
+    if bvh.leaf_perm.dtype != torch.int32 or bvh.node_lo.dtype != torch.float32:
+        raise ValueError("Bvh index fields must be int32 and boxes float32")
+    if not bvh.node_lo.is_cuda:
+        return pack_tree_plain(bvh)
+    n, f32, dev = bvh.num_leaves, torch.float32, bvh.node_lo.device
+    packed = PackedTree(torch.empty((n - 1, 8), dtype=f32, device=dev),
+                        torch.empty((n, 4), dtype=f32, device=dev))
+    lib = _lib()
+    code = lib.wavefront_pack(
+        _ptr(bvh.node_lo), _ptr(bvh.node_hi), _ptr(bvh.left_child),
+        _ptr(bvh.rope), n, _vec_ptr(packed.inner), _vec_ptr(packed.leaves),
+        _stream())
+    _build.check(lib, code, "wavefront_pack")
+    return packed
+
+
+_open = threading.local()   # .packs: [bvh, PackedTree or None] per block
+
+
+@contextlib.contextmanager
+def shared_pack(bvh: Bvh):
+    """Inside the block, this thread's traversals of ``bvh`` (this very
+    object, which must not change there) share one packed copy, made at
+    the first launch, instead of packing at each launch."""
+    packs = _open.__dict__.setdefault("packs", [])
+    packs.append([bvh, None])
+    try:
+        yield
+    finally:
+        packs.pop()
+
+
+def _packed(bvh: Bvh) -> PackedTree:
+    for entry in getattr(_open, "packs", ()):
+        if entry[0] is bvh:
+            if entry[1] is None:
+                entry[1] = pack_tree(bvh)
+            return entry[1]
+    return pack_tree(bvh)
+
+
+def min_label_keys(bvh: Bvh, obj_labels, obj_core, sentinel: int):
+    """MIN_LABEL's key per leaf, (n,) int32 in leaf order: the label of
+    the leaf's object where it is core, ``sentinel`` elsewhere. A query's
+    carry starts at ``sentinel`` and only decreases, so the min over the
+    keys of its hits is the min over its core hits' labels."""
+    perm = bvh.leaf_perm
+    return torch.where(obj_core.index_select(0, perm),
+                       obj_labels.index_select(0, perm), int(sentinel))
 
 
 # ---------------------------------------------------------------------------
@@ -265,9 +366,10 @@ def wavefront_count(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor, *,
     out = torch.empty(q, dtype=torch.int32, device=centers.device)
     if q == 0:
         return out
+    packed = _packed(bvh)
     lib = _lib()
     code = lib.wavefront_count(
-        *_tree_args(bvh), _ptr(order), _ptr(centers), _ptr(r2), q,
+        *_tree_args(packed, None), _ptr(order), _ptr(centers), _ptr(r2), q,
         -1 if stop_at is None else int(stop_at), _ptr(out), _stream())
     _build.check(lib, code, "wavefront_count")
     wavefront_count.launches += 1
@@ -293,11 +395,12 @@ def wavefront_min_label(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
     out = torch.empty(q, dtype=torch.int32, device=centers.device)
     if q == 0:
         return out
+    packed = _packed(bvh)
+    key = min_label_keys(bvh, obj_labels, obj_core, sentinel)
     lib = _lib()
     code = lib.wavefront_min_label(
-        *_tree_args(bvh), _ptr(order), _ptr(centers), _ptr(r2), q,
-        _ptr(obj_labels), _ptr(obj_core), _ptr(queries_mask), int(sentinel),
-        _ptr(out), _stream())
+        *_tree_args(packed, key), _ptr(order), _ptr(centers), _ptr(r2), q,
+        _ptr(queries_mask), int(sentinel), _ptr(out), _stream())
     _build.check(lib, code, "wavefront_min_label")
     wavefront_min_label.launches += 1
     return out
@@ -324,9 +427,11 @@ def wavefront_fill(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
                          device=centers.device)
     if q == 0 or capacity == 0:
         return indices
+    packed = _packed(bvh)
     lib = _lib()
     code = lib.wavefront_fill(
-        *_tree_args(bvh), _ptr(order), _ptr(centers), _ptr(r2), q,
+        *_tree_args(packed, bvh.leaf_perm), _ptr(order), _ptr(centers),
+        _ptr(r2), q,
         _ptr(offsets), int(offsets.dtype == torch.int64), capacity,
         _ptr(indices), _stream())
     _build.check(lib, code, "wavefront_fill")
@@ -351,10 +456,11 @@ def wavefront_fixed(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
     counts = torch.empty(q, dtype=torch.int32, device=centers.device)
     if q == 0:
         return buf, counts
+    packed = _packed(bvh)
     lib = _lib()
     code = lib.wavefront_fixed(
-        *_tree_args(bvh), _ptr(order), _ptr(centers), _ptr(r2), q, capacity,
-        _ptr(buf), _ptr(counts), _stream())
+        *_tree_args(packed, bvh.leaf_perm), _ptr(order), _ptr(centers),
+        _ptr(r2), q, capacity, _ptr(buf), _ptr(counts), _stream())
     _build.check(lib, code, "wavefront_fixed")
     wavefront_fixed.launches += 1
     return buf, counts

@@ -11,8 +11,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import query as tq  # noqa: E402
+from repro_torch.core.dbscan import fdbscan  # noqa: E402
 from repro_torch.core.bvh import build_bvh  # noqa: E402
-from repro_torch.core.geometry import scene_bounds  # noqa: E402
+from repro_torch.core.geometry import point_aabb_dist2, scene_bounds  # noqa: E402
 from repro_torch.data.pipeline import make_clustered_points  # noqa: E402
 from repro_torch.core import fdbscan_grid as tgrid  # noqa: E402
 from repro_torch.kernels import pairwise as kp  # noqa: E402
@@ -139,6 +140,150 @@ def test_csr_device_makes_no_host_sync(cuda):
     assert (kw.wavefront_count.launches, kw.wavefront_fill.launches) == \
         (before[0] + 1, before[1] + 1)
     torch.testing.assert_close(res.offsets.diff(), counts, rtol=0, atol=0)
+
+
+def _edge_case(cuda, case):
+    """(tree points, queries, r2) of a tree edge case: a two-leaf tree;
+    coincident points, whose zero-size boxes tie at d2 == r2 exactly (r2
+    set to the plain version's own d2 from each query to one leaf); and
+    queries outside the scene box."""
+    rng = np.random.default_rng(len(case))
+    if case == "two_leaves":
+        pts = rng.uniform(0, 1, (2, 3)).astype(np.float32)
+        queries = np.concatenate([pts, rng.uniform(-0.5, 1.5, (40, 3))])
+        r2 = rng.uniform(0, 1, queries.shape[0]) ** 2
+    elif case == "coincident_ties":
+        base = rng.uniform(0, 1, (300, 3)).astype(np.float32)
+        pts = np.repeat(base, 7, axis=0)[rng.permutation(2100)]
+        queries = np.concatenate([pts[:500], rng.uniform(0, 1, (500, 3))])
+        r2 = np.zeros(queries.shape[0])
+    else:
+        pts = make_clustered_points(rng, 3000)
+        queries = rng.uniform(-1, 2, (2000, 3))
+        queries[:, rng.integers(0, 3)] += 3.0    # all past one face
+        r2 = rng.uniform(0, 3.5, queries.shape[0]) ** 2
+    pts, queries, r2 = (torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+                        for a in (pts, queries, r2))
+    if case == "coincident_ties":
+        j = torch.from_numpy(rng.integers(0, pts.shape[0], queries.shape[0])).to(cuda)
+        r2 = point_aabb_dist2(queries, pts[j], pts[j])
+    return pts, queries, r2
+
+
+def _assert_epilogues_match_plain(bvh, centers, r2, cuda):
+    """COUNT (with and without early exit), MIN_LABEL, FILL (exact, half,
+    int64 offsets) and FIXED (overflowing, ample) bit-equal to plain, the
+    queries taken by threads in a random order."""
+    q, n = centers.shape[0], bvh.num_leaves
+    rng = np.random.default_rng(q + n)
+    order = torch.from_numpy(rng.permutation(q).astype(np.int32)).to(cuda)
+    for stop in (None, 2):
+        torch.testing.assert_close(
+            kw.wavefront_count(bvh, centers, r2, stop_at=stop, order=order),
+            kw.wavefront_count_plain(bvh, centers, r2, stop), rtol=0, atol=0)
+    labels = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(cuda)
+    core = torch.from_numpy(rng.random(n) < 0.6).to(cuda)
+    mask = torch.from_numpy(rng.random(q) < 0.8).to(cuda)
+    torch.testing.assert_close(
+        kw.wavefront_min_label(bvh, centers, r2, labels, core, mask, n, order=order),
+        kw.wavefront_min_label_plain(bvh, centers, r2, labels, core, mask, n),
+        rtol=0, atol=0)
+    counts = kw.wavefront_count(bvh, centers, r2)
+    assert int(counts.sum()) > 0
+    for dtype, cut in ((torch.int32, 1), (torch.int32, 2), (torch.int64, 1)):
+        offsets = _offsets(counts, dtype)
+        cap = int(offsets[-1]) // cut
+        torch.testing.assert_close(
+            kw.wavefront_fill(bvh, centers, r2, offsets, cap, order=order),
+            kw.wavefront_fill_plain(bvh, centers, r2, offsets, cap), rtol=0, atol=0)
+    for cap in (1, int(counts.max())):
+        for g, w in zip(kw.wavefront_fixed(bvh, centers, r2, cap, order=order),
+                        kw.wavefront_fixed_plain(bvh, centers, r2, cap)):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", ["two_leaves", "coincident_ties", "outside_scene"])
+def test_wavefront_edge_trees_match_plain(cuda, case):
+    pts, queries, r2 = _edge_case(cuda, case)
+    bvh = build_bvh(pts, *scene_bounds(pts))
+    got, want = kw.pack_tree(bvh), kw.pack_tree_plain(bvh)
+    for f in got._fields:
+        torch.testing.assert_close(getattr(got, f).view(torch.int32),
+                                   getattr(want, f).view(torch.int32), rtol=0, atol=0)
+    _assert_epilogues_match_plain(bvh, queries, r2, cuda)
+
+
+@pytest.mark.parametrize("case", ["sentinel_below_labels", "no_core"])
+def test_wavefront_min_label_sentinels(cuda, case):
+    """The keys hold ``sentinel`` for objects that are not core: with a
+    sentinel below half the labels, and with no core object at all."""
+    pts, bvh = _tree(cuda, 5000, 3)
+    n = pts.shape[0]
+    rng = np.random.default_rng(len(case))
+    r2 = torch.full((n,), 0.015 ** 2, device=cuda)
+    labels = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(cuda)
+    core = torch.from_numpy(rng.random(n) < 0.5).to(cuda)
+    sentinel = n // 2
+    if case == "no_core":
+        core[:] = False
+        sentinel = n
+    for mask in (torch.ones_like(core), core | torch.from_numpy(rng.random(n) < 0.3).to(cuda)):
+        got = kw.wavefront_min_label(bvh, pts, r2, labels, core, mask, sentinel,
+                                     order=bvh.leaf_perm)
+        want = kw.wavefront_min_label_plain(bvh, pts, r2, labels, core, mask, sentinel)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        if case == "no_core":
+            assert bool((got == sentinel).all())
+
+
+def test_wavefront_misaligned_records_raise(cuda, monkeypatch):
+    """Node records the kernel would read as float4 at an address that is
+    not a multiple of 16 bytes raise before any launch."""
+    pts, bvh = _tree(cuda, 1000, 4)
+    r2 = torch.full((1000,), 0.02 ** 2, device=cuda)
+    good = kw.pack_tree(bvh)
+
+    def shifted(_bvh):
+        out = []
+        for t in good:
+            buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+            view = buf[1:].view(t.shape)
+            view.copy_(t)
+            out.append(view)
+        return kw.PackedTree(*out)
+
+    monkeypatch.setattr(kw, "pack_tree", shifted)
+    before = kw.wavefront_count.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kw.wavefront_count(bvh, pts, r2)
+    offsets = torch.zeros(1001, dtype=torch.int32, device=cuda)
+    offsets[-1] = 1
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kw.wavefront_fill(bvh, pts, r2, offsets, 1)
+    assert kw.wavefront_count.launches == before
+
+
+def test_fdbscan_packs_its_tree_once(cuda, monkeypatch):
+    """fdbscan's traversals (COUNT, every union round, the border pass)
+    share one pack of the tree, and its result equals the CPU path's."""
+    pts = make_clustered_points(np.random.default_rng(9), 20000)
+    made = []
+    real = kw.pack_tree
+
+    def counting_pack(bvh):
+        made.append(1)
+        return real(bvh)
+
+    monkeypatch.setattr(kw, "pack_tree", counting_pack)
+    before = (kw.wavefront_count.launches, kw.wavefront_min_label.launches)
+    got = fdbscan(pts, 0.01, 2, device=cuda)
+    launches = (kw.wavefront_count.launches - before[0],
+                kw.wavefront_min_label.launches - before[1])
+    assert launches == (1, int(got.num_rounds) + 1) and made == [1]
+    want = fdbscan(pts, 0.01, 2, device="cpu")
+    for f in want._fields:
+        torch.testing.assert_close(getattr(got, f).cpu(), getattr(want, f),
+                                   rtol=0, atol=0)
 
 
 def _cells(cuda, ncells, cap, d, seed, fill=0.6):
