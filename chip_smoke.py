@@ -17,16 +17,19 @@ CUDA toolkit. Phases, each of which must pass:
    pack prologue) may spill or hold an ``FFMA``, and each traversal
    instance must read its node records with 128-bit loads
    (``LDG.E.128``); their registers and counts of 128-bit and narrower
-   ``LDG`` are printed.
+   ``LDG`` are printed. No instance of the stencil kernel (and neither of
+   its two prologues) may hold an ``FFMA``; their registers and spills
+   are printed.
 2. Each kernel against its plain PyTorch version on the card: the
    traversal's node records (``pack_tree``, bit for bit) and its
    epilogues (COUNT, MIN_LABEL, FILL at an exact capacity, at
    half of it and with int64 offsets, FIXED with overflowing and ample
    buffers) on a tree of 2^20 clustered points (exact), the segment
    reductions at the catalog's shapes, 2^24 x 8 and 2^24 x 1; the stencil
-   kernels on 2^21 uniform points in 128^3 eps-cells at capacities 16 and
-   48, every slot, and the all-pairs kernels at m x n = 1 x 5000, 129 x
-   257 and 3001 x 5003 for d = 1, 3, 64, 100 and 257, at 300 x 70,000
+   kernels and their slot-class prologue on 2^21 uniform points in 128^3
+   eps-cells at capacities 16 and 48, every slot, and the all-pairs
+   kernels at m x n = 1 x 5000, 129 x 257 and 3001 x 5003 for d = 1, 3,
+   64, 100 and 257, at 300 x 70,000
    (candidates split across blocks) and at exact ties, eps2 the plain
    version's own d2 of chosen pairs (all bit-exact).
 3. The card against the plain path on the CPU: the in-situ step at 2^18
@@ -56,10 +59,14 @@ CUDA toolkit. Phases, each of which must pass:
    2^-8 (the mean spacing, 256^3 cells), ``min_pts = 5``:
    ``fdbscan_grid_auto`` from capacity 4, then ``fdbscan_grid`` at the
    capacity it found, timed, with stencil_count 1 and stencil_min_label
-   rounds + 1 launches; both kernels against their plain versions at the
-   path's own inputs; and the grid's counts against the exact ``fdbscan``
-   counts, every difference explained by pairs inside the rounding band of
-   the grid's distance formula.
+   rounds + 1 launches; the same run with the plain stencil versions in
+   place of the kernels, whose labels, core mask and rounds must be the
+   kernels' own; both kernels against their plain versions at the path's
+   own inputs, timed as the path runs them (one slot-class mask shared by
+   the launches) and with the mask made per launch, with the pair and
+   class tests they make; and the grid's counts against the exact
+   ``fdbscan`` counts, every difference explained by pairs inside the
+   rounding band of the grid's distance formula.
 8. The all-pairs ops at full size: 2^16 points in d = 64 from 64 Gaussian
    clusters, eps the 1% quantile of the pairwise distances of a 512-row
    sample; ``eps_neighbor_counts`` then ``eps_min_label`` (core = counts
@@ -73,7 +80,9 @@ CUDA toolkit. Phases, each of which must pass:
    rows add their hops, hops per second, the time of one pack of the tree
    (in ``ms`` for FILL and FIXED, whose paths pack at each launch; not for
    COUNT and MIN_LABEL, which share ``fdbscan``'s one pack) and the
-   instance's registers.
+   instance's registers; the stencil rows their pair and class tests,
+   tests per second, the time of the slot-class prologue alone (shared by
+   ``fdbscan_grid``'s launches, so not in ``ms``) and registers.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the port beside this file, it exits nonzero and prints no
@@ -179,6 +188,17 @@ def tap(module, name: str, calls: list, keep_args: bool = True):
         yield calls
     finally:
         setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def swapped(module, name: str, fn):
+    """``module.name`` replaced by ``fn`` inside the block."""
+    old = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
 
 
 def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
@@ -314,6 +334,27 @@ def wavefront_report():
     return out
 
 
+# The stencil kernel's instances (epilogue; coordinates in registers for
+# D <= 4, or read at each use) and its two prologues.
+STENCIL_KERNELS = {"stencil_count": "eps_kernelILi0ELb1E",
+                   "stencil_count_wide": "eps_kernelILi0ELb0E",
+                   "stencil_min_label": "eps_kernelILi1ELb1E",
+                   "stencil_min_label_wide": "eps_kernelILi1ELb0E",
+                   "stencil_classes": "real_mask_kernel",
+                   "stencil_pad_min": "pad_min_kernel"}
+
+
+def stencil_report():
+    """Registers, spills and SASS opcode counts of every instance of the
+    stencil kernel and of its prologues. Fails if one holds an FFMA: a
+    contracted multiply-add would round d2 otherwise than the plain
+    version."""
+    out = kernel_report("pairwise", STENCIL_KERNELS)
+    for key, rep in out.items():
+        require(rep["sass"]["FFMA"] == 0, f"{key}: SASS holds an FFMA")
+    return out
+
+
 def phase1_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -323,12 +364,13 @@ def phase1_build():
     for name, text in logs.items():
         log(f"--- nvcc -Xptxas -v: {name}.cu ---\n{text.strip()}")
     tiles, wave = tile_kernel_report(), wavefront_report()
-    for key, rep in {**tiles, **wave}.items():
+    stencil = stencil_report()
+    for key, rep in {**tiles, **wave, **stencil}.items():
         log(f"[1] {key}: {rep['registers']} registers, spills "
             f"{rep['spill_stores']}/{rep['spill_loads']} bytes, SASS {rep['sass']}")
     card = card_identity()
     log(f"[1] card: {card}")
-    return card, tiles, wave
+    return card, tiles, wave, stencil
 
 
 def phase2_kernels(seed: int, n_tree: int = 1 << 20, n_rows: int = 1 << 24):
@@ -844,21 +886,26 @@ def pair_ops(d: int) -> int:
     return 2 * d + 4
 
 
-def occupied_pair_tests(torch, cell_pts, nbr, chunk: int = 1 << 20) -> int:
-    """Pair tests between occupied slots of a stencil pass: the sum over
-    cells of the cell's points times the points of its stencil's cells.
-    A padded slot sits at BIG and needs no arithmetic; the sink row and
-    ids outside [0, ncells] hold none."""
+def stencil_tests(torch, cell_pts, nbr, chunk: int = 1 << 20):
+    """(pair tests, class tests) of a stencil pass: per cell i, |R(i)| *
+    T(i) tests between real slots and T(i) + |R(i)| + 1 tests against the
+    padding vector, R(i) the cell's real slots and T(i) the real slots of
+    its stencil's cells (the sink and ids outside [0, ncells] read the
+    sink). The pair tests are the pass's own work: a padded slot sits at
+    BIG and needs no arithmetic of its own."""
     from repro_torch.kernels.pairwise import BIG
-    occ = (cell_pts[:, :, 0] < BIG).sum(1)
+    big = torch.tensor(BIG, dtype=torch.float32).view(torch.int32).item()
+    occ = (cell_pts.view(torch.int32) != big).any(-1).sum(1)
     ncells = nbr.shape[0]
-    total = 0
+    pairs = classes = 0
     for lo in range(0, ncells, chunk):
         hi = min(lo + chunk, ncells)
         ids = nbr[lo:hi].long()
         ids = torch.where((ids >= 0) & (ids <= ncells), ids, ncells)
-        total += int((occ[lo:hi] * occ[ids].sum(1)).sum())
-    return total
+        t = occ[ids].sum(1)
+        pairs += int((occ[lo:hi] * t).sum())
+        classes += int((t + occ[lo:hi] + 1).sum())
+    return pairs, classes
 
 
 def uniform_cube(seed: int, n: int):
@@ -934,6 +981,9 @@ def phase2_pairwise_kernels(seed: int, n_log2: int = 21):
         slot = bins.slot_of_point.long()
         lab = tgrid._scatter_slots(labels, kp.SENTINEL_LABEL, bins, slot)
         cor = tgrid._scatter_slots(core, False, bins, slot, dtype=torch.bool)
+        require(torch.equal(kp.slot_classes(bins.cell_pts),
+                            kp.slot_classes_plain(bins.cell_pts)),
+                f"slot_classes capacity {cap}")
         got = kp.stencil_count(bins.cell_pts, nbr, eps2)
         require(torch.equal(got, kp.stencil_count_plain(bins.cell_pts, nbr, eps2)),
                 f"stencil_count capacity {cap}")
@@ -942,8 +992,8 @@ def phase2_pairwise_kernels(seed: int, n_log2: int = 21):
         want = kp.stencil_min_label_plain(bins.cell_pts, lab, cor, nbr, eps2)
         require(torch.equal(got, want), f"stencil_min_label capacity {cap}")
         log(f"[2] stencil_count and stencil_min_label, {dims} cells, capacity "
-            f"{cap}: exact at all {got.numel()} slots (padded ones included); "
-            f"mean count {mean:.3f} over {n} points")
+            f"{cap}: exact at all {got.numel()} slots (padded ones included), "
+            f"slot classes exact; mean count {mean:.3f} over {n} points")
         del bins, slot, lab, cor, got, want
     del pts, nbr, labels, core
 
@@ -1052,7 +1102,7 @@ def phase3_grid_and_pairwise(seed: int, n: int = 1 << 18, n_pairs: int = 1 << 12
         f"{out['cpu'][0].float().mean().item():.1f}")
 
 
-def phase7_grid(seed: int, n: int, card: str):
+def phase7_grid(seed: int, n: int, card: str, stencil: dict):
     import torch
     from repro_torch.core import fdbscan_grid as tgrid
     from repro_torch.core import query as tq
@@ -1120,6 +1170,23 @@ def phase7_grid(seed: int, n: int, card: str):
         require(torch.equal(getattr(res, f), getattr(auto, f)),
                 f"fdbscan_grid.{f} == fdbscan_grid_auto's")
     del auto
+    # The same run with the plain stencil versions in place of the kernels
+    # (which it does not launch): labels, core mask and rounds must be the
+    # kernels' own.
+    t0 = time.perf_counter()
+    with swapped(kp, "stencil_count", kp.stencil_count_plain), \
+            swapped(kp, "stencil_min_label", kp.stencil_min_label_plain):
+        plain_res, _ = tgrid.fdbscan_grid(pts, eps, GRID_MIN_PTS, scene_lo=lo,
+                                          grid_dims=dims, capacity=cap,
+                                          device=DEV)
+    torch.cuda.synchronize()
+    for f in res._fields:
+        require(torch.equal(getattr(plain_res, f), getattr(res, f)),
+                f"fdbscan_grid.{f}: the kernels' == the plain versions'")
+    log(f"[7] fdbscan_grid with the plain stencil versions: "
+        f"{time.perf_counter() - t0:.1f} s; labels, core mask and "
+        f"{int(plain_res.num_rounds)} rounds == the kernels'")
+    del plain_res
     wall, busy, top = device_profile(torch, lambda: tgrid.fdbscan_grid(
         pts, eps, GRID_MIN_PTS, scene_lo=lo, grid_dims=dims, capacity=cap,
         device=DEV))
@@ -1145,12 +1212,17 @@ def phase7_grid(seed: int, n: int, card: str):
         want, plain_ms = timed_once(torch, lambda: plain(*args))
         require(torch.equal(got, want), f"{name} on the grid path's input")
         del want
-        ms = cuda_ms(torch, lambda: kernels[name](*args), 3)
         cell_pts, nbr = args[0], args[-2]
+        # As on the path: the launches share one slot-class mask.
+        with kp.shared_classes(cell_pts):
+            kp._classes(cell_pts)
+            ms = cuda_ms(torch, lambda: kernels[name](*args), 5)
+        ms_alone = cuda_ms(torch, lambda: kernels[name](*args), 5)
+        class_ms = cuda_ms(torch, lambda: kp.slot_classes(cell_pts), 5)
         ncells, s = nbr.shape
         c, d = cell_pts.shape[1:]
-        padded = ncells * s * c * c
-        pairs = occupied_pair_tests(torch, cell_pts, nbr)
+        all_slots = ncells * s * c * c
+        pairs, classes = stencil_tests(torch, cell_pts, nbr)
         # Reads: the cells, the map (labels and core too); writes: (ncells, C).
         nb = sum(t.numel() * t.element_size() for t in args[:-1]) + ncells * c * 4
         b_ms, b_by = bound(nb, pairs * pair_ops(d))
@@ -1164,12 +1236,20 @@ def phase7_grid(seed: int, n: int, card: str):
                      "card": card, "max_abs_err": 0.0, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": None, "pair_tests": pairs,
-                     "padded_pair_tests": padded, "bytes": nb,
-                     "ops_per_pair": pair_ops(d), "fdbscan_grid_s": runs})
+                     "class_tests": classes,
+                     "tests_per_s": (pairs + classes) / ms * 1e3,
+                     "all_slot_pair_tests": all_slots, "bytes": nb,
+                     "ops_per_pair": pair_ops(d), "class_ms": class_ms,
+                     "class_per_launch": False, "ms_class_per_launch": ms_alone,
+                     "registers": stencil[name]["registers"],
+                     "fdbscan_grid_s": runs})
         log(f"[7] {name} on the path's input == its plain version "
-            f"({plain_ms:.1f} ms); kernel {ms:.3f} ms, bound {b_ms:.3f} ms "
-            f"({b_by}: {nb} bytes, {pairs} pair tests between occupied slots;"
-            f" the kernel makes {padded}, padded slots included)")
+            f"({plain_ms:.1f} ms); kernel {ms:.3f} ms with the class mask "
+            f"shared, {ms_alone:.3f} ms with it made per launch (mask alone "
+            f"{class_ms:.3f} ms), bound {b_ms:.3f} ms ({b_by}: {nb} bytes, "
+            f"{pairs} pair tests between real slots); the kernel makes "
+            f"{pairs + classes} tests ({classes} against the padding vector) "
+            f"where testing every slot pair makes {all_slots}")
     counts_cells = count_calls[0][2]
     del count_calls, min_calls, args, tapped
 
@@ -1399,6 +1479,9 @@ def phase9_kernel_line(launches_by_step, records, more_rows, card, wave):
     for row in rows:
         hops = (f", {row['ghops_per_s']:.1f} Ghops/s, pack {row['pack_ms']:.4f} "
                 f"ms, {row['registers']} registers" if "hops" in row else "")
+        if "class_ms" in row:
+            hops = (f", {row['tests_per_s']:.4g} tests/s, slot classes "
+                    f"{row['class_ms']:.4f} ms, {row['registers']} registers")
         log(f"[9] {row['name']}: {row['ms']:.4f} ms/launch x {row['launches']} "
             f"per run of {row['path']}, "
             f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
@@ -1448,7 +1531,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
-    card, tiles, wave = phase1_build()
+    card, tiles, wave, stencil = phase1_build()
     cfg = InsituConfig(mode="simulation", cadence=1, min_pts=2,
                        halo_min_count=10, halo_capacity=1 << 20)
     t0 = time.perf_counter()
@@ -1469,7 +1552,7 @@ def main(argv=None) -> int:
     phase6_graph_dbscan(args.seed, 1 << args.n_log2)
     log(f"[6] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    grid_rows = phase7_grid(args.seed, 1 << args.n_log2, card)
+    grid_rows = phase7_grid(args.seed, 1 << args.n_log2, card, stencil)
     log(f"[7] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     pair_rows = phase8_all_pairs(args.seed, 1 << (args.n_log2 - 8), card, tiles)

@@ -32,7 +32,7 @@ from repro_torch.core import union_find
 from repro_torch.core.dbscan import NOISE, DbscanResult
 from repro_torch.device import as_tensor_on, resolve_device
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.pairwise import BIG, SENTINEL_LABEL
+from repro_torch.kernels.pairwise import BIG, SENTINEL_LABEL, shared_classes
 
 __all__ = ["CellBins", "GridAutoInfo", "bin_points", "stencil_neighbor_map",
            "fdbscan_grid", "fdbscan_grid_auto", "grid_dims_for"]
@@ -177,6 +177,12 @@ def _gather_slots(cells: torch.Tensor, slot: torch.Tensor, fill) -> torch.Tensor
 
 def _cluster(points: torch.Tensor, eps, min_pts: int, bins: CellBins,
              nbr_map: torch.Tensor, max_rounds: int) -> DbscanResult:
+    # Every stencil launch reads one slot-class mask of the cells.
+    with shared_classes(bins.cell_pts):
+        return _cluster_passes(points, eps, min_pts, bins, nbr_map, max_rounds)
+
+
+def _cluster_passes(points, eps, min_pts, bins, nbr_map, max_rounds):
     n = points.shape[0]
     dev = points.device
     slot = bins.slot_of_point.long()

@@ -15,19 +15,82 @@
 //    `stencil_min_label`). Replaces the Pallas TPU kernels `stencil_count`
 //    (src/repro/kernels/pairwise.py:166) and `stencil_min_label` (:197),
 //    the core test and the union/border passes of the grid DBSCAN
-//    `fdbscan_grid`: each slot of an eps-cell against every slot of the 3^D
-//    cells of its stencil, cells read through `nbr_map`.
-//    Design: one block per cell, a thread per slot (C rounded up to a
-//    warp), the count or label in a register across the stencil; the block
-//    stages the stencil's cells with their squared norms, labels and core
-//    flags in shared memory (all 27 at once when they fit in 48 KB), where
-//    all threads read the same candidate at once (a broadcast).
-//    What bounds it: bytes. Only pairs of occupied slots need arithmetic (a
-//    padded slot sits at BIG): at the grid's one point per cell that is
-//    about 28 tests, some 280 operations, per cell against some 370 bytes
-//    per cell at C = 16 (12 a slot of points, 4 a slot of output, 108 of
-//    map row). This kernel tests every slot pair, C^2 per stencil cell, so
-//    at C = 16 over 99% of its tests are padding.
+//    `fdbscan_grid`: each slot of an eps-cell against every slot of the
+//    3^D cells of its stencil, cells read through `nbr_map`, the output
+//    defined at every (cell, slot), padded slots included.
+//
+//    Slot classes, the exactness argument. For a cell c, R(c) are its real
+//    slots (some coordinate differs bitwise from float32(BIG)) and P(c) its
+//    padded ones (every coordinate is bitwise float32(BIG)); a real point
+//    whose coordinates are all BIG is in P, which is exact, as its
+//    coordinates are the padding's. The hit test reads nothing but the two
+//    slots' coordinates, and the same bits through the same rounded
+//    operations give the same bits, so every slot of P(c) gives one hit bit
+//    against a given partner: the test of that partner against the padding
+//    vector (BIG, ..., BIG). Per query slot q and stencil entry c, then:
+//    - q real, candidates R(c): each pair tested, as the plain version
+//      does. Only these tests grow with density.
+//    - q real, candidates P(c): one test of q against the padding vector
+//      (once per q: the vector is the same for every c). If it hits,
+//      COUNT adds |P(c)| and MIN_LABEL takes minP(c), the min label over
+//      the slots of P(c) with the core flag set (SENTINEL_LABEL if none).
+//    - q padded: every padded query slot of a cell has the same answer,
+//      computed once per cell from the padding vector against each real
+//      candidate (a test each) and against itself. That last test is
+//      computed, not assumed: (xx + xx) - 2*xx is 0 for any D the layout
+//      holds (BIG^2 * D stays finite in float32), a hit for any eps2 >= 0.
+//    Points a few ulps from BIG are real, and their test against the
+//    padding vector is decided by the formula's rounding (d2 comes out 0,
+//    negative or some 1e23), not by geometry, so it is computed, never
+//    assumed to miss. Nothing here depends on how cells are filled: R and
+//    P are read from the coordinates of every slot, padded slots may sit
+//    anywhere in a cell and carry any label and core flag, and the sink
+//    (and the ids outside [0, ncells], which read it) is classified like
+//    any cell.
+//
+//    Work. The kernel's tests are sum_i |R(i)| * T(i) pairs plus
+//    sum_i (T(i) + |R(i)| + 1) class tests, T(i) the real candidates of
+//    cell i's stencil: at 2^24 uniform points in 256^3 cells (capacity 16)
+//    about 4.7e8 + 4.9e8, against the 1.16e11 slot pairs, C^2 per stencil
+//    cell, that testing every slot pair makes.
+//
+//    Design. A prologue (`real_mask_kernel`) reads every slot once and
+//    writes each cell's R as C bits (32-bit words, W = ceil(C/32) a cell);
+//    `fdbscan_grid` makes it once for all its launches (`shared_classes`
+//    in kernels/pairwise.py). MIN_LABEL adds a per-launch prologue
+//    (`pad_min_kernel`) for minP, which reads the labels and core flags of
+//    the launch. Both map a cell to `group` lanes (C rounded up to a power
+//    of two, at most 32) and build the bits with `__ballot_sync`. The main
+//    kernel gives a warp to each query cell, two warps a block, blocks in
+//    cell order, so that neighbouring cells' data is read from L2. Lane l
+//    takes one 32-slot word of the stencil's cells (entry l / W, word
+//    l % W; 32 words a round), an exclusive warp scan of their popcounts
+//    places their real slots in a warp-private list in shared memory
+//    (16-bit entries, word lane and bit), and the list is walked 32
+//    candidates at a time, a candidate a lane: its coordinates (in
+//    registers for D <= 4), squared norm, label and core flag are loaded
+//    once. Each real query slot of the cell is then broadcast to the warp
+//    and tested against the 32 candidates at once, COUNT folding the hits
+//    with `__ballot_sync` and `__popc`, MIN_LABEL with
+//    `__reduce_min_sync`, into a per-slot accumulator in shared memory;
+//    the padding vector is tested against the same candidates. At the
+//    grid's mean of one point a cell, a stencil's ~28 real candidates fill
+//    a warp. A last pass writes every slot of the cell once: a real slot
+//    its accumulator and its class terms, a padded slot the cell's padded
+//    answer. Any C works (C = 1100 takes 35 words a cell and rounds of 32
+//    words), any S, any D (past 4, coordinates are read from L1 at each
+//    use).
+//    What bounds it: by the count above, bytes (some 60 tests, about 600
+//    operations, a cell against some 370 bytes at C = 16: 12 a slot of
+//    points, 4 a slot of output, 108 of map row). On the card it is the
+//    latency of a cell's chain of dependent loads (map row, class words,
+//    candidates, query slots) at the warps an SM holds (40 registers: 50
+//    warps in blocks of two): about 6x the bytes bound at 2^24 on an
+//    H100. Variants that
+//    shortened the chain (persistent warps fetching the next cells' map
+//    rows and class words ahead, or the cell's own slots broadcast by
+//    shuffle) took more registers and fewer warps and ran slower, and
+//    capping the registers spilled (`tools/compare_stencil.py`).
 //
 // 2. The all-pairs tile kernel, `pairwise_tile_kernel` (`pairwise_count`,
 //    `pairwise_min_label`). Replaces the Pallas TPU kernels
@@ -93,147 +156,337 @@ __device__ __forceinline__ float madd(float acc, float a, float b) {
 // 1. The stencil kernel
 // ---------------------------------------------------------------------------
 
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kStencilWarps = 2;   // query cells a block, a warp each
+constexpr int kSmallD = 4;         // widths whose coordinates sit in registers
+
 struct StencilArgs {
   const float* pts;            // cell_pts (ncells+1, C, D)
   const int* nbr;              // nbr_map (ncells, S)
+  const unsigned* real;        // (ncells+1, W): bit j%32 of word j/32, slot j real
   const int* labels;           // MIN_LABEL: (ncells+1, C)
   const unsigned char* core;   // MIN_LABEL: (ncells+1, C) bool
+  const int* pad_min;          // MIN_LABEL: (ncells+1) minP of each cell
   int ncells;
   int cap;                     // C
   int d;
   int s;                       // stencil entries S
-  int tile_cells;              // stencil cells staged at once
-  int tile_rows;               // candidate slots per staged tile
+  int words;                   // W
+  int list_cap;                // entries of a warp's candidate list
+  float pad;                   // float32(BIG)
   float eps2;
   int* out;
 };
 
+__device__ __forceinline__ bool hit(float xx, float yy, float xy, float eps2) {
+  return __fsub_rn(__fadd_rn(xx, yy), __fmul_rn(2.0f, xy)) <= eps2;
+}
+
+// A slot's coordinates: in registers where D <= kSmallD (SMALL), else read
+// where they lie at each use.
+template <bool SMALL>
+struct Point {
+  float v[kSmallD];
+  const float* p;
+  __device__ __forceinline__ void load(const float* src, int d) {
+    p = src;
+#pragma unroll
+    for (int k = 0; k < kSmallD; ++k) v[k] = SMALL && k < d ? __ldg(src + k) : 0.0f;
+  }
+  __device__ __forceinline__ float at(int k) const { return SMALL ? v[k] : __ldg(p + k); }
+};
+
+// x.y from zero, left to right over the D features; y == nullptr stands
+// for the padding vector, every feature `pad`.
+template <bool SMALL>
+__device__ __forceinline__ float dot(const Point<SMALL>& x, const Point<SMALL>* y,
+                                     float pad, int d) {
+  float acc = 0.0f;
+  if (SMALL) {
+#pragma unroll
+    for (int k = 0; k < kSmallD; ++k) {
+      if (k < d) acc = madd(acc, x.v[k], y ? y->v[k] : pad);
+    }
+  } else {
+    for (int k = 0; k < d; ++k) acc = madd(acc, x.at(k), y ? y->at(k) : pad);
+  }
+  return acc;
+}
+
+// The warp's 32 hit bits folded into one value, the same in every lane:
+// COUNT their number, MIN_LABEL the least `label` of a hit (a candidate
+// without the core flag carries SENTINEL_LABEL).
 template <int EPI>
-__device__ __forceinline__ void take(int& acc, float xx, float yy, float xy,
-                                     float eps2, const int* yl, const int* yc,
-                                     int j) {
-  const float d2 = __fsub_rn(__fadd_rn(xx, yy), __fmul_rn(2.0f, xy));
-  if (EPI == COUNT) {
-    acc += d2 <= eps2;
-  } else if (d2 <= eps2 && yc[j]) {
-    acc = min(acc, yl[j]);
+__device__ __forceinline__ int warp_fold(bool h, int label) {
+  if (EPI == COUNT) return __popc(__ballot_sync(kFull, h));
+  return __reduce_min_sync(kFull, h ? label : kSentinel);
+}
+
+template <int EPI>
+__device__ __forceinline__ int fold(int acc, int v) {
+  return EPI == COUNT ? acc + v : min(acc, v);
+}
+
+// Slots to lanes in the prologues: a cell takes `group` lanes (C rounded up
+// to a power of two, at most 32), a warp 32 / group cells at a time and
+// kGroups such groups of cells, whose loads it issues together; past 32
+// slots a cell takes its W words one after another. `cells` = ncells + 1.
+constexpr int kGroups = 4;
+
+struct Lanes {
+  int64_t first;  // the warp's first cell
+  int per;        // cells a group
+  int at;         // the lane's cell in a group
+  int sub;        // the lane's slot in a word
+  int shift;      // its cell's first lane
+  __device__ __forceinline__ explicit Lanes(int group) {
+    const int lane = threadIdx.x & 31;
+    const int64_t w = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+    per = 32 / group;
+    first = w * kGroups * per;
+    at = lane / group;
+    sub = lane & (group - 1);
+    shift = at * group;
+  }
+  // The lane's cell in group u.
+  __device__ __forceinline__ int64_t cell(int u) const { return first + u * per + at; }
+};
+
+// Each cell's real slots as bits: a slot is real where some coordinate
+// differs bitwise from `pad`.
+__global__ void real_mask_kernel(const float* pts, int64_t cells, int cap, int d,
+                                 int words, int group, float pad, unsigned* real) {
+  const Lanes l(group);
+  if (l.first >= cells) return;
+  const unsigned low = group == 32 ? kFull : (1u << group) - 1;
+  const unsigned pad_bits = __float_as_uint(pad);
+  for (int w = 0; w < words; ++w) {
+    const int slot = w * 32 + l.sub;
+    bool is_real[kGroups];
+#pragma unroll
+    for (int u = 0; u < kGroups; ++u) {
+      const int64_t cell = l.cell(u);
+      is_real[u] = false;
+      if (cell < cells && slot < cap) {
+        const float* p = pts + (cell * cap + slot) * d;
+#pragma unroll
+        for (int k = 0; k < kSmallD; ++k) {
+          if (k < d) is_real[u] |= __float_as_uint(__ldg(p + k)) != pad_bits;
+        }
+        for (int k = kSmallD; k < d; ++k) {
+          is_real[u] |= __float_as_uint(__ldg(p + k)) != pad_bits;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kGroups; ++u) {
+      const int64_t cell = l.cell(u);
+      const unsigned bits = __ballot_sync(kFull, is_real[u]);
+      if (l.sub == 0 && cell < cells) real[cell * words + w] = (bits >> l.shift) & low;
+    }
   }
 }
 
-// Shared memory: [qs: D x C][ys: rows x D][yn: rows][yl][yc].
-template <int EPI>
-__global__ void eps_kernel(StencilArgs a) {
-  extern __shared__ float smem[];
-  const int tid = threadIdx.x;
-  const int nth = blockDim.x;
-  const int d = a.d;
-  const int cap = a.cap;
-  const int rows = a.tile_rows;
-  float* qs = smem;
-  float* ys = qs + d * cap;
-  float* yn = ys + rows * d;
-  int* yl = reinterpret_cast<int*>(yn + rows);
-  int* yc = yl + rows;
-  const int64_t blk = blockIdx.x;
-
-  // The cell's own points, transposed, so that thread t reads qs[k*C + t].
-  const float* q0 = a.pts + blk * cap * d;
-  for (int i = tid; i < cap * d; i += nth) qs[(i % d) * cap + i / d] = q0[i];
-  const int groups = (cap + nth - 1) / nth;
-  const int tiles = (a.s + a.tile_cells - 1) / a.tile_cells;
-  for (int g = 0; g < groups; ++g) {
-    const int q = g * nth + tid;
-    const bool active = q < cap;
-    const float* qp = qs + min(q, cap - 1);
-    __syncthreads();  // qs staged
-    float xx = 0.0f;
-    for (int k = 0; k < d; ++k) {
-      const float v = qp[k * cap];
-      xx = madd(xx, v, v);
-    }
-    int acc = EPI == COUNT ? 0 : kSentinel;
-    for (int t = 0; t < tiles; ++t) {
-      __syncthreads();  // the previous tile is consumed
-      const int first = t * a.tile_cells;
-      const int ncell = min(a.tile_cells, a.s - first);
-      const int cnt = ncell * cap;
-      const int* nb = a.nbr + blk * a.s + first;
-      for (int i = tid; i < cnt * d; i += nth) {
-        int cid = nb[i / (cap * d)];
-        if (cid < 0 || cid > a.ncells) cid = a.ncells;  // bad ids read the sink
-        ys[i] = a.pts[static_cast<int64_t>(cid) * cap * d + i % (cap * d)];
-      }
-      if (EPI == MIN_LABEL) {
-        for (int j = tid; j < cnt; j += nth) {
-          int cid = nb[j / cap];
-          if (cid < 0 || cid > a.ncells) cid = a.ncells;
-          const int64_t r = static_cast<int64_t>(cid) * cap + j % cap;
-          yl[j] = a.labels[r];
-          yc[j] = a.core[r];
-        }
-      }
-      __syncthreads();
-      for (int j = tid; j < cnt; j += nth) {
-        float sq = 0.0f;
-        for (int k = 0; k < d; ++k) sq = madd(sq, ys[j * d + k], ys[j * d + k]);
-        yn[j] = sq;
-      }
-      __syncthreads();
-      int j = 0;
-      for (; j + 4 <= cnt; j += 4) {
-        const float* y0 = ys + j * d;
-        float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f, p3 = 0.0f;
-        for (int k = 0; k < d; ++k) {
-          const float xk = qp[k * cap];
-          p0 = madd(p0, xk, y0[k]);
-          p1 = madd(p1, xk, y0[d + k]);
-          p2 = madd(p2, xk, y0[2 * d + k]);
-          p3 = madd(p3, xk, y0[3 * d + k]);
-        }
-        take<EPI>(acc, xx, yn[j], p0, a.eps2, yl, yc, j);
-        take<EPI>(acc, xx, yn[j + 1], p1, a.eps2, yl, yc, j + 1);
-        take<EPI>(acc, xx, yn[j + 2], p2, a.eps2, yl, yc, j + 2);
-        take<EPI>(acc, xx, yn[j + 3], p3, a.eps2, yl, yc, j + 3);
-      }
-      for (; j < cnt; ++j) {
-        const float* y0 = ys + j * d;
-        float p = 0.0f;
-        for (int k = 0; k < d; ++k) p = madd(p, qp[k * cap], y0[k]);
-        take<EPI>(acc, xx, yn[j], p, a.eps2, yl, yc, j);
+// minP of each cell: the least label over its padded slots with the core
+// flag set, SENTINEL_LABEL where there is none.
+__global__ void pad_min_kernel(const unsigned* real, const int* labels,
+                               const unsigned char* core, int64_t cells, int cap,
+                               int words, int group, int* pad_min) {
+  const Lanes l(group);
+  if (l.first >= cells) return;
+  int best[kGroups];
+#pragma unroll
+  for (int u = 0; u < kGroups; ++u) best[u] = kSentinel;
+  for (int w = 0; w < words; ++w) {
+    const int slot = w * 32 + l.sub;
+#pragma unroll
+    for (int u = 0; u < kGroups; ++u) {
+      const int64_t cell = l.cell(u);
+      if (cell < cells && slot < cap) {
+        const int64_t r = cell * cap + slot;
+        const unsigned bits = __ldg(real + cell * words + w);
+        const bool c = core[r];
+        const int lab = __ldg(labels + r);
+        if (!((bits >> (slot & 31)) & 1u) && c) best[u] = min(best[u], lab);
       }
     }
-    if (active) a.out[blk * cap + q] = acc;
+  }
+#pragma unroll
+  for (int u = 0; u < kGroups; ++u) {
+    for (int off = group / 2; off > 0; off /= 2) {
+      best[u] = min(best[u], __shfl_xor_sync(kFull, best[u], off));
+    }
+    const int64_t cell = l.cell(u);
+    if (l.sub == 0 && cell < cells) pad_min[cell] = best[u];
   }
 }
 
-int64_t stencil_smem_bytes(int d, int cap, int rows) {
-  return (static_cast<int64_t>(d) * cap + static_cast<int64_t>(rows) * (d + 3)) * 4;
+// A warp per query cell. Shared memory, per warp: [acc: C ints][list:
+// list_cap 16-bit entries].
+template <int EPI, bool SMALL>
+__global__ void __launch_bounds__(kStencilWarps * 32) eps_kernel(StencilArgs a) {
+  extern __shared__ int smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t cell = static_cast<int64_t>(blockIdx.x) * kStencilWarps + warp;
+  if (cell >= a.ncells) return;
+  const int cap = a.cap, d = a.d, words = a.words;
+  int* acc = smem + warp * (cap + a.list_cap / 2);
+  unsigned short* list = reinterpret_cast<unsigned short*>(acc + cap);
+  const int init = EPI == COUNT ? 0 : kSentinel;
+  for (int j = lane; j < cap; j += 32) acc[j] = init;   // lane j%32 owns slot j
+
+  // The padding vector's squared norm; x.x of it is the same sum, so the
+  // test of the padding vector against itself is hit(nn, nn, nn).
+  float pad_nn = 0.0f;
+  for (int k = 0; k < d; ++k) pad_nn = madd(pad_nn, a.pad, a.pad);
+  const float* qpts = a.pts + cell * cap * d;
+  const unsigned* qreal = a.real + cell * words;
+  const int* row = a.nbr + cell * a.s;
+
+  int np = 0;                // padded candidate slots of the stencil
+  int pad_min = kSentinel;   // MIN_LABEL: this lane's min over its cells' minP
+  int pad_acc = init;        // the padding vector against the real candidates
+  const int chunks = a.s * words;
+  for (int base = 0; base < chunks; base += 32) {
+    // Lane l takes word w of stencil entry e, chunk base + l.
+    const int j = base + lane;
+    int c = 0, w = 0, slots = 0;
+    unsigned bits = 0;
+    if (j < chunks) {
+      const int e = j / words;
+      w = j - e * words;
+      c = __ldg(row + e);
+      if (c < 0 || c > a.ncells) c = a.ncells;   // bad ids read the sink
+      bits = __ldg(a.real + static_cast<int64_t>(c) * words + w);
+      slots = min(32, cap - 32 * w);
+      if (EPI == MIN_LABEL && w == 0) pad_min = min(pad_min, __ldg(a.pad_min + c));
+    }
+    const int n = __popc(bits);
+    np += __reduce_add_sync(kFull, slots - n);
+    int end = n;
+#pragma unroll
+    for (int off = 1; off < 32; off *= 2) {
+      const int v = __shfl_up_sync(kFull, end, off);
+      if (lane >= off) end += v;
+    }
+    const int total = __shfl_sync(kFull, end, 31);
+    for (int pos = end - n; bits; bits &= bits - 1) {
+      list[pos++] = static_cast<unsigned short>(lane << 5 | (__ffs(bits) - 1));
+    }
+    __syncwarp();
+
+    for (int t = 0; t < total; t += 32) {
+      // A real candidate a lane: chunk lane (entry >> 5), bit (entry & 31).
+      const bool valid = t + lane < total;
+      const int entry = valid ? list[t + lane] : 0;
+      const int yc = __shfl_sync(kFull, c, entry >> 5);
+      const int yw = __shfl_sync(kFull, w, entry >> 5);
+      Point<SMALL> y;
+      y.load(a.pts, 0);
+      float yy = 0.0f;
+      int ylab = kSentinel;
+      if (valid) {
+        const int64_t r = static_cast<int64_t>(yc) * cap + yw * 32 + (entry & 31);
+        y.load(a.pts + r * d, d);
+        yy = dot<SMALL>(y, &y, a.pad, d);
+        if (EPI == MIN_LABEL && a.core[r]) ylab = __ldg(a.labels + r);
+      }
+      pad_acc = fold<EPI>(pad_acc, warp_fold<EPI>(
+          valid && hit(pad_nn, yy, dot<SMALL>(y, nullptr, a.pad, d), a.eps2), ylab));
+      // Each real query slot of the cell, broadcast, against the 32.
+      for (int qw = 0; qw < words; ++qw) {
+        for (unsigned qb = __ldg(qreal + qw); qb; qb &= qb - 1) {
+          const int b = __ffs(qb) - 1;
+          const int qs = qw * 32 + b;
+          Point<SMALL> q;
+          q.load(qpts + qs * d, d);
+          const float xx = dot<SMALL>(q, &q, a.pad, d);
+          const int v = warp_fold<EPI>(
+              valid && hit(xx, yy, dot<SMALL>(q, &y, a.pad, d), a.eps2), ylab);
+          if (lane == b) acc[qs] = fold<EPI>(acc[qs], v);
+        }
+      }
+    }
+    __syncwarp();   // the list is read before the next round writes it
+  }
+
+  // The class terms, and every slot of the cell written once.
+  if (EPI == MIN_LABEL) pad_min = __reduce_min_sync(kFull, pad_min);
+  const int pad_class = EPI == COUNT ? np : pad_min;
+  const int pad_answer = fold<EPI>(
+      pad_acc, hit(pad_nn, pad_nn, pad_nn, a.eps2) ? pad_class : init);
+  int* out = a.out + cell * cap;
+  for (int j = lane; j < cap; j += 32) {
+    int v = pad_answer;
+    if ((__ldg(qreal + j / 32) >> (j & 31)) & 1u) {
+      Point<SMALL> q;
+      q.load(qpts + j * d, d);
+      const bool hq = hit(dot<SMALL>(q, &q, a.pad, d), pad_nn,
+                          dot<SMALL>(q, nullptr, a.pad, d), a.eps2);
+      v = fold<EPI>(acc[j], hq ? pad_class : init);
+    }
+    out[j] = v;
+  }
+}
+
+// Prologue blocks of 256 threads over `cells` cells, `group` lanes a cell.
+unsigned prologue_blocks(int64_t cells, int group) {
+  const int64_t per_warp = static_cast<int64_t>(32 / group) * kGroups;
+  const int64_t warps = (cells + per_warp - 1) / per_warp;
+  return static_cast<unsigned>((warps * 32 + 255) / 256);
+}
+
+int lanes_per_cell(int cap) {
+  int g = 1;
+  while (g < cap && g < 32) g *= 2;
+  return g;
+}
+
+int real_mask(const float* cell_pts, int ncells, int cap, int d, float pad,
+              unsigned* real, cudaStream_t stream) {
+  const int64_t cells = static_cast<int64_t>(ncells) + 1;
+  const int group = lanes_per_cell(cap);
+  real_mask_kernel<<<prologue_blocks(cells, group), 256, 0, stream>>>(
+      cell_pts, cells, cap, d, (cap + 31) / 32, group, pad, real);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int EPI, bool SMALL>
+int launch_eps(const StencilArgs& a, cudaStream_t stream) {
+  const int64_t bytes = static_cast<int64_t>(kStencilWarps) *
+                        (a.cap + a.list_cap / 2) * 4;
+  if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (bytes > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        eps_kernel<EPI, SMALL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int64_t blocks = (static_cast<int64_t>(a.ncells) + kStencilWarps - 1) /
+                         kStencilWarps;
+  eps_kernel<EPI, SMALL><<<static_cast<unsigned>(blocks), kStencilWarps * 32,
+                           static_cast<size_t>(bytes), stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int EPI>
 int stencil(const float* cell_pts, const int* labels, const unsigned char* core,
-            const int* nbr, int ncells, int cap, int d, int s, float eps2,
-            int* out, cudaStream_t stream) {
-  StencilArgs a{cell_pts, nbr, labels, core, ncells, cap, d, s, 1, cap, eps2, out};
-  // Stage as many stencil cells at once as fit in 48 KB (all 27 at C = 16),
-  // at least one.
-  int cells = s;
-  while (cells > 1 && stencil_smem_bytes(d, cap, cells * cap) > kDefaultSmem) --cells;
-  a.tile_cells = cells;
-  a.tile_rows = cells * cap;
-  const int warps = (cap + 31) / 32;
-  const int threads = warps < 32 ? 32 * warps : 1024;
-  const int64_t bytes = stencil_smem_bytes(d, cap, a.tile_rows);
-  if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (bytes > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        eps_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
+            const int* nbr, const unsigned* real, int ncells, int cap, int d, int s,
+            float pad, float eps2, int* pad_min, int* out, cudaStream_t stream) {
+  const int words = (cap + 31) / 32;
+  StencilArgs a{cell_pts, nbr, real, labels, core, pad_min, ncells, cap, d, s,
+                words, 32 * min(32, cap), pad, eps2, out};
+  if (EPI == MIN_LABEL) {
+    const int64_t cells = static_cast<int64_t>(ncells) + 1;
+    const int group = lanes_per_cell(cap);
+    pad_min_kernel<<<prologue_blocks(cells, group), 256, 0, stream>>>(
+        real, labels, core, cells, cap, words, group, pad_min);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  eps_kernel<EPI><<<static_cast<unsigned>(ncells), threads,
-                    static_cast<size_t>(bytes), stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return d <= kSmallD ? launch_eps<EPI, true>(a, stream)
+                      : launch_eps<EPI, false>(a, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -523,18 +776,27 @@ const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int stencil_count(const float* cell_pts, const int* nbr, int ncells, int cap,
-                  int d, int s, float eps2, int* out, cudaStream_t stream) {
-  return stencil<COUNT>(cell_pts, nullptr, nullptr, nbr, ncells, cap, d, s, eps2,
-                        out, stream);
+// real: (ncells+1, ceil(C/32)) words, written; pad: float32(BIG).
+int stencil_classes(const float* cell_pts, int ncells, int cap, int d, float pad,
+                    unsigned* real, cudaStream_t stream) {
+  return real_mask(cell_pts, ncells, cap, d, pad, real, stream);
 }
 
+// real: stencil_classes' words for cell_pts; out: (ncells, C).
+int stencil_count(const float* cell_pts, const int* nbr, const unsigned* real,
+                  int ncells, int cap, int d, int s, float pad, float eps2, int* out,
+                  cudaStream_t stream) {
+  return stencil<COUNT>(cell_pts, nullptr, nullptr, nbr, real, ncells, cap, d, s,
+                        pad, eps2, nullptr, out, stream);
+}
+
+// As stencil_count, with pad_min: (ncells+1) int scratch.
 int stencil_min_label(const float* cell_pts, const int* labels,
-                      const unsigned char* core, const int* nbr, int ncells,
-                      int cap, int d, int s, float eps2, int* out,
-                      cudaStream_t stream) {
-  return stencil<MIN_LABEL>(cell_pts, labels, core, nbr, ncells, cap, d, s, eps2,
-                            out, stream);
+                      const unsigned char* core, const int* nbr, const unsigned* real,
+                      int ncells, int cap, int d, int s, float pad, float eps2,
+                      int* pad_min, int* out, cudaStream_t stream) {
+  return stencil<MIN_LABEL>(cell_pts, labels, core, nbr, real, ncells, cap, d, s,
+                            pad, eps2, pad_min, out, stream);
 }
 
 // xt (d, mp) and yt (d, np): x and y transposed, zero-padded to multiples

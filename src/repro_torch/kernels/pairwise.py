@@ -9,9 +9,17 @@ Two candidate sets, two epilogues, two CUDA kernels in ``csrc/pairwise.cu``:
   capacity C, ``cell_pts`` (ncells+1, C, D) padded with ``BIG``, the last
   cell all padding (the sink); each slot of cell ``i`` is tested against
   every slot of the cells ``nbr_map[i, :]``. Padded query slots hold
-  garbage, as in the reference (``BIG`` against ``BIG`` gives d² = 0).
-  Bound by bytes on the H100; one block per cell, the stencil's cells
-  staged in shared memory.
+  garbage, as in the reference (``BIG`` against ``BIG`` gives d² = 0), and
+  the kernel reproduces it. It tests only what it cannot settle by slot
+  class: a slot is real where a coordinate differs bitwise from
+  float32(``BIG``), padded elsewhere, and every padded slot has the
+  padding vector's bits, so one test of the padding vector stands for all
+  of a cell's padded slots (the argument in ``csrc/pairwise.cu``). The
+  classes come from a prologue, :func:`slot_classes` (C bits a cell),
+  made once for all launches on one ``cell_pts`` inside
+  :func:`shared_classes`; MIN_LABEL also needs minP, the least label over
+  a cell's padded core slots, made per launch. A warp per query cell
+  compacts its stencil's real slots and tests them 32 at a time.
 * **all pairs** (``pairwise_tile_kernel``) — every row of ``x`` (m, D)
   against every row of ``y`` (n, D). Bound by operations: 2D + 4 per pair,
   each one FP32 instruction since no FMA is allowed, so the floor is the
@@ -50,17 +58,22 @@ flag is off or the row is padding. The output is filled with 0 (COUNT) or
 ``SENTINEL_LABEL`` (MIN_LABEL) before the launch, since the kernel
 combines partial results into it with ``atomicAdd`` or ``atomicMin``.
 Padded candidates are masked by index and padded query rows are never
-written, so the padding's values never reach a result.
+written, so the padding's values never reach a result. The stencil
+wrappers allocate the class words, (ncells+1, ceil(C/32)) int32, unless
+:func:`shared_classes` holds them, and for MIN_LABEL an int32 scratch of
+ncells+1 minP values; the kernel writes every output slot once.
 
 A wrapper launches the kernel for CUDA tensors and runs the plain version
 for CPU tensors; ``<wrapper>.launches`` counts kernel launches (one per
-call that has work; the all-pairs prologue is part of the launch).
+call that has work; the prologues are part of the launch).
 ``nbr_map`` entries outside ``[0, ncells]`` read the sink cell in both.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -72,7 +85,8 @@ SENTINEL_LABEL = 2**31 - 1  # int32 max: "no core neighbour"
 __all__ = ["BIG", "SENTINEL_LABEL", "TILE", "stencil_count",
            "stencil_min_label", "pairwise_count", "pairwise_min_label",
            "stencil_count_plain", "stencil_min_label_plain",
-           "pairwise_count_plain", "pairwise_min_label_plain", "k_major"]
+           "pairwise_count_plain", "pairwise_min_label_plain", "k_major",
+           "slot_classes", "slot_classes_plain", "shared_classes"]
 
 TILE = 128                  # rows of x per block and of y per tile (all pairs)
 
@@ -85,14 +99,15 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.library("pairwise")
-    lib.stencil_count.argtypes = [_P, _P, _I, _I, _I, _I, _F, _P, _P]
-    lib.stencil_min_label.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _F,
-                                      _P, _P]
+    lib.stencil_classes.argtypes = [_P, _I, _I, _I, _F, _P, _P]
+    lib.stencil_count.argtypes = [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P]
+    lib.stencil_min_label.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                      _F, _P, _P, _P]
     lib.pairwise_count.argtypes = [_P, _P, _I, _I, _L, _L, _I, _F, _P, _P, _P]
     lib.pairwise_min_label.argtypes = [_P, _P, _P, _P, _I, _I, _L, _L, _I, _F,
                                        _P, _P, _P, _P]
-    for fn in (lib.stencil_count, lib.stencil_min_label, lib.pairwise_count,
-               lib.pairwise_min_label):
+    for fn in (lib.stencil_classes, lib.stencil_count, lib.stencil_min_label,
+               lib.pairwise_count, lib.pairwise_min_label):
         fn.restype = _I
     lib.cuda_error_string.argtypes = [_I]
     lib.cuda_error_string.restype = ctypes.c_char_p
@@ -192,6 +207,22 @@ def stencil_min_label_plain(cell_pts, cell_labels, cell_core, nbr_map,
     return _stencil_plain(cell_pts, nbr_map, eps2, cell_labels, cell_core)
 
 
+def slot_classes_plain(cell_pts: torch.Tensor) -> torch.Tensor:
+    """(ncells+1, ceil(C/32)) int32 words: bit j % 32 of word j // 32 is
+    set where slot j is real, a coordinate differing bitwise from
+    float32(``BIG``)."""
+    n1, cap, _ = cell_pts.shape
+    big = torch.tensor(BIG, dtype=torch.float32).view(torch.int32)
+    real = (cell_pts.view(torch.int32) != big.to(cell_pts.device)).any(-1)
+    words = -(-cap // 32)
+    bits = torch.zeros((n1, words * 32), dtype=torch.int64,
+                       device=cell_pts.device)
+    bits[:, :cap] = real
+    shifts = torch.arange(32, dtype=torch.int64, device=cell_pts.device)
+    packed = (bits.view(n1, words, 32) << shifts).sum(-1)
+    return torch.where(packed >= 2**31, packed - 2**32, packed).to(torch.int32)
+
+
 def pairwise_count_plain(x, y, eps2: float) -> torch.Tensor:
     """(m,) int32: the rows of ``y`` within eps2 of each row of ``x``."""
     return _pairwise_plain(x, y, eps2)
@@ -265,6 +296,47 @@ def _launch(name: str, out: torch.Tensor, *args) -> None:
     _build.check(lib, code, name)
 
 
+def slot_classes(cell_pts: torch.Tensor) -> torch.Tensor:
+    """:func:`slot_classes_plain`; on the card the stencil kernels'
+    prologue (``real_mask_kernel``) writes it."""
+    _check_points("cell_pts", cell_pts, 3)
+    if not cell_pts.is_cuda:
+        return slot_classes_plain(cell_pts)
+    n1, cap, d = cell_pts.shape
+    real = torch.empty((n1, -(-cap // 32)), dtype=torch.int32,
+                       device=cell_pts.device)
+    if real.numel():
+        _launch("stencil_classes", real, cell_pts.data_ptr(), n1 - 1, cap, d,
+                BIG)
+    return real
+
+
+_open = threading.local()   # .classes: [cell_pts, words or None] per block
+
+
+@contextlib.contextmanager
+def shared_classes(cell_pts: torch.Tensor):
+    """Inside the block, this thread's stencil launches on ``cell_pts``
+    (this very tensor, which must not change there) share one
+    :func:`slot_classes`, made at the first launch, instead of making it
+    at each launch."""
+    held = _open.__dict__.setdefault("classes", [])
+    held.append([cell_pts, None])
+    try:
+        yield
+    finally:
+        held.pop()
+
+
+def _classes(cell_pts: torch.Tensor) -> torch.Tensor:
+    for entry in getattr(_open, "classes", ()):
+        if entry[0] is cell_pts:
+            if entry[1] is None:
+                entry[1] = slot_classes(cell_pts)
+            return entry[1]
+    return slot_classes(cell_pts)
+
+
 def stencil_count(cell_pts: torch.Tensor, nbr_map: torch.Tensor,
                   eps2: float) -> torch.Tensor:
     """(ncells, C) int32 ε-counts per slot over the stencil ``nbr_map``
@@ -276,8 +348,9 @@ def stencil_count(cell_pts: torch.Tensor, nbr_map: torch.Tensor,
     ncells, s = nbr_map.shape
     out = torch.empty((ncells, cap), dtype=torch.int32, device=cell_pts.device)
     if out.numel():
+        real = _classes(cell_pts)
         _launch("stencil_count", out, cell_pts.data_ptr(), nbr_map.data_ptr(),
-                ncells, cap, d, s, eps2)
+                real.data_ptr(), ncells, cap, d, s, BIG, eps2)
         stencil_count.launches += 1
     return out
 
@@ -296,9 +369,13 @@ def stencil_min_label(cell_pts: torch.Tensor, cell_labels: torch.Tensor,
     ncells, s = nbr_map.shape
     out = torch.empty((ncells, cap), dtype=torch.int32, device=cell_pts.device)
     if out.numel():
+        real = _classes(cell_pts)
+        pad_min = torch.empty((ncells + 1,), dtype=torch.int32,
+                              device=cell_pts.device)
         _launch("stencil_min_label", out, cell_pts.data_ptr(),
                 cell_labels.data_ptr(), cell_core.data_ptr(),
-                nbr_map.data_ptr(), ncells, cap, d, s, eps2)
+                nbr_map.data_ptr(), real.data_ptr(), ncells, cap, d, s, BIG,
+                eps2, pad_min.data_ptr())
         stencil_min_label.launches += 1
     return out
 

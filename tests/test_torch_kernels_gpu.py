@@ -286,25 +286,34 @@ def test_fdbscan_packs_its_tree_once(cuda, monkeypatch):
                                    rtol=0, atol=0)
 
 
-def _cells(cuda, ncells, cap, d, seed, fill=0.6):
-    """Slot-padded cells with about ``fill`` of the slots occupied, the
-    sink last; a stencil map of 27 random ids, some of them the sink and
-    some out of range (those read the sink too)."""
+def stencil_cells(device, ncells, cap, d, seed, fill=0.6):
+    """Slot-padded cells (ncells >= 5) with about ``fill`` of the slots
+    occupied, padded slots anywhere in a cell and carrying random labels
+    and core flags like every slot, the sink last; a stencil map of 27
+    random ids, some of them the sink and some out of range (those read the
+    sink too). Cell 0 is all padding, cell 1 all real, slot 0 of cell 2 a
+    point whose coordinates are bitwise ``BIG``, and cells 3 to at most 10
+    hold points a few ulps from ``BIG`` in about half their slots; the
+    stencils of cells 0 to 10 start with cells 0 to 10."""
     rng = np.random.default_rng(seed)
     pts = np.full((ncells + 1, cap, d), kp.BIG, np.float32)
     occ = rng.random((ncells, cap)) < fill
+    occ[0], occ[1], occ[2, 0] = False, True, False
     pts[:-1][occ] = rng.random((int(occ.sum()), d)).astype(np.float32) * 0.4
+    big_bits = np.array(kp.BIG, np.float32).view(np.int32)
+    for i in range(3, max(4, min(ncells - 1, 11))):
+        near = rng.random(cap) < 0.5
+        ulps = rng.integers(-3, 4, (int(near.sum()), d))
+        pts[i, near] = (big_bits + ulps).astype(np.int32).view(np.float32)
     nbr = rng.integers(-3, ncells + 4, (ncells, 27)).astype(np.int32)
+    k = min(ncells, 11)
+    nbr[:k, :k] = np.arange(k)
     labels = rng.permutation((ncells + 1) * cap).astype(np.int32).reshape(ncells + 1, cap)
     core = rng.random((ncells + 1, cap)) < 0.5
-    return [torch.from_numpy(a).to(cuda) for a in (pts, nbr, labels, core)]
+    return [torch.from_numpy(a).to(device) for a in (pts, nbr, labels, core)]
 
 
-@pytest.mark.parametrize("cap", [1, 4, 16, 48, 1100])
-@pytest.mark.parametrize("d", [1, 3])
-def test_stencil_kernels_match_plain(cuda, cap, d):
-    cell_pts, nbr, labels, core = _cells(cuda, 300 if cap < 1000 else 5, cap, d, cap + d)
-    eps2 = float(np.float32(0.15) ** 2)
+def _stencil_matches_plain(cell_pts, nbr, labels, core, eps2):
     got = kp.stencil_count(cell_pts, nbr, eps2)
     torch.testing.assert_close(got, kp.stencil_count_plain(cell_pts, nbr, eps2),
                                rtol=0, atol=0)
@@ -312,6 +321,57 @@ def test_stencil_kernels_match_plain(cuda, cap, d):
     got = kp.stencil_min_label(cell_pts, labels, core, nbr, eps2)
     want = kp.stencil_min_label_plain(cell_pts, labels, core, nbr, eps2)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(kp.slot_classes(cell_pts),
+                               kp.slot_classes_plain(cell_pts), rtol=0, atol=0)
+
+
+# d = 5: the kernel instance that reads coordinates at each use (D > 4).
+@pytest.mark.parametrize("cap", [1, 4, 16, 48, 1100])
+@pytest.mark.parametrize("d", [1, 3, 5])
+def test_stencil_kernels_match_plain(cuda, cap, d):
+    cell_pts, nbr, labels, core = stencil_cells(cuda, 300 if cap < 1000 else 5, cap,
+                                                d, cap + d)
+    _stencil_matches_plain(cell_pts, nbr, labels, core, float(np.float32(0.15) ** 2))
+
+
+@pytest.mark.parametrize("cap", [16, 48])
+def test_stencil_kernels_at_grid_occupancy(cuda, cap):
+    """``bin_points`` of uniform points with eps the mean spacing, as
+    ``fdbscan_grid`` lays them out: a point a cell on average, random
+    labels and core flags on the occupied slots."""
+    n, eps = 1 << 15, 2.0 ** -5
+    pts = torch.from_numpy(np.random.default_rng(cap).random((n, 3), dtype=np.float32))
+    dims = tgrid.grid_dims_for(np.zeros(3), np.ones(3), eps)
+    bins = tgrid.bin_points(pts.to(cuda), np.zeros(3, np.float32), eps, dims, cap)
+    assert not bool(bins.overflowed)
+    nbr = tgrid.stencil_neighbor_map(dims, device=cuda)
+    rng = np.random.default_rng(cap + 1)
+    slot = bins.slot_of_point.long()
+    labels = tgrid._scatter_slots(
+        torch.from_numpy(rng.permutation(n).astype(np.int32)).to(cuda),
+        kp.SENTINEL_LABEL, bins, slot)
+    core = tgrid._scatter_slots(torch.from_numpy(rng.random(n) < 0.5).to(cuda),
+                                False, bins, slot, dtype=torch.bool)
+    _stencil_matches_plain(bins.cell_pts, nbr, labels, core, float(np.float32(eps) ** 2))
+
+
+def test_stencil_launches_share_classes(cuda):
+    """Inside ``shared_classes`` the launches on one ``cell_pts`` read one
+    class mask; each launch still counts once."""
+    cell_pts, nbr, labels, core = stencil_cells(cuda, 300, 16, 3, 5)
+    eps2 = float(np.float32(0.15) ** 2)
+    before = (kp.stencil_count.launches, kp.stencil_min_label.launches)
+    with kp.shared_classes(cell_pts):
+        first = kp._classes(cell_pts)
+        got = kp.stencil_count(cell_pts, nbr, eps2)
+        got_m = kp.stencil_min_label(cell_pts, labels, core, nbr, eps2)
+        assert kp._classes(cell_pts) is first
+    assert (kp.stencil_count.launches, kp.stencil_min_label.launches) == \
+        (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got, kp.stencil_count(cell_pts, nbr, eps2),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(got_m, kp.stencil_min_label(cell_pts, labels, core,
+                                                           nbr, eps2), rtol=0, atol=0)
 
 
 # m and n off multiples of the 128-row tile and of 4, the empty cases; D

@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from conftest import make_clustered_points  # noqa: E402
+from test_torch_kernels_gpu import stencil_cells  # noqa: E402
 from repro.core import fdbscan_grid as jgrid  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.core import fdbscan_grid as tgrid  # noqa: E402
@@ -150,6 +151,121 @@ def test_stencil_ids_out_of_range_read_the_sink():
                        kp.stencil_count(cell_pts, nbr, eps2))
     assert torch.equal(kp.stencil_min_label(cell_pts, labels, core, bad, eps2),
                        kp.stencil_min_label(cell_pts, labels, core, nbr, eps2))
+
+
+def _real_slots(cell_pts):
+    """(ncells+1, C) bool: a coordinate differs bitwise from float32(BIG)."""
+    big = torch.tensor(kp.BIG, dtype=torch.float32).view(torch.int32)
+    return (cell_pts.view(torch.int32) != big).any(-1)
+
+
+def _class_decomposition(cell_pts, nbr, eps2, labels=None, core=None):
+    """Both stencil outputs the way the stencil kernel computes them, cell by
+    cell: the real slots R and padded slots P of every cell, |P| and minP
+    (the least label over P's core slots), the padding vector tested once
+    against each real candidate of the stencil, once against itself and
+    once against each real query slot, and real x real pairs only."""
+    ncells, cap, d = nbr.shape[0], cell_pts.shape[1], cell_pts.shape[2]
+    sentinel = kp.SENTINEL_LABEL
+    real = _real_slots(cell_pts)
+    npad = (~real).sum(1)
+    pad = torch.full((1, d), kp.BIG)
+
+    def hits(q, c):
+        return kp._hits(q, kp._sq_norms(q), c, kp._sq_norms(c), eps2)
+
+    pad_pad = bool(hits(pad, pad)[0, 0])
+    flat = cell_pts.reshape(-1, d)
+    ids = kp._sink_safe(nbr, ncells)
+    if labels is not None:
+        min_p = torch.where(~real & core, labels, sentinel).amin(1)
+        flat_lab = torch.where(core, labels, sentinel).reshape(-1)
+    out = torch.empty((ncells, cap), dtype=torch.int32)
+    for i in range(ncells):
+        stencil = ids[i].tolist()
+        cand = torch.cat([c * cap + torch.nonzero(real[c]).flatten()
+                          for c in stencil])
+        q_slots = torch.nonzero(real[i]).flatten()
+        q, y = flat[i * cap + q_slots], flat[cand]
+        n_p = int(npad[stencil].sum())
+        h_qy, h_qp, h_py = hits(q, y), hits(q, pad)[:, 0], hits(pad, y)[0]
+        if labels is None:
+            real_ans = h_qy.sum(1) + h_qp.long() * n_p
+            pad_ans = int(h_py.sum()) + pad_pad * n_p
+        else:
+            lab, m_p = flat_lab[cand], int(min_p[stencil].min())
+            none = torch.full((len(q_slots), 1), sentinel)
+            real_ans = torch.minimum(
+                torch.cat([torch.where(h_qy, lab, sentinel), none], 1).amin(1),
+                torch.where(h_qp, m_p, sentinel))
+            pad_ans = min([sentinel] + lab[h_py].tolist()
+                          + ([m_p] if pad_pad else []))
+        row = torch.full((cap,), pad_ans, dtype=torch.int32)
+        row[q_slots] = real_ans.to(torch.int32)
+        out[i] = row
+    return out
+
+
+@pytest.mark.parametrize("cap", [1, 4, 16, 48])
+@pytest.mark.parametrize("d", [1, 3])
+def test_stencil_class_decomposition_is_exact(cap, d):
+    """The stencil kernel's arithmetic (slot classes, the padding vector
+    tested once, real x real pairs) equals both plain versions bit for bit
+    at every slot, padded ones included, on cells whose padded slots sit
+    anywhere and carry random labels and core flags, with out-of-range and
+    sink ids, an all-padding and an all-real cell, a point at bitwise BIG
+    and points a few ulps from BIG. Near BIG the formula's rounding, not
+    the geometry, decides the test against the padding vector, and it
+    hits."""
+    cell_pts, nbr, labels, core = stencil_cells("cpu", 300, cap, d, cap + d)
+    eps2 = float(np.float32(0.15) ** 2)
+    real = _real_slots(cell_pts)
+    assert not bool(real[0].any()) and bool(real[1].all()) and not bool(real[2, 0])
+    assert bool((nbr < 0).any()) and bool((nbr > 300).any()) and bool((nbr == 300).any())
+    near = real & (cell_pts.abs() > 1e14).all(-1)
+    pad = torch.full((1, d), kp.BIG)
+    q = cell_pts[near]
+    near_hits = kp._hits(q, kp._sq_norms(q), pad, kp._sq_norms(pad), eps2)
+    assert bool(near_hits.any())
+    want = kp.stencil_count_plain(cell_pts, nbr, eps2)
+    assert torch.equal(_class_decomposition(cell_pts, nbr, eps2), want)
+    want = kp.stencil_min_label_plain(cell_pts, labels, core, nbr, eps2)
+    assert torch.equal(_class_decomposition(cell_pts, nbr, eps2, labels, core), want)
+    assert bool((want[~real[:-1]] != kp.SENTINEL_LABEL).any())
+
+
+def test_near_big_points_miss_the_padding_too():
+    """The test of a near-BIG point against the padding vector goes both
+    ways, so it is computed, not assumed: at d = 3 some of the near-BIG
+    points of ``stencil_cells`` miss it."""
+    cell_pts, _, _, _ = stencil_cells("cpu", 300, 16, 3, 19)
+    q = cell_pts[_real_slots(cell_pts) & (cell_pts.abs() > 1e14).all(-1)]
+    pad = torch.full((1, 3), kp.BIG)
+    hit = kp._hits(q, kp._sq_norms(q), pad, kp._sq_norms(pad), float(np.float32(0.15) ** 2))
+    assert bool(hit.any()) and not bool(hit.all())
+
+
+@pytest.mark.parametrize("cap", [1, 3, 32, 33, 70])
+def test_slot_classes_pack_real_slots(cap):
+    """Bit j % 32 of word j // 32 is set exactly where slot j is real."""
+    cell_pts, _, _, _ = stencil_cells("cpu", 12, cap, 3, cap)
+    words = kp.slot_classes(cell_pts)
+    assert words.shape == (13, -(-cap // 32)) and words.dtype == torch.int32
+    bits = (words.long() & 0xFFFFFFFF)[:, :, None] >> torch.arange(32)
+    assert torch.equal((bits & 1).bool().reshape(13, -1)[:, :cap], _real_slots(cell_pts))
+    assert not bool((bits & 1).reshape(13, -1)[:, cap:].any())
+
+
+def test_shared_classes_make_one_mask_per_block():
+    cell_pts, _, _, _ = stencil_cells("cpu", 12, 4, 3, 0)
+    assert kp._classes(cell_pts) is not kp._classes(cell_pts)
+    with kp.shared_classes(cell_pts):
+        first = kp._classes(cell_pts)
+        assert kp._classes(cell_pts) is first
+        with kp.shared_classes(cell_pts.clone()):
+            assert kp._classes(cell_pts) is first
+    assert kp._classes(cell_pts) is not first
+    assert torch.equal(first, kp.slot_classes_plain(cell_pts))
 
 
 def test_empty_inputs():
