@@ -19,15 +19,22 @@ CUDA toolkit. Phases, each of which must pass:
    (``LDG.E.128``); their registers and counts of 128-bit and narrower
    ``LDG`` are printed. No instance of the stencil kernel (and neither of
    its two prologues) may hold an ``FFMA``; their registers and spills
-   are printed.
+   are printed. No instance of the segment kernel may spill or hold an
+   atomic (``ATOM``/``RED``: its sums are combined in a fixed order), and
+   its D = 8 and D = 1 instances must read with 128-bit loads (or
+   ``LDGSTS`` copies).
 2. Each kernel against its plain PyTorch version on the card: the
    traversal's node records (``pack_tree``, bit for bit) and its
    epilogues (COUNT, MIN_LABEL, FILL at an exact capacity, at
    half of it and with int64 offsets, FIXED with overflowing and ample
    buffers) on a tree of 2^20 clustered points (exact), the segment
-   reductions at the catalog's shapes, 2^24 x 8 and 2^24 x 1; the stencil
-   kernels and their slot-class prologue on 2^21 uniform points in 128^3
-   eps-cells at capacities 16 and 48, every slot, and the all-pairs
+   reductions at the catalog's shapes, 2^24 x 8 and 2^24 x 1, on the
+   catalog's shape of ids (360,001 runs: 300,000 of 2-9 rows, 60,000 of
+   Pareto sizes, one of 300,000 rows, then a neutral tail of a fifth of
+   the rows; sums within the bound of two summation orders with the
+   count column exact, maxima exact, each bit-equal over two calls); the
+   stencil kernels and their slot-class prologue on 2^21 uniform points
+   in 128^3 eps-cells at capacities 16 and 48, every slot, and the all-pairs
    kernels at m x n = 1 x 5000, 129 x 257 and 3001 x 5003 for d = 1, 3,
    64, 100 and 257, at 300 x 70,000
    (candidates split across blocks) and at exact ties, eps2 the plain
@@ -82,7 +89,9 @@ CUDA toolkit. Phases, each of which must pass:
    COUNT and MIN_LABEL, which share ``fdbscan``'s one pack) and the
    instance's registers; the stencil rows their pair and class tests,
    tests per second, the time of the slot-class prologue alone (shared by
-   ``fdbscan_grid``'s launches, so not in ``ms``) and registers.
+   ``fdbscan_grid``'s launches, so not in ``ms``) and registers; the
+   segment rows their share of the bound, whether a second call gave the
+   same bits, and the instance's registers and 128-bit loads.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the port beside this file, it exits nonzero and prints no
@@ -245,7 +254,9 @@ def ptxas_report(text: str) -> dict:
     return out
 
 
-SASS_OPS = ("FFMA", "HMMA", "HGMMA", "FMUL", "FADD")
+SASS_OPS = ("FFMA", "HMMA", "HGMMA", "FMUL", "FADD", "ATOM", "ATOMG", "ATOMS",
+            "RED", "LDGSTS")
+ATOMIC_OPS = ("ATOM", "ATOMG", "ATOMS", "RED")
 
 
 def sass_counts(so: Path) -> dict:
@@ -355,6 +366,34 @@ def stencil_report():
     return out
 
 
+# The segment kernel's instances: (sum or max) x (D = 8 and D = 1 with
+# 16-byte loads, or any width at run time with scalar loads).
+SEGMENT_KERNELS = {"segment_sum_d8": "segment_kernelILi0ELi8ELb1E",
+                   "segment_sum_d1": "segment_kernelILi0ELi1ELb1E",
+                   "segment_sum_scalar": "segment_kernelILi0ELi0ELb0E",
+                   "segment_max_d8": "segment_kernelILi1ELi8ELb1E",
+                   "segment_max_d1": "segment_kernelILi1ELi1ELb1E",
+                   "segment_max_scalar": "segment_kernelILi1ELi0ELb0E"}
+
+
+def segment_report():
+    """Registers, spills and SASS opcode counts of every instance of the
+    segment kernel. Fails if one spills or holds an atomic (the design
+    combines partials in a fixed order, so a sum would lose its
+    reproducibility), or if a 16-byte-load instance has no 128-bit load
+    (or ``LDGSTS`` copy)."""
+    out = kernel_report("segment", SEGMENT_KERNELS)
+    for key, rep in out.items():
+        require(rep["spill_stores"] == rep["spill_loads"] == 0,
+                f"{key}: ptxas reports spills {rep}")
+        atomics = {op: rep["sass"][op] for op in ATOMIC_OPS if rep["sass"][op]}
+        require(not atomics, f"{key}: SASS holds atomics {atomics}")
+        if not key.endswith("scalar"):
+            require(rep["sass"]["LDG.128"] + rep["sass"]["LDGSTS"] > 0,
+                    f"{key}: no 128-bit load {rep['sass']}")
+    return out
+
+
 def phase1_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -364,13 +403,13 @@ def phase1_build():
     for name, text in logs.items():
         log(f"--- nvcc -Xptxas -v: {name}.cu ---\n{text.strip()}")
     tiles, wave = tile_kernel_report(), wavefront_report()
-    stencil = stencil_report()
-    for key, rep in {**tiles, **wave, **stencil}.items():
+    stencil, seg = stencil_report(), segment_report()
+    for key, rep in {**tiles, **wave, **stencil, **seg}.items():
         log(f"[1] {key}: {rep['registers']} registers, spills "
             f"{rep['spill_stores']}/{rep['spill_loads']} bytes, SASS {rep['sass']}")
     card = card_identity()
     log(f"[1] card: {card}")
-    return card, tiles, wave, stencil
+    return card, tiles, wave, stencil, seg
 
 
 def phase2_kernels(seed: int, n_tree: int = 1 << 20, n_rows: int = 1 << 24):
@@ -428,31 +467,67 @@ def phase2_kernels(seed: int, n_tree: int = 1 << 20, n_rows: int = 1 << 24):
             f"exact")
     del got, want, counts
 
-    rng = np.random.default_rng(seed + 3)
     rows, segs = n_rows, 1 << 20
-    # As in the catalog: ~30 rows per halo, then a noise tail of 20% of the
-    # rows that carries the last id and zero data.
-    tail = rows // 5
-    ids = np.sort(rng.integers(0, segs // 8, rows)).astype(np.int32)
-    ids[-tail:] = ids[-tail]
+    ids, tail = catalog_ids(seed + 3, rows)
+    rng = np.random.default_rng(seed + 4)
     ids_t = torch.from_numpy(ids).to(DEV)
     data = torch.from_numpy(rng.standard_normal((rows, 8), np.float32)).to(DEV)
     data[:, 0] = 1.0                          # the count column
     data[-tail:] = 0.0
     got = ks.segment_sum_sorted(data, ids_t, segs)
     want = ks.segment_sum_sorted_plain(data, ids_t, segs)
-    # Atomics add in another order than the scatter: float32 rounding.
-    require(torch.allclose(got, want, rtol=1e-5, atol=1e-4), "segment_sum")
+    tol = sum_tolerance(torch, data, ids_t, segs)
+    diff = (got - want).abs()
+    require(bool((diff <= tol).all()), "segment_sum")
     require(torch.equal(got[:, 0], want[:, 0]), "segment_sum count column")
-    log(f"[2] segment_sum_sorted {rows}x8: max abs err "
-        f"{(got - want).abs().max().item():.3g}, counts exact")
+    again = ks.segment_sum_sorted(data, ids_t, segs)
+    require(torch.equal(again.view(torch.int32), got.view(torch.int32)),
+            "segment_sum: two calls differ")
+    log(f"[2] segment_sum_sorted {rows}x8 on {int(ids[-1]) + 1} catalog-shaped "
+        f"runs: max abs err {diff.max().item():.3g} "
+        f"({(diff / tol.clamp(min=1e-30)).max().item():.3g} of the bound), "
+        f"counts exact, two calls bit-equal")
+    del data, got, want, again, tol, diff
     vals = torch.from_numpy(rng.standard_normal((rows, 1), np.float32)).to(DEV)
     vals[-tail:] = -ks.SEG_NEG_BIG
     vals[torch.from_numpy(rng.random(rows) < 0.1).to(DEV)] = -ks.SEG_NEG_BIG
     got = ks.segment_max_sorted(vals, ids_t, segs)
     want = ks.segment_max_sorted_plain(vals, ids_t, segs)
     require(torch.equal(got, want), "segment_max")
-    log(f"[2] segment_max_sorted {rows}x1 (mixed signs): exact")
+    require(torch.equal(ks.segment_max_sorted(vals, ids_t, segs).view(torch.int32),
+                        got.view(torch.int32)), "segment_max: two calls differ")
+    log(f"[2] segment_max_sorted {rows}x1 (mixed signs): exact, two calls "
+        f"bit-equal")
+
+
+def catalog_ids(seed: int, rows: int):
+    """Sorted segment ids of the halo catalog's shape over ``rows`` rows, and
+    the length of their neutral tail. At 2^24 rows: 300,000 runs of 2-9
+    rows, 60,000 runs of Pareto(1.5) sizes and one run of 300,000 rows (the
+    largest halo at 2^24 particles holds 276,420) in random order, then a
+    fifth of the rows carrying the last id, as the catalog's noise rows do;
+    counts in proportion at other sizes."""
+    rng = np.random.default_rng(seed)
+    scale = rows / 2 ** 24
+    tail, big = rows // 5, max(1, round(300_000 * scale))
+    small = rng.integers(2, 10, max(1, round(300_000 * scale)))
+    rest = rows - tail - big - int(small.sum())
+    w = rng.pareto(1.5, max(1, round(60_000 * scale))) + 1.0
+    med = np.maximum(10, np.floor(w / w.sum() * rest)).astype(np.int64)
+    med[-1] += rest - int(med.sum())
+    runs = rng.permutation(np.concatenate([small, med, [big]]))
+    ids = np.repeat(np.arange(len(runs), dtype=np.int32), runs)
+    return np.concatenate([ids, np.full(tail, ids[-1], np.int32)]), tail
+
+
+def sum_tolerance(torch, data, seg, nseg):
+    """Two summation orders of the same m terms differ by at most
+    2 (m - 1) u sum|x| (u = 2^-24, recursive summation's bound), per
+    segment and column."""
+    from repro_torch.kernels import segment as ks
+    rows_per = torch.bincount(seg.long().clamp(0, nseg - 1), minlength=nseg).float()
+    abs_sum = ks.segment_sum_sorted_plain(data.abs(), seg, nseg)
+    return 2.0 * (rows_per - 1).clamp(min=0)[:, None] * 2.0 ** -24 * abs_sum
 
 
 def phase3_whole_path(seed: int, cfg, n: int = 1 << 18, n_lists: int = 1 << 16):
@@ -1379,7 +1454,7 @@ def phase8_all_pairs(seed: int, n: int, card: str, tiles: dict):
     return rows
 
 
-def phase9_kernel_line(launches_by_step, records, more_rows, card, wave):
+def phase9_kernel_line(launches_by_step, records, more_rows, card, wave, seg_rep):
     import torch
     from repro_torch.kernels import segment as ks
     from repro_torch.kernels import wavefront as kw
@@ -1436,13 +1511,14 @@ def phase9_kernel_line(launches_by_step, records, more_rows, card, wave):
                                     "wavefront_min_label", shared=True)})
 
     seg_src = "src/repro_torch/kernels/csrc/segment.cu"
-    for name, ref_line, plain, library in (
+    for name, ref_line, instance, plain, library in (
             ("segment_sum_sorted", "src/repro/kernels/segment.py:106",
+             "segment_sum_d8",
              ks.segment_sum_sorted_plain,
              lambda d, s, S: torch.zeros((S, d.shape[1]), device=DEV)
              .index_add_(0, s, d)),
             ("segment_max_sorted", "src/repro/kernels/segment.py:133",
-             ks.segment_max_sorted_plain,
+             "segment_max_d1", ks.segment_max_sorted_plain,
              lambda d, s, S: torch.full((S, d.shape[1]), -ks.SEG_NEG_BIG,
                                         device=DEV)
              .index_reduce_(0, s, d, "amax", include_self=True))):
@@ -1454,16 +1530,20 @@ def phase9_kernel_line(launches_by_step, records, more_rows, card, wave):
         want = plain(data, seg, nseg)
         diff = (got - want).abs()
         err = diff.max().item()
-        extra = {}
+        require(ks.vector_path(data, seg), f"{name}: the path's rows are aligned")
+        extra = {"deterministic": torch.equal(
+                     wrapper(data, seg, nseg).view(torch.int32), got.view(torch.int32)),
+                 "registers": seg_rep[instance]["registers"],
+                 "ldg128": seg_rep[instance]["sass"]["LDG.128"]}
+        require(extra["deterministic"], f"{name}: two calls differ on the main path")
         if name == "segment_max_sorted":
             require(err == 0.0, "segment_max on the main path's input")
         else:
-            # Two summation orders of the same m terms differ by at most
-            # 2 (m - 1) u sum|x| (u = 2^-24, recursive summation's bound);
-            # the largest halo holds ~3e5 rows, far past phase 2's ~30.
-            rows_per = torch.bincount(seg.long(), minlength=nseg).float()
-            abs_sum = plain(data.abs(), seg, nseg)
-            tol = 2.0 * (rows_per - 1).clamp(min=0)[:, None] * 2.0 ** -24 * abs_sum
+            # The kernel adds in a fixed order of its own (a thread's rows in
+            # order, a scan over threads and warps, then the carry levels),
+            # the plain version in row order. The largest halo holds ~3e5
+            # rows, the neutral tail a fifth of all rows.
+            tol = sum_tolerance(torch, data, seg, nseg)
             require(bool((diff <= tol).all()), "segment_sum on the main path's input")
             require(torch.equal(got[:, 0], want[:, 0]),
                     "segment_sum count column on the main path's input")
@@ -1474,11 +1554,14 @@ def phase9_kernel_line(launches_by_step, records, more_rows, card, wave):
                      "replaces": ref_line, **per_step(name),
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                     **extra})
+                     "share": b_ms / ms, **extra})
     rows += more_rows
     for row in rows:
         hops = (f", {row['ghops_per_s']:.1f} Ghops/s, pack {row['pack_ms']:.4f} "
                 f"ms, {row['registers']} registers" if "hops" in row else "")
+        if row["name"].startswith("segment_"):
+            hops = (f", share {row['share']:.3f}, deterministic "
+                    f"{row['deterministic']}, {row['registers']} registers")
         if "class_ms" in row:
             hops = (f", {row['tests_per_s']:.4g} tests/s, slot classes "
                     f"{row['class_ms']:.4f} ms, {row['registers']} registers")
@@ -1531,7 +1614,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
-    card, tiles, wave, stencil = phase1_build()
+    card, tiles, wave, stencil, seg = phase1_build()
     cfg = InsituConfig(mode="simulation", cadence=1, min_pts=2,
                        halo_min_count=10, halo_capacity=1 << 20)
     t0 = time.perf_counter()
@@ -1559,7 +1642,7 @@ def main(argv=None) -> int:
     log(f"[8] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase9_kernel_line(launches_by_step, records, nl_rows + grid_rows + pair_rows,
-                       card, wave)
+                       card, wave, seg)
     log(f"[9] done in {time.perf_counter() - t0:.1f} s; "
         f"total {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)

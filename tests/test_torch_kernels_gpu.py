@@ -89,6 +89,138 @@ def test_segment_kernels_match_plain(cuda, n, segs):
                                rtol=0, atol=0)
 
 
+SEGMENT_PATTERNS = ("one_segment", "every_row", "block_runs",
+                    "block_runs_offset", "neutral_tail", "clipped_tail",
+                    "clipped_ids")
+
+
+def segment_pattern(name, d, seed, blocks=2):
+    """``(ids, sum_rows, max_rows, num_segments)``, numpy, for one of the
+    halo catalog's id patterns over about ``blocks`` kernel blocks of rows:
+    one segment spanning every row; every row its own segment; runs of one
+    block length, on block edges or offset by one; runs of 2-9 rows with one
+    run of 1.5 blocks and a neutral tail of a fifth of the rows that carries
+    the last id (``clipped_tail``: that id clipped to the last segment);
+    sorted ids from below 0 to past the last segment. Every id in range
+    occurs (the reference's dense contract). Column 0 of the sum rows is 1.0
+    (the catalog's count column); a tenth of the max rows are excluded
+    (``-SEG_NEG_BIG``)."""
+    rng = np.random.default_rng(seed)
+    c = ks.CHUNK_ROWS
+    n = blocks * c + 5
+    tail = 0
+    if name == "one_segment":
+        ids, segs = np.zeros(n), 4
+    elif name == "every_row":
+        ids, segs = np.arange(n), n
+    elif name in ("block_runs", "block_runs_offset"):
+        ids = (np.arange(n) + (name == "block_runs_offset")) // c
+        segs = int(ids[-1]) + 2
+    elif name in ("neutral_tail", "clipped_tail"):
+        runs = list(rng.integers(2, 10, 4 * n // 5 // 6))
+        runs.insert(len(runs) // 3, c + c // 2)
+        ids = np.repeat(np.arange(len(runs)), runs)
+        tail = len(ids) // 4
+        ids = np.concatenate([ids, np.full(tail, ids[-1])])
+        segs = len(runs) + 7 if name == "neutral_tail" else len(runs) - 3
+    else:
+        segs = 64
+        ids = np.repeat(np.arange(-3, segs + 3),
+                        rng.multinomial(n - segs - 6, np.ones(segs + 6) / (segs + 6)) + 1)
+    n = len(ids)
+    xs = rng.standard_normal((n, d)).astype(np.float32)
+    if d > 1:
+        xs[:, 0] = 1.0
+    xm = rng.standard_normal((n, d)).astype(np.float32)
+    xm[rng.random(n) < 0.1] = -ks.SEG_NEG_BIG
+    if tail:
+        xs[-tail:] = 0.0
+        xm[-tail:] = -ks.SEG_NEG_BIG
+    return ids.astype(np.int32), xs, xm, segs
+
+
+def sum_bound(data, ids, segs, plain_sum):
+    """Largest difference of two float32 summation orders of each segment:
+    2 (m - 1) u sum|x| for m rows, u = 2^-24 (recursive summation's bound)."""
+    m = torch.bincount(ids.long().clamp(0, segs - 1), minlength=segs).float()
+    return (2.0 * (m - 1).clamp(min=0)[:, None] * 2.0 ** -24
+            * plain_sum(data.abs(), ids, segs))
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("d", [1, 3, 8, 9])
+@pytest.mark.parametrize("name", SEGMENT_PATTERNS)
+def test_segment_kernels_on_catalog_patterns(cuda, name, d):
+    """Sums within the summation-order bound with the count column exact,
+    maxima exact; two calls bit-equal; the scalar instance (a misaligned
+    copy of the same rows) bit-equal to the vector instance."""
+    for blocks in (2, 1100) if d in ks.VECTOR_WIDTHS else (2,):
+        ids, xs, xm, segs = segment_pattern(name, d, d, blocks)
+        ids = torch.from_numpy(ids).to(cuda)
+        for x, wrapper, plain in (
+                (xs, ks.segment_sum_sorted, ks.segment_sum_sorted_plain),
+                (xm, ks.segment_max_sorted, ks.segment_max_sorted_plain)):
+            x = torch.from_numpy(x).to(cuda)
+            got = wrapper(x, ids, segs)
+            want = plain(x, ids, segs)
+            if wrapper is ks.segment_sum_sorted:
+                assert bool(((got - want).abs() <= sum_bound(x, ids, segs, plain)).all())
+                if d > 1:
+                    torch.testing.assert_close(got[:, 0], want[:, 0], rtol=0, atol=0)
+            else:
+                torch.testing.assert_close(got, want, rtol=0, atol=0)
+            assert torch.equal(_bits(wrapper(x, ids, segs)), _bits(got))
+            # The same rows one float and one id past a 16-byte boundary.
+            xo = torch.empty(x.numel() + 1, device=cuda)[1:].view_as(x).copy_(x)
+            io = torch.empty(ids.numel() + 1, dtype=torch.int32, device=cuda)[1:].copy_(ids)
+            assert not ks.vector_path(xo, io)
+            assert torch.equal(_bits(wrapper(xo, io, segs)), _bits(got))
+
+
+@pytest.mark.parametrize("n", [1, 2, 17, 31, 32, 33, 2047, 2049, 3 * 2048 + 7])
+def test_segment_kernels_ragged_row_counts(cuda, n):
+    """n below a warp and n not a multiple of the kernel's block of rows."""
+    rng = np.random.default_rng(n)
+    ids = torch.from_numpy(np.sort(rng.integers(0, max(n // 3, 1), n)).astype(np.int32)).to(cuda)
+    segs = max(n // 3, 1)
+    for d in (1, 8):
+        x = torch.from_numpy(rng.standard_normal((n, d), np.float32)).to(cuda)
+        got = ks.segment_sum_sorted(x, ids, segs)
+        want = ks.segment_sum_sorted_plain(x, ids, segs)
+        assert bool(((got - want).abs() <= sum_bound(x, ids, segs,
+                                                     ks.segment_sum_sorted_plain)).all())
+        torch.testing.assert_close(ks.segment_max_sorted(x, ids, segs),
+                                   ks.segment_max_sorted_plain(x, ids, segs),
+                                   rtol=0, atol=0)
+
+
+def test_segment_kernels_on_misaligned_view(cuda):
+    """``data[1:]`` and ``seg_ids[1:]``, contiguous views off a 16-byte
+    boundary, take the scalar instance and give the aligned copy's bits."""
+    ids, xs, _, segs = segment_pattern("neutral_tail", 1, 5, blocks=40)
+    x = torch.from_numpy(xs).to(cuda)
+    i = torch.from_numpy(ids).to(cuda)
+    xv, iv = x[1:], i[1:]
+    assert xv.is_contiguous() and not ks.vector_path(xv, iv)
+    for wrapper in (ks.segment_sum_sorted, ks.segment_max_sorted):
+        assert torch.equal(_bits(wrapper(xv, iv, segs)),
+                           _bits(wrapper(xv.clone(), iv.clone(), segs)))
+
+
+def test_segment_sum_is_deterministic(cuda):
+    """Two calls on the catalog's shape of ids at 2^24 rows, whose neutral
+    tail spans about 1600 blocks, give the same bits (no atomics)."""
+    ids, xs, _, segs = segment_pattern("neutral_tail", 8, 9, blocks=1 << 13)
+    x = torch.from_numpy(xs).to(cuda)
+    i = torch.from_numpy(ids).to(cuda)
+    first = ks.segment_sum_sorted(x, i, segs)
+    for _ in range(3):
+        assert torch.equal(_bits(ks.segment_sum_sorted(x, i, segs)), _bits(first))
+
+
 def test_launch_counters_count_kernel_launches(cuda):
     pts, bvh = _tree(cuda, 300, 3)
     r2 = torch.full((300,), 0.05 ** 2, device=cuda)
