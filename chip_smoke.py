@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--seed 0] [--n-log2 24]
 
-The paths: HACC in-situ halo finding, ArborX's neighbor lists, the
-adjacency-graph DBSCAN, the grid DBSCAN and the eps-pairwise ops.
+The paths: HACC in-situ halo finding, the halo products (most-bound
+centers and SO masses), ArborX's neighbor lists, the adjacency-graph
+DBSCAN, the grid DBSCAN and the eps-pairwise ops.
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. Phases, each of which must pass:
@@ -14,10 +15,12 @@ CUDA toolkit. Phases, each of which must pass:
    and its power limit. The all-pairs tile kernel must spill nothing, and
    its SASS (``cuobjdump -sass``) and its prologue's hold no ``FFMA``,
    ``HMMA`` or ``HGMMA``. No instance of the traversal kernel (and not its
-   pack prologue) may spill or hold an ``FFMA``, and each traversal
-   instance must read its node records with 128-bit loads
-   (``LDG.E.128``); their registers and counts of 128-bit and narrower
-   ``LDG`` are printed. No instance of the stencil kernel (and neither of
+   pack prologue) may spill, none but POTENTIAL may hold an ``FFMA``, and
+   POTENTIAL must hold as many as a probe kernel that holds only its IEEE
+   1/sqrt sequence (both counts printed); each traversal instance,
+   POTENTIAL and the counter instance of COUNT included, must read its
+   node records with 128-bit loads (``LDG.E.128``); their registers and
+   counts of 128-bit and narrower ``LDG`` are printed. No instance of the stencil kernel (and neither of
    its two prologues) may hold an ``FFMA``; their registers and spills
    are printed. No instance of the segment kernel may spill or hold an
    atomic (``ATOM``/``RED``: its sums are combined in a fixed order), and
@@ -27,7 +30,13 @@ CUDA toolkit. Phases, each of which must pass:
    traversal's node records (``pack_tree``, bit for bit) and its
    epilogues (COUNT, MIN_LABEL, FILL at an exact capacity, at
    half of it and with int64 offsets, FIXED with overflowing and ample
-   buffers) on a tree of 2^20 clustered points (exact), the segment
+   buffers) on a tree of 2^20 clustered points (exact), POTENTIAL (bit
+   for bit, with an active mask), the counter instance of COUNT (all six
+   rows, counts equal to COUNT's) and every instance from random start
+   nodes, a quarter of them ``SENTINEL``, on the same tree, COUNT with a
+   radius per query (4096 queries, radii up to 2 eps, timed against its
+   plain version for phase 9's SO rows), and POTENTIAL's 1/sqrt sequence
+   on 2^24 positive floats against its plain version, the segment
    reductions at the catalog's shapes, 2^24 x 8 and 2^24 x 1, on the
    catalog's shape of ids (360,001 runs: 300,000 of 2-9 rows, 60,000 of
    Pareto sizes, one of 300,000 rows, then a neutral tail of a fifth of
@@ -81,6 +90,20 @@ CUDA toolkit. Phases, each of which must pass:
    the exact order (pair tests x (2d + 4) FP32 instructions over the SMs'
    128 lanes a clock at the card's top SM clock) and the kernel's share of
    it.
+10. The halo products on phase 4's generator, eps and ``InsituConfig``
+   (run before phase 9's line): ``fdbscan``, ``halo_catalog``, one tree,
+   then in one ``shared_pack`` ``most_bound_centers`` at 2 eps and
+   ``so_masses`` (Delta = 200, r_max = 0.1) on the most-bound centers of
+   the slots with ``count > 0``, each timed with its peak memory;
+   counters set to 0 before them, POTENTIAL 1 launch and COUNT 22; every
+   most-bound particle a member of its halo; POTENTIAL against its plain
+   version on every 16th member, bit for bit; the SO counts of 64
+   sampled halos at R_Delta and at r_max against a brute-force count
+   with the kernel's distance formula; the bracketed share and the
+   median distance from most-bound particle to centre of mass; each SO
+   launch's time, hops and longest walk from the counter instance; and
+   one launch of the counter instance at the final SO radii, its largest
+   and 99th-percentile ``nodes_visited`` and its time against COUNT's.
 9. One JSON line with each kernel's launches on its path, time per launch
    at that path's inputs, bound with the card's name and power limit
    beside it, plain version's time and library yardstick. The traversal
@@ -91,7 +114,13 @@ CUDA toolkit. Phases, each of which must pass:
    tests per second, the time of the slot-class prologue alone (shared by
    ``fdbscan_grid``'s launches, so not in ``ms``) and registers; the
    segment rows their share of the bound, whether a second call gave the
-   same bits, and the instance's registers and 128-bit loads.
+   same bits, and the instance's registers and 128-bit loads. Phase 10
+   adds ``wavefront_potential`` (its hits and the bound's operations per
+   hit), ``wavefront_count_so_mass`` (the 22 SO launches: mean ms and
+   bound per launch, and each launch's ms, hops and longest walk) and
+   ``wavefront_count_stats`` (with COUNT's time at the same inputs);
+   their plain times are taken on a part of the input, named in
+   ``plain_input``.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the port beside this file, it exits nonzero and prints no
@@ -121,6 +150,9 @@ FP32_OPS_PER_S = 67e12
 # Float operations per node visit of the traversal: per axis two
 # subtractions and two maxes, then three products, two sums, one compare.
 FLOPS_PER_HOP = 3 * 4 + 3 + 2 + 1
+# Operations per POTENTIAL hit besides the hop: an add (d2 + soft2), the
+# square root, the reciprocal and a subtraction.
+OPS_PER_POTENTIAL_HIT = 4
 # Drift time step: the typical core velocity moves a particle by about a
 # quarter of the linking length.
 DT = 1e-3
@@ -181,14 +213,16 @@ def card_identity() -> str:
 
 
 @contextlib.contextmanager
-def tap(module, name: str, calls: list, keep_args: bool = True):
-    """Record (args, kwargs, result) of the first call of ``module.name``;
-    with ``keep_args=False`` only its result, the arguments as None."""
+def tap(module, name: str, calls: list, keep_args: bool = True,
+        every: bool = False):
+    """Record (args, kwargs, result) of the first call of ``module.name``
+    (of every call with ``every``); with ``keep_args=False`` only its
+    result, the arguments as None."""
     fn = getattr(module, name)
 
     def recorded(*args, **kwargs):
         res = fn(*args, **kwargs)
-        if not calls:
+        if every or not calls:
             calls.append((args, kwargs, res) if keep_args else (None, None, res))
         return res
 
@@ -317,29 +351,45 @@ def tile_kernel_report():
     return out
 
 
-# The traversal template's instances (epilogue, offset type) and its pack
-# prologue, by a tag of their mangled names.
-WAVEFRONT_KERNELS = {"wavefront_count": "wavefront_kernelILi0EiE",
-                     "wavefront_min_label": "wavefront_kernelILi1EiE",
-                     "wavefront_fill": "wavefront_kernelILi2EiE",
-                     "wavefront_fill_int64": "wavefront_kernelILi2ExE",
-                     "wavefront_fixed": "wavefront_kernelILi3EiE",
-                     "wavefront_pack": "pack_kernel"}
+# The traversal template's instances (epilogue, offset type, counters),
+# its pack prologue, and the probe that holds only POTENTIAL's 1/sqrt
+# sequence, by a tag of their mangled names.
+WAVEFRONT_KERNELS = {"wavefront_count": "wavefront_kernelILi0EiLb0EE",
+                     "wavefront_count_stats": "wavefront_kernelILi0EiLb1EE",
+                     "wavefront_min_label": "wavefront_kernelILi1EiLb0EE",
+                     "wavefront_fill": "wavefront_kernelILi2EiLb0EE",
+                     "wavefront_fill_int64": "wavefront_kernelILi2ExLb0EE",
+                     "wavefront_fixed": "wavefront_kernelILi3EiLb0EE",
+                     "wavefront_potential": "wavefront_kernelILi4EiLb0EE",
+                     "wavefront_pack": "pack_kernel",
+                     "rsqrt_probe": "rsqrt_probe_kernel"}
 
 
 def wavefront_report():
     """Registers, spills, SASS opcode and load counts of every instance of
-    the traversal kernel and of its pack prologue. Fails if one spills or
-    holds an FFMA (a contracted multiply-add would round the distance
-    otherwise than the plain version), or if a traversal instance has
-    fewer than two 128-bit loads (the halves of an internal node's record;
-    with fewer, records would be read in pieces)."""
+    the traversal kernel, of its pack prologue and of the 1/sqrt probe.
+    Fails if one spills; if an instance other than POTENTIAL holds an
+    FFMA (a contracted multiply-add would round the distance otherwise
+    than the plain version); if POTENTIAL holds another number of FFMAs
+    than the probe, whose only FFMAs are those of the IEEE square root and
+    reciprocal (so the distance of POTENTIAL has none either); or if a
+    traversal instance has fewer than two 128-bit loads (the halves of an
+    internal node's record; with fewer, records would be read in
+    pieces)."""
     out = kernel_report("wavefront", WAVEFRONT_KERNELS)
+    probe_ffma = out["rsqrt_probe"]["sass"]["FFMA"]
     for key, rep in out.items():
         require(rep["spill_stores"] == rep["spill_loads"] == 0,
                 f"{key}: ptxas reports spills {rep}")
-        require(rep["sass"]["FFMA"] == 0, f"{key}: SASS holds an FFMA")
-        if key != "wavefront_pack":
+        ffma = rep["sass"]["FFMA"]
+        if key == "wavefront_potential":
+            require(ffma == probe_ffma, f"{key}: {ffma} FFMA, the 1/sqrt "
+                    f"sequence alone has {probe_ffma}")
+            log(f"[1] {key}: {ffma} FFMA, the probe holding only its 1/sqrt "
+                f"sequence {probe_ffma}")
+        elif key != "rsqrt_probe":
+            require(ffma == 0, f"{key}: SASS holds an FFMA")
+        if key not in ("wavefront_pack", "rsqrt_probe"):
             require(rep["sass"]["LDG.128"] >= 2,
                     f"{key}: fewer than two 128-bit loads {rep['sass']}")
     return out
@@ -413,6 +463,8 @@ def phase1_build():
 
 
 def phase2_kernels(seed: int, n_tree: int = 1 << 20, n_rows: int = 1 << 24):
+    """Phase 2's traversal and segment checks; returns the per-query-radii
+    times of :func:`phase2_traversal_options`."""
     import torch
     from repro_torch.core.bvh import build_bvh
     from repro_torch.core.geometry import scene_bounds
@@ -466,6 +518,7 @@ def phase2_kernels(seed: int, n_tree: int = 1 << 20, n_rows: int = 1 << 24):
         log(f"[2] wavefront_fixed capacity {cap} (largest count {largest}): "
             f"exact")
     del got, want, counts
+    small = phase2_traversal_options(seed, bvh, pts, r2, eps, order, n_rows)
 
     rows, segs = n_rows, 1 << 20
     ids, tail = catalog_ids(seed + 3, rows)
@@ -498,6 +551,118 @@ def phase2_kernels(seed: int, n_tree: int = 1 << 20, n_rows: int = 1 << 24):
                         got.view(torch.int32)), "segment_max: two calls differ")
     log(f"[2] segment_max_sorted {rows}x1 (mixed signs): exact, two calls "
         f"bit-equal")
+    return small
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Same shape and the same bits (floats compared as int32)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def phase2_traversal_options(seed, bvh, pts, r2, eps, order, n_values):
+    """POTENTIAL, the counter instance and start nodes against their plain
+    versions on phase 2's tree, the 1/sqrt sequence on ``n_values``
+    positive floats, and COUNT with a radius per query, whose kernel and
+    plain times phase 9's rows of the SO path report (the plain version
+    cannot walk the SO path at full size)."""
+    import torch
+    from repro_torch.core.query import node_depths
+    from repro_torch.kernels import wavefront as kw
+
+    n = pts.shape[0]
+    rng = np.random.default_rng(seed + 5)
+    bits = rng.integers(1, 0x7F800000, n_values, dtype=np.int64).astype(np.int32)
+    x = torch.from_numpy(bits).to(DEV).view(torch.float32)
+    seq = kw.inv_sqrt_rn(x)
+    require(bits_equal(torch, seq, kw.inv_sqrt_plain(x)), "1/sqrt sequence")
+    differ = (torch.rsqrt(x).view(torch.int32) != seq.view(torch.int32)).float().mean()
+    log(f"[2] 1/sqrt: the kernel's __frcp_rn(__fsqrt_rn(x)) == inv_sqrt_plain "
+        f"on {n_values} positive floats (normal and subnormal); torch.rsqrt "
+        f"differs from it on a share {differ.item():.4g}")
+    del x, seq
+
+    active = torch.from_numpy(rng.random(n) < 0.75).to(DEV)
+    soft2 = float(np.float32(eps * 1e-2) ** 2)
+    got = kw.wavefront_potential(bvh, pts, r2, soft2, active, order=order)
+    want = kw.wavefront_potential_plain(bvh, pts, r2, soft2, active)
+    require(bits_equal(torch, got, want), "wavefront_potential")
+    log(f"[2] wavefront_potential: bit-equal over {int(active.sum())} active "
+        f"queries of {n}, mean {got[active].mean().item():.6g}")
+
+    depths = node_depths(bvh)
+    for stop in (None, 2):
+        got, stats = kw.wavefront_count(bvh, pts, r2, stop_at=stop, order=order,
+                                        depths=depths)
+        want, want_stats = kw.wavefront_count_plain(bvh, pts, r2, stop,
+                                                    depths=depths)
+        require(torch.equal(got, want) and torch.equal(stats, want_stats),
+                f"wavefront_count with counters, stop_at={stop}")
+        require(torch.equal(got, kw.wavefront_count(bvh, pts, r2, stop_at=stop,
+                                                    order=order)),
+                f"counts with and without counters, stop_at={stop}")
+        log(f"[2] wavefront_count with counters, stop_at={stop}: counts and "
+            f"the six rows exact; totals {stats.sum(1, dtype=torch.int64).tolist()}")
+
+    start = torch.from_numpy(rng.integers(0, 2 * n - 1, n).astype(np.int32)).to(DEV)
+    start[torch.from_numpy(rng.random(n) < 0.25).to(DEV)] = -1
+    got = kw.wavefront_count(bvh, pts, r2, order=order, start=start, depths=depths)
+    want = kw.wavefront_count_plain(bvh, pts, r2, None, start, depths)
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            "COUNT with counters from start nodes")
+    counts = got[0]
+    labels = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(DEV)
+    got = kw.wavefront_min_label(bvh, pts, r2, labels, active, active, n,
+                                 order=order, start=start)
+    require(torch.equal(got, kw.wavefront_min_label_plain(
+        bvh, pts, r2, labels, active, active, n, start)),
+        "MIN_LABEL from start nodes")
+    offsets = exclusive_scan(torch, counts, torch.int64)
+    total = int(offsets[-1])
+    got = kw.wavefront_fill(bvh, pts, r2, offsets, total, order=order, start=start)
+    require(torch.equal(got, kw.wavefront_fill_plain(bvh, pts, r2, offsets, total,
+                                                     start)),
+            "FILL from start nodes")
+    got = kw.wavefront_fixed(bvh, pts, r2, 16, order=order, start=start)
+    want = kw.wavefront_fixed_plain(bvh, pts, r2, 16, start)
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            "FIXED from start nodes")
+    got = kw.wavefront_potential(bvh, pts, r2, soft2, active, order=order,
+                                 start=start)
+    require(bits_equal(torch, got, kw.wavefront_potential_plain(
+        bvh, pts, r2, soft2, active, start)), "POTENTIAL from start nodes")
+    log(f"[2] start nodes ({int((start == -1).sum())} of {n} SENTINEL): COUNT "
+        f"with counters, MIN_LABEL, FILL ({total} hits), FIXED and POTENTIAL "
+        f"exact")
+    del got, want, counts, labels, offsets, start
+
+    q = 4096
+    sel = torch.from_numpy(rng.choice(n, q, replace=False)).to(DEV)
+    centers = pts[sel].contiguous()
+    radii = torch.from_numpy(rng.uniform(0, 2 * eps, q).astype(np.float32)).to(DEV)
+    rq2 = radii * radii
+    got = kw.wavefront_count(bvh, centers, rq2)
+    ms = cuda_ms(torch, lambda: kw.wavefront_count(bvh, centers, rq2), 3)
+    want, plain_ms = timed_once(torch, lambda: kw.wavefront_count_plain(
+        bvh, centers, rq2))
+    require(torch.equal(got, want), "COUNT with a radius per query")
+    got = kw.wavefront_count(bvh, centers, rq2, depths=depths)
+    stats_ms = cuda_ms(torch, lambda: kw.wavefront_count(bvh, centers, rq2,
+                                                         depths=depths), 3)
+    want, stats_plain_ms = timed_once(torch, lambda: kw.wavefront_count_plain(
+        bvh, centers, rq2, depths=depths))
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            "counters with a radius per query")
+    small = {"plain_input": f"phase 2: {q} points of the {n}-point cloud as "
+                            f"centres, radii uniform in [0, 2 eps]",
+             "ms_at_plain_input": ms, "plain_ms": plain_ms,
+             "stats_ms_at_plain_input": stats_ms,
+             "stats_plain_ms": stats_plain_ms}
+    log(f"[2] COUNT with a radius per query ({q} queries, radii up to 2 eps): "
+        f"exact, counters exact; kernel {ms:.4f} ms (with counters "
+        f"{stats_ms:.4f}), plain {plain_ms:.1f} ms ({stats_plain_ms:.1f})")
+    return small
 
 
 def catalog_ids(seed: int, rows: int):
@@ -1454,6 +1619,228 @@ def phase8_all_pairs(seed: int, n: int, card: str, tiles: dict):
     return rows
 
 
+def brute_counts(torch, pts, center, r):
+    """Points within ``r`` of ``center`` by the kernel's distance formula,
+    ((dx*dx + dy*dy) + dz*dz) <= r*r, one float32 op at a time (no FMA)."""
+    d = pts - center
+    d2 = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
+    return int((d2 <= r * r).sum())
+
+
+def phase10_halo_products(seed: int, n: int, cfg, card: str, wave: dict,
+                          small: dict):
+    import torch
+    from repro_torch.core import query as tq
+    from repro_torch.core.bvh import build_bvh
+    from repro_torch.core.dbscan import fdbscan
+    from repro_torch.core.geometry import scene_bounds
+    from repro_torch.data.pipeline import hacc_benchmark_epsilon
+    from repro_torch.halos import centers as hc
+    from repro_torch.halos import halo_catalog, most_bound_centers, so_masses
+    from repro_torch.halos.so_mass import sphere_counts
+    from repro_torch.kernels import wavefront as kw
+
+    t0 = time.perf_counter()
+    pos, vel, _ = plummer_cloud(seed, n)
+    pts = torch.from_numpy(pos).to(DEV)
+    vel_t = torch.from_numpy(vel).to(DEV)
+    del pos, vel
+    eps = hacc_benchmark_epsilon(1.0, n)
+    res = fdbscan(pts, eps, cfg.min_pts, device=DEV)
+    cat = halo_catalog(pts, vel_t, res.labels, capacity=cfg.halo_capacity,
+                       min_count=cfg.halo_min_count, device=DEV)
+    del res, vel_t
+    require(not bool(cat.overflow), "halo catalog overflow: raise capacity")
+    nh = int(cat.num_halos)
+    bvh = build_bvh(pts, *scene_bounds(pts))
+    torch.cuda.synchronize()
+    log(f"[10] {n} particles, eps {eps:.6g}: {nh} halos of at least "
+        f"{cfg.halo_min_count} particles; fdbscan, catalog and tree in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    valid = cat.count > 0
+    kernels = kernel_wrappers(("wavefront_potential", "wavefront_count"))
+    pot_calls, so_calls = [], []
+    for fn in kernels.values():
+        fn.launches = 0
+    with kw.shared_pack(bvh), tap(hc, "wavefront_potential", pot_calls), \
+            tap(tq, "wavefront_count", so_calls, every=True):
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mb = most_bound_centers(pts, cat.particle_halo, 2 * eps,
+                                capacity=cfg.halo_capacity, bvh=bvh, device=DEV)
+        torch.cuda.synchronize()
+        mb_s = time.perf_counter() - t0
+        mb_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        so = so_masses(pts, mb.center, valid, delta=200.0, r_max=0.1, bvh=bvh,
+                       device=DEV)
+        torch.cuda.synchronize()
+        so_s = time.perf_counter() - t0
+        so_peak = torch.cuda.max_memory_allocated()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    log(f"[10] most_bound_centers (2 eps): {mb_s:.4f} s, peak memory "
+        f"{mb_peak / 2**30:.2f} GiB; so_masses (Delta 200, r_max 0.1): "
+        f"{so_s:.4f} s, peak {so_peak / 2**30:.2f} GiB ({resident / 2**30:.2f} "
+        f"GiB resident before: points, tree, catalog); launches {launches}")
+    require(launches == {"wavefront_potential": 1, "wavefront_count": 22},
+            "the halo products launch POTENTIAL once and COUNT 22 times")
+
+    ph = cat.particle_halo
+    idx = mb.index[:nh]
+    require(bool((idx >= 0).all()) and torch.equal(
+        ph[idx.long()], torch.arange(nh, dtype=torch.int32, device=DEV)),
+        "every most-bound particle is a member of its halo")
+    require(bool((mb.index[nh:] == -1).all()), "empty slots have no center")
+
+    # POTENTIAL against its plain version on every 16th member.
+    args, kwargs, phi = pot_calls[0]
+    _, centers, r2, soft2, active = args
+    members = torch.nonzero(active).flatten()
+    sub = members[::16]
+    sub_mask = torch.zeros_like(active)
+    sub_mask[sub] = True
+    want, plain_ms = timed_once(torch, lambda: kw.wavefront_potential_plain(
+        bvh, centers, r2, soft2, sub_mask))
+    require(bits_equal(torch, phi[sub], want[sub]),
+            "wavefront_potential on the path's input, every 16th member")
+    del want, sub_mask
+    with kw.shared_pack(bvh):
+        ms = cuda_ms(torch, lambda: kw.wavefront_potential(*args, **kwargs), 3)
+    depths = tq.node_depths(bvh)
+    # POTENTIAL never ends early, nor does COUNT without stop_at: the
+    # counters of the same queries are POTENTIAL's walk.
+    _, st = kw.wavefront_count(bvh, centers[members].contiguous(), r2[members],
+                               depths=depths)
+    hops = int(st[0].sum(dtype=torch.int64))
+    hits = int(st[3].sum(dtype=torch.int64))
+    q = centers.shape[0]
+    # Reads: tree, order, centers, r2, active; writes: the potentials.
+    nb = tree_bytes(bvh) + q * (4 + 12 + 4 + 1) + q * 4
+    b_ms, b_by = bound(nb, hops * FLOPS_PER_HOP + hits * OPS_PER_POTENTIAL_HIT)
+    log(f"[10] wavefront_potential == its plain version on {sub.numel()} of "
+        f"{members.numel()} members ({plain_ms:.1f} ms); kernel {ms:.3f} ms, "
+        f"{hops} hops, {hits} hits, bound {b_ms:.4f} ms ({b_by})")
+    rows = [{"name": "wavefront_potential", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/wavefront.cu",
+             "replaces": "src/repro/kernels/wavefront.py:97",
+             "launches": launches["wavefront_potential"],
+             "path": "most_bound_centers at 2 eps", "card": card,
+             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+             "plain_input": "every 16th member of the path's queries",
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+             **traversal_fields(torch, kw, bvh, hops, ms, wave,
+                                "wavefront_potential", shared=True),
+             "hits": hits, "ops_per_hit": OPS_PER_POTENTIAL_HIT,
+             "queries": q, "active": members.numel(),
+             "path_s": mb_s, "path_peak_gib": mb_peak / 2**30}]
+    del st, phi, pot_calls, args, kwargs, members, sub
+
+    # Each SO count launch: time, hops and the longest walk.
+    per = []
+    with kw.shared_pack(bvh):
+        for args, kwargs, got in so_calls:
+            b, c, rr = args
+            ms_i = cuda_ms(torch, lambda: kw.wavefront_count(b, c, rr, **kwargs), 1)
+            cnt, st = kw.wavefront_count(b, c, rr, **{**kwargs, "depths": depths})
+            require(torch.equal(cnt, got), "SO counts with and without counters")
+            nb = tree_bytes(bvh) + c.shape[0] * (12 + 4) + c.shape[0] * 4
+            h_i = int(st[0].sum(dtype=torch.int64))
+            per.append((ms_i, h_i, int(st[0].max()),
+                        *bound(nb, h_i * FLOPS_PER_HOP)))
+    del so_calls, cnt, st
+    ms_l, hops_l, maxv_l, bound_l, by_l = (list(x) for x in zip(*per))
+    log(f"[10] SO count launches (ms, hops, largest nodes_visited): "
+        f"{[(round(a, 4), b, c) for a, b, c, _, _ in per]}")
+    so_ms = sum(ms_l) / len(ms_l)
+    so_bound = sum(bound_l) / len(bound_l)
+    so_by = max(set(by_l), key=by_l.count)
+    rows.append({"name": "wavefront_count_so_mass", "wrapper": "wavefront_count",
+                 "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/wavefront.cu",
+                 "replaces": "src/repro/kernels/wavefront.py:97",
+                 "launches": launches["wavefront_count"],
+                 "path": "so_masses (Delta 200, r_max 0.1; a radius per query)",
+                 "card": card, "max_abs_err": 0.0, "ms": so_ms,
+                 "plain_ms": small["plain_ms"],
+                 "plain_input": small["plain_input"],
+                 "ms_at_plain_input": small["ms_at_plain_input"],
+                 "bound_ms": so_bound, "bound_by": so_by, "library_ms": None,
+                 **traversal_fields(torch, kw, bvh,
+                                    round(sum(hops_l) / len(hops_l)), so_ms,
+                                    wave, "wavefront_count", shared=True),
+                 "ms_per_launch": ms_l, "hops_per_launch": hops_l,
+                 "max_nodes_visited_per_launch": maxv_l,
+                 "bound_ms_per_launch": bound_l, "queries": valid.numel(),
+                 "valid_halos": int(valid.sum()),
+                 "path_s": so_s, "path_peak_gib": so_peak / 2**30})
+
+    # 64 sampled valid halos against a brute-force count.
+    rng = np.random.default_rng(seed + 10)
+    vi = torch.nonzero(valid).flatten()
+    pick = vi[torch.from_numpy(rng.choice(vi.numel(), min(64, vi.numel()),
+                                          replace=False)).to(DEV)]
+    r_edge = torch.full((pick.numel(),), 0.1, dtype=torch.float32, device=DEV)
+    edge = sphere_counts(bvh, pts, mb.center[pick], r_edge)
+    for i, h in enumerate(pick.tolist()):
+        c = mb.center[h]
+        require(brute_counts(torch, pts, c, so.r_delta[h]) == int(so.count[h]),
+                f"SO count of halo {h} at R_Delta against brute force")
+        require(brute_counts(torch, pts, c, r_edge[i]) == int(edge[i]),
+                f"SO count of halo {h} at r_max against brute force")
+    share = float(so.bracketed[vi].float().mean())
+    dist = (mb.center[vi] - cat.center[vi]).norm(dim=1) / eps
+    log(f"[10] SO counts of {pick.numel()} sampled halos at R_Delta and at "
+        f"r_max == brute force; bracketed share {share:.4f} of {vi.numel()} "
+        f"valid halos; median most-bound to centre-of-mass distance "
+        f"{dist.median().item():.4f} eps; largest M200 "
+        f"{so.m_delta.max().item():.0f} particles")
+
+    # The counters at the final SO radii: query_count(with_stats=True)
+    # launches the counter instance of COUNT, once.
+    for fn in kernels.values():
+        fn.launches = 0
+    pred = tq.within(mb.center[vi].contiguous(), so.r_delta[vi])
+    with kw.shared_pack(bvh):
+        cnt, stats = tq.query_count(bvh, pred, with_stats=True)
+        stat_launches = kw.wavefront_count.launches
+        require(stat_launches == 1 and torch.equal(cnt, so.count[vi]),
+                "one counter launch at R_Delta gives the SO counts")
+        c, rr = pred.centers.contiguous(), tq.squared_radii(pred)
+        stats_ms = cuda_ms(torch, lambda: kw.wavefront_count(
+            bvh, c, rr, depths=depths), 3)
+        off_ms = cuda_ms(torch, lambda: kw.wavefront_count(bvh, c, rr), 3)
+    nodes = stats.nodes_visited.float()
+    p99 = torch.quantile(nodes, 0.99).item()
+    hops = int(stats.nodes_visited.sum(dtype=torch.int64))
+    qv = vi.numel()
+    nb = tree_bytes(bvh) + depths.numel() * 4 + qv * (12 + 4) + 6 * qv * 4
+    b_ms, b_by = bound(nb, hops * FLOPS_PER_HOP)
+    log(f"[10] counters at R_Delta over {qv} halos: nodes_visited largest "
+        f"{int(nodes.max())}, 99th percentile {p99:.0f}, total {hops}; "
+        f"max depth {int(stats.max_depth.max())}; counter instance "
+        f"{stats_ms:.4f} ms against {off_ms:.4f} ms without")
+    rows.append({"name": "wavefront_count_stats", "wrapper": "wavefront_count",
+                 "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/wavefront.cu",
+                 "replaces": "src/repro/kernels/wavefront.py:97",
+                 "launches": stat_launches,
+                 "path": "query_count(with_stats=True) at the final SO radii",
+                 "card": card, "max_abs_err": 0.0, "ms": stats_ms,
+                 "stats_off_ms": off_ms, "plain_ms": small["stats_plain_ms"],
+                 "plain_input": small["plain_input"],
+                 "ms_at_plain_input": small["stats_ms_at_plain_input"],
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                 **traversal_fields(torch, kw, bvh, hops, stats_ms, wave,
+                                    "wavefront_count_stats", shared=True),
+                 "queries": qv, "max_nodes_visited": int(nodes.max()),
+                 "p99_nodes_visited": p99})
+    return rows
+
+
 def phase9_kernel_line(launches_by_step, records, more_rows, card, wave, seg_rep):
     import torch
     from repro_torch.kernels import segment as ks
@@ -1584,6 +1971,7 @@ def kernel_wrappers(names=None) -> dict:
              "wavefront_min_label": kw.wavefront_min_label,
              "wavefront_fill": kw.wavefront_fill,
              "wavefront_fixed": kw.wavefront_fixed,
+             "wavefront_potential": kw.wavefront_potential,
              "segment_sum_sorted": ks.segment_sum_sorted,
              "segment_max_sorted": ks.segment_max_sorted,
              "stencil_count": kp.stencil_count,
@@ -1618,7 +2006,7 @@ def main(argv=None) -> int:
     cfg = InsituConfig(mode="simulation", cadence=1, min_pts=2,
                        halo_min_count=10, halo_capacity=1 << 20)
     t0 = time.perf_counter()
-    phase2_kernels(args.seed)
+    small = phase2_kernels(args.seed)
     phase2_pairwise_kernels(args.seed)
     log(f"[2] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -1641,8 +2029,13 @@ def main(argv=None) -> int:
     pair_rows = phase8_all_pairs(args.seed, 1 << (args.n_log2 - 8), card, tiles)
     log(f"[8] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase9_kernel_line(launches_by_step, records, nl_rows + grid_rows + pair_rows,
-                       card, wave, seg)
+    halo_rows = phase10_halo_products(args.seed, 1 << args.n_log2, cfg, card,
+                                      wave, small)
+    log(f"[10] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase9_kernel_line(launches_by_step, records,
+                       nl_rows + grid_rows + pair_rows + halo_rows, card, wave,
+                       seg)
     log(f"[9] done in {time.perf_counter() - t0:.1f} s; "
         f"total {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)

@@ -1,13 +1,14 @@
 """Spatial queries; port of ``repro/core/query.py`` (``Within`` predicates:
-``query_count``, ``query_sort_permutation``, and the neighbor-list output
+``query_count`` with ``with_stats`` and ``start_nodes``,
+``query_sort_permutation``, ``node_depths``, and the neighbor-list output
 protocols ``query_fixed``, ``query_csr_device``, ``query_csr`` and
 ``query_csr_buffered`` with ``DeviceCsr`` and ``BufferedCsr``).
 
 Every ε-query runs the rope traversal of
 ``repro_torch.kernels.wavefront``: the CUDA kernel on the card, its plain
 lockstep version on the CPU. ``IntersectsBox``, the ``stack`` backend and
-``with_stats`` are not ported yet (ROADMAP A8); a protocol given another
-predicate raises ``TypeError``.
+the generic callback ``query`` are not ported yet (ROADMAP A8); a
+protocol given another predicate raises ``TypeError``.
 
 Every protocol takes the reference's ``sort_queries=``: the Morton
 permutation of the query centers becomes the order in which the kernel's
@@ -25,10 +26,12 @@ from repro_torch.core.bvh import Bvh
 from repro_torch.core.morton import morton32, normalize_points, sort_by_morton32
 from repro_torch.kernels.wavefront import (wavefront_count, wavefront_fill,
                                            wavefront_fixed)
+from repro_torch.obs.stats import TraversalStats
 
 __all__ = ["Within", "within", "squared_radii", "query_sort_permutation",
-           "query_count", "DeviceCsr", "BufferedCsr", "query_fixed",
-           "query_csr_device", "query_csr", "query_csr_buffered"]
+           "node_depths", "query_count", "DeviceCsr", "BufferedCsr",
+           "query_fixed", "query_csr_device", "query_csr",
+           "query_csr_buffered"]
 
 
 class Within(NamedTuple):
@@ -106,14 +109,45 @@ def _geometry(pred: Within):
     return pred.centers.contiguous(), squared_radii(pred)
 
 
+def node_depths(bvh: Bvh) -> torch.Tensor:
+    """(2n-1,) int32 depth of every node, the root at 0; the table of
+    ``_node_depths`` (``repro/core/query.py:257-271``). The reference
+    propagates depths top-down for a fixed 96 levels, the most a tree of
+    64 code bits and 32 index bits can have; here one level at a time
+    until the last, which gives the same table."""
+    n = bvh.num_leaves
+    depth = torch.zeros(2 * n - 1, dtype=torch.int32,
+                        device=bvh.left_child.device)
+    level = torch.zeros(1, dtype=torch.int64, device=depth.device)
+    d = 0
+    while level.numel():
+        d += 1
+        kids = torch.cat([bvh.left_child[level], bvh.right_child[level]]).long()
+        depth[kids] = d
+        level = kids[kids < n - 1]
+    return depth
+
+
 def query_count(bvh: Bvh, predicates: Within, *, stop_at: int | None = None,
                 sort_queries: bool = False,
-                order: torch.Tensor | None = None) -> torch.Tensor:
+                order: torch.Tensor | None = None, with_stats: bool = False,
+                start_nodes: torch.Tensor | None = None):
     """Per-query intersection counts (int32). ``stop_at`` enables early
-    termination: counting stops, and saturates, at ``stop_at``."""
+    termination: counting stops, and saturates, at ``stop_at``.
+    ``start_nodes`` (int32 node per query, ``SENTINEL``: no walk) replaces
+    the root. ``with_stats=True`` returns ``(counts, TraversalStats)``, in
+    query order whatever the thread order."""
     pred = _within(predicates)
-    return wavefront_count(bvh, *_geometry(pred), stop_at=stop_at,
-                           order=_thread_order(bvh, pred, sort_queries, order))
+    if start_nodes is not None:
+        start_nodes = start_nodes.to(device=pred.centers.device,
+                                     dtype=torch.int32).contiguous()
+    res = wavefront_count(bvh, *_geometry(pred), stop_at=stop_at,
+                          order=_thread_order(bvh, pred, sort_queries, order),
+                          start=start_nodes,
+                          depths=node_depths(bvh) if with_stats else None)
+    if not with_stats:
+        return res
+    return res[0], TraversalStats.from_rows(res[1])
 
 
 def query_fixed(bvh: Bvh, predicates: Within, capacity: int, *,

@@ -4,8 +4,12 @@
 //   * `wavefront_traverse` (:97) on the two passes of the FDBSCAN main path,
 //     the core test (`query_count(within, stop_at=min_pts)`, epilogue COUNT)
 //     and the min-core-label union and border passes (`min_core_label_on`,
-//     epilogue MIN_LABEL), and on the fixed-buffer protocol `query_fixed`
-//     (epilogue FIXED);
+//     epilogue MIN_LABEL), on the fixed-buffer protocol `query_fixed`
+//     (epilogue FIXED), on the halo products' SO counts (`sphere_counts`,
+//     COUNT with a radius per query) and most-bound potentials
+//     (`halo_potentials`, epilogue POTENTIAL), with its start node per
+//     query (`start_nodes`, every instance) and its per-lane counters
+//     (`with_stats`, the STATS instance of COUNT);
 //   * `wavefront_fill_round` (:245), the fill pass of the count-then-fill
 //     CSR protocol `query_csr_device` (epilogue FILL).
 //
@@ -72,6 +76,41 @@
 // warp's 32 queries own 32 rows far apart in the output, so each store
 // instruction touches up to 32 sectors (rows in thread order save 7%).
 //
+// POTENTIAL adds -1/sqrt(d2 + soft2) per hit to a float carry, d2 the hit
+// test's own squared distance, in rope order: the reference's callback
+// `acc - rsqrt(r2 + soft2)` (src/repro/halos/centers.py:64-65). The
+// reciprocal square root is __frcp_rn(__fsqrt_rn(x)), a correctly rounded
+// square root and a correctly rounded reciprocal, because the plain version
+// can compute the same bits with torch ops (`inv_sqrt_plain`: each step in
+// float64, rounded to float32), where rsqrtf is an approximation that no
+// torch op is bound to match. On an H100 80GB HBM3 the sequence equals
+// `inv_sqrt_plain` on 2^24 random positive floats, normal and subnormal,
+// and torch.rsqrt differs from it on 33% of them (`chip_smoke.py`
+// phase 2). XLA's rsqrt on the CPU differs from it by up to 2 ulp, so the
+// port agrees with the reference within a tolerance the tests state.
+// These IEEE sequences contain FFMAs of their
+// own; the epsilon test still has none (its products and sums are _rn
+// intrinsics), and `chip_smoke.py` holds the instance's FFMA count to that
+// of `rsqrt_probe_kernel`, which holds only the sequence (and whose entry
+// `wavefront_rsqrt_probe` lets a test hold its bits against torch's).
+//
+// The SO masses' counts take one thread per halo, with radii up to a few
+// percent of the box, so a launch lasts as long as the longest walk: on
+// an H100 80GB HBM3 at 700 W, 6.6e5 dependent hops for the largest halo
+// of a 2^24-particle cloud took 0.21 s, about 0.3 us a hop, where the
+// 5e8 hops of all the halos together would take under 2 ms at the
+// self-join's rate. Spreading one query's walk over a warp is the remedy;
+// this kernel keeps one thread per query.
+//
+// STATS (a template flag, instantiated for COUNT) counts per lane what
+// `_one_stackless_stats` counts (src/repro/core/query.py:274-309): every
+// iteration, internal and leaf iterations, leaf hits, whether the epilogue
+// ended the walk, and the deepest node visited from a depth table; the six
+// go to rows of a (6, q) int32 array at column qi. The iteration that
+// exits early is counted. A start node per query (null: the root) replaces
+// the root; SENTINEL there means no walk, and the lane keeps its initial
+// carry.
+//
 // Exactness: the hop rule is `_one_stackless` (src/repro/core/query.py:182):
 // at a leaf, run the leaf test, the epilogue only on a hit, then follow the
 // rope; at an internal node, descend to `left_child` if the point-box
@@ -91,7 +130,7 @@ constexpr int kThreads = 512;
 constexpr int kMinBlocks = 3;
 constexpr int kPackThreads = 256;
 
-enum Epilogue { COUNT = 0, MIN_LABEL = 1, FILL = 2, FIXED = 3 };
+enum Epilogue { COUNT = 0, MIN_LABEL = 1, FILL = 2, FIXED = 3, POTENTIAL = 4 };
 
 __device__ __forceinline__ float axis_gap(float p, float lo, float hi) {
   return fmaxf(fmaxf(__fsub_rn(lo, p), __fsub_rn(p, hi)), 0.0f);
@@ -106,6 +145,11 @@ __device__ __forceinline__ float point_box_dist2(float px, float py, float pz,
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
 }
 
+// 1/sqrt(x), each step correctly rounded (torch: x.sqrt().reciprocal()).
+__device__ __forceinline__ float inv_sqrt_rn(float x) {
+  return __frcp_rn(__fsqrt_rn(x));
+}
+
 struct Tree {
   const float4* inner;   // (n-1) x 2 records of the internal nodes
   const float4* leaves;  // (n,) records of the leaves, in leaf order
@@ -118,31 +162,40 @@ struct Tree {
 template <typename Off>
 struct Epi {
   int stop_at;              // COUNT: early exit at this count (INT_MAX: never)
-  const bool* qmask;        // MIN_LABEL: queries to run (null: all)
+  const bool* qmask;        // MIN_LABEL, POTENTIAL: queries to run (null: all)
   int sentinel;             // MIN_LABEL: result where no core object is hit
   const Off* offsets;       // FILL: row start per query
   long long capacity;       // FILL: length of `indices`; FIXED: row width
   int* indices;             // FILL: (capacity,); FIXED: (q, capacity)
+  float soft2;              // POTENTIAL: squared softening length
+  float* potential;         // POTENTIAL: (q,) output
+  const int* depths;        // STATS: (2n-1,) depth of each node
+  int* stats;               // STATS: (6, q) counters
 };
 
 // COUNT: carry = hits so far; done when it reaches stop_at.
 // MIN_LABEL: carry = min key over objects hit; never done.
 // FILL: writes hits at offsets[qi] + k below capacity; done at capacity.
 // FIXED: carry = hits so far; hit k goes to slot min(k, capacity - 1).
-// `out[qi]` receives the carry (FILL has none and writes no `out`).
-template <int EPI, typename Off>
+// POTENTIAL: acc -= 1/sqrt(d2 + soft2) per hit; never done.
+// `out[qi]` receives the int carry (FILL has none and writes no `out`;
+// POTENTIAL writes `e.potential[qi]` instead).
+template <int EPI, typename Off, bool STATS>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 wavefront_kernel(Tree t, const int* __restrict__ order,
                  const float* __restrict__ centers, const float* __restrict__ r2,
-                 int q, Epi<Off> e, int* __restrict__ out) {
+                 int q, const int* __restrict__ start, Epi<Off> e,
+                 int* __restrict__ out) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= q) return;
   const int qi = order ? __ldg(order + lane) : lane;
   int carry = (EPI == MIN_LABEL) ? e.sentinel : 0;
+  float acc = 0.0f;
   long long pos = 0;
-  if constexpr (EPI == MIN_LABEL) {
+  if constexpr (EPI == MIN_LABEL || EPI == POTENTIAL) {
     if (e.qmask && !e.qmask[qi]) {
-      out[qi] = carry;
+      if constexpr (EPI == POTENTIAL) e.potential[qi] = acc;
+      else out[qi] = carry;
       return;
     }
   }
@@ -153,7 +206,9 @@ wavefront_kernel(Tree t, const int* __restrict__ order,
   const float px = centers[3 * qi], py = centers[3 * qi + 1], pz = centers[3 * qi + 2];
   const float rr = r2[qi];
   const int first_leaf = t.n - 1;
-  int node = 0;
+  int node = start ? __ldg(start + qi) : 0;
+  int nodes = 0, aabb = 0, leaves = 0, hits = 0, max_depth = 0;
+  bool done = false;
   while (node != kSentinel) {
     const bool leaf = node >= first_leaf;
     const int k = node - first_leaf;
@@ -162,29 +217,64 @@ wavefront_kernel(Tree t, const int* __restrict__ order,
     const float4 hi = leaf ? lo : __ldg(rec + 1);
     // A leaf's key is fetched with its record, not after the test.
     int key = 0;
-    if constexpr (EPI != COUNT) key = leaf ? __ldg(t.key + k) : 0;
-    const bool hit = point_box_dist2(px, py, pz, lo, hi) <= rr;
+    if constexpr (EPI != COUNT && EPI != POTENTIAL) key = leaf ? __ldg(t.key + k) : 0;
+    const float d2 = point_box_dist2(px, py, pz, lo, hi);
+    const bool hit = d2 <= rr;
+    if constexpr (STATS) {
+      ++nodes;
+      leaves += leaf;
+      aabb += !leaf;
+      hits += leaf && hit;
+      max_depth = max(max_depth, __ldg(e.depths + node));
+    }
     if constexpr (EPI == MIN_LABEL) {
       carry = (leaf && hit) ? min(carry, key) : carry;
     } else if (leaf && hit) {
       if constexpr (EPI == COUNT) {
         ++carry;
-        if (carry >= e.stop_at) break;
+        if (carry >= e.stop_at) {
+          done = true;
+          break;
+        }
       } else if constexpr (EPI == FILL) {
         e.indices[pos] = key;
         if (++pos >= e.capacity) break;
-      } else {
+      } else if constexpr (EPI == FIXED) {
         if (e.capacity > 0) {
           const long long slot = min(static_cast<long long>(carry), e.capacity - 1);
           e.indices[static_cast<long long>(qi) * e.capacity + slot] = key;
         }
         ++carry;
+      } else {
+        acc = __fsub_rn(acc, inv_sqrt_rn(__fadd_rn(d2, e.soft2)));
       }
     }
     // At a leaf both w lanes hold the rope.
     node = hit ? __float_as_int(lo.w) : __float_as_int(hi.w);
   }
-  if constexpr (EPI != FILL) out[qi] = carry;
+  if constexpr (STATS) {
+    int* s = e.stats + qi;
+    s[0] = nodes;
+    s[static_cast<long long>(q)] = aabb;
+    s[2LL * q] = leaves;
+    s[3LL * q] = hits;
+    s[4LL * q] = done;
+    s[5LL * q] = max_depth;
+  }
+  if constexpr (EPI == POTENTIAL) {
+    e.potential[qi] = acc;
+  } else if constexpr (EPI != FILL) {
+    out[qi] = carry;
+  }
+}
+
+// Nothing but the sequence POTENTIAL uses for 1/sqrt: its SASS (its FFMA
+// count) is set beside that of the POTENTIAL instance, and its results
+// beside torch's x.sqrt().reciprocal().
+__global__ void __launch_bounds__(kPackThreads)
+rsqrt_probe_kernel(const float* __restrict__ x, float* __restrict__ y, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = inv_sqrt_rn(x[i]);
 }
 
 // One thread per node: node i's box and links into its record.
@@ -205,12 +295,12 @@ pack_kernel(const float* __restrict__ node_lo, const float* __restrict__ node_hi
   }
 }
 
-template <int EPI, typename Off>
+template <int EPI, bool STATS = false, typename Off>
 int launch(const Tree& t, const int* order, const float* centers, const float* r2,
-           int q, const Epi<Off>& e, int* out, cudaStream_t stream) {
+           int q, const int* start, const Epi<Off>& e, int* out, cudaStream_t stream) {
   const int blocks = (q + kThreads - 1) / kThreads;
-  wavefront_kernel<EPI, Off><<<blocks, kThreads, 0, stream>>>(t, order, centers, r2,
-                                                               q, e, out);
+  wavefront_kernel<EPI, Off, STATS><<<blocks, kThreads, 0, stream>>>(
+      t, order, centers, r2, q, start, e, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -241,60 +331,91 @@ int wavefront_pack(const float* node_lo, const float* node_hi, const int* left_c
 }
 
 // In every traversal entry, inner and leaves are `wavefront_pack`'s
-// records and key is (n,) int32 in leaf order. stop_at < 0 means no early
-// exit.
+// records, key is (n,) int32 in leaf order (or null), order the thread
+// order of the q queries (or null), and start their (q,) int32 start nodes
+// (null: the root; SENTINEL: no walk). stop_at < 0 means no early exit;
+// with depths (the (2n-1,) int32 node depth table) non-null the STATS
+// instance also writes the (6, q) int32 counters `stats`.
 int wavefront_count(const float* inner, const float* leaves, const int* key, int n,
                     const int* order, const float* centers, const float* r2, int q,
-                    int stop_at, int* out, cudaStream_t stream) {
+                    const int* start, int stop_at, const int* depths, int* stats,
+                    int* out, cudaStream_t stream) {
   Epi<int> e{};
   e.stop_at = stop_at < 0 ? INT_MAX : stop_at;
-  return launch<COUNT>(tree(inner, leaves, key, n), order, centers, r2, q, e, out,
-                       stream);
+  const Tree t = tree(inner, leaves, key, n);
+  if (depths) {
+    e.depths = depths;
+    e.stats = stats;
+    return launch<COUNT, true>(t, order, centers, r2, q, start, e, out, stream);
+  }
+  return launch<COUNT>(t, order, centers, r2, q, start, e, out, stream);
 }
 
 // key[k]: the label of leaf k's object where it is core, else sentinel.
 int wavefront_min_label(const float* inner, const float* leaves, const int* key, int n,
                         const int* order, const float* centers, const float* r2,
-                        int q, const bool* qmask, int sentinel, int* out,
-                        cudaStream_t stream) {
+                        int q, const int* start, const bool* qmask, int sentinel,
+                        int* out, cudaStream_t stream) {
   Epi<int> e{};
   e.qmask = qmask;
   e.sentinel = sentinel;
-  return launch<MIN_LABEL>(tree(inner, leaves, key, n), order, centers, r2, q, e, out,
-                           stream);
+  return launch<MIN_LABEL>(tree(inner, leaves, key, n), order, centers, r2, q, start,
+                           e, out, stream);
 }
 
 // key: leaf_perm. offsets: (q + 1,) int32 (offsets_64 == 0) or int64;
 // indices: (capacity,) int32, set to -1 by the caller.
 int wavefront_fill(const float* inner, const float* leaves, const int* key, int n,
                    const int* order, const float* centers, const float* r2, int q,
-                   const void* offsets, int offsets_64, long long capacity,
-                   int* indices, cudaStream_t stream) {
+                   const int* start, const void* offsets, int offsets_64,
+                   long long capacity, int* indices, cudaStream_t stream) {
   const Tree t = tree(inner, leaves, key, n);
   if (offsets_64) {
     Epi<long long> e{};
     e.offsets = static_cast<const long long*>(offsets);
     e.capacity = capacity;
     e.indices = indices;
-    return launch<FILL>(t, order, centers, r2, q, e, nullptr, stream);
+    return launch<FILL>(t, order, centers, r2, q, start, e, nullptr, stream);
   }
   Epi<int> e{};
   e.offsets = static_cast<const int*>(offsets);
   e.capacity = capacity;
   e.indices = indices;
-  return launch<FILL>(t, order, centers, r2, q, e, nullptr, stream);
+  return launch<FILL>(t, order, centers, r2, q, start, e, nullptr, stream);
 }
 
 // key: leaf_perm. buf: (q, capacity) int32, set to -1 by the caller;
 // counts: (q,) int32.
 int wavefront_fixed(const float* inner, const float* leaves, const int* key, int n,
                     const int* order, const float* centers, const float* r2, int q,
-                    long long capacity, int* buf, int* counts, cudaStream_t stream) {
+                    const int* start, long long capacity, int* buf, int* counts,
+                    cudaStream_t stream) {
   Epi<int> e{};
   e.capacity = capacity;
   e.indices = buf;
-  return launch<FIXED>(tree(inner, leaves, key, n), order, centers, r2, q, e, counts,
-                       stream);
+  return launch<FIXED>(tree(inner, leaves, key, n), order, centers, r2, q, start, e,
+                       counts, stream);
+}
+
+// active: (q,) bool queries to run (null: all); out: (q,) float32, 0 at
+// inactive queries.
+int wavefront_potential(const float* inner, const float* leaves, const int* key, int n,
+                        const int* order, const float* centers, const float* r2,
+                        int q, const int* start, const bool* active, float soft2,
+                        float* out, cudaStream_t stream) {
+  Epi<int> e{};
+  e.qmask = active;
+  e.soft2 = soft2;
+  e.potential = out;
+  return launch<POTENTIAL>(tree(inner, leaves, key, n), order, centers, r2, q, start,
+                           e, nullptr, stream);
+}
+
+// y[i] = 1/sqrt(x[i]) by POTENTIAL's sequence, for n float32 values.
+int wavefront_rsqrt_probe(const float* x, float* y, int n, cudaStream_t stream) {
+  rsqrt_probe_kernel<<<(n + kPackThreads - 1) / kPackThreads, kPackThreads, 0, stream>>>(
+      x, y, n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -4,11 +4,13 @@
 
 The reference kernel takes arbitrary Python callbacks through a
 ``make_fns`` factory. A CUDA kernel cannot, so the port has a closed set
-of four epilogues, one wrapper each, all instantiations of one template in
+of five epilogues, one wrapper each, all instantiations of one template in
 ``csrc/wavefront.cu``:
 
 * :func:`wavefront_count` — ε-hit counts with optional early exit at
-  ``stop_at`` (``query_count``, ``repro/core/query.py:990-993``);
+  ``stop_at`` (``query_count``, ``repro/core/query.py:990-993``); with a
+  node depth table it also returns the reference's per-lane traversal
+  counters (``with_stats``, ``repro/kernels/wavefront.py:203-207``);
 * :func:`wavefront_min_label` — the minimum ``obj_labels[j]`` over core
   objects ``j`` hit, ``sentinel`` if none, for queries in ``queries_mask``
   (``min_core_label_on``, ``repro/core/dbscan.py:111-113``);
@@ -19,7 +21,14 @@ of four epilogues, one wrapper each, all instantiations of one template in
   ``wavefront_fill_round``;
 * :func:`wavefront_fixed` — per-query buffers of ``capacity`` slots, surplus
   hits overwriting the last slot, and the true counts (``query_fixed``,
-  ``repro/core/query.py:1000``).
+  ``repro/core/query.py:1000``);
+* :func:`wavefront_potential` — the softened, ε-truncated potential
+  ``-Σ 1/sqrt(d² + soft²)`` over the hits, in rope order, for queries in
+  ``active`` (``halo_potentials``, ``repro/halos/centers.py:64-65``).
+
+Every wrapper takes a start node per query (``start``, the reference's
+``start_nodes``, ``repro/kernels/wavefront.py:135-139``); a query that
+starts at ``SENTINEL`` walks nothing and keeps its initial carry.
 
 A wrapper launches the kernel for CUDA tensors and runs the plain PyTorch
 version for CPU tensors; ``<wrapper>.launches`` counts kernel launches.
@@ -49,16 +58,23 @@ import torch
 from repro_torch.core.bvh import SENTINEL, Bvh
 from repro_torch.core.geometry import point_aabb_dist2
 from repro_torch.kernels import _build
+from repro_torch.obs.stats import TraversalStats
 
 __all__ = ["wavefront_count", "wavefront_min_label", "wavefront_fill",
-           "wavefront_fixed", "PackedTree", "pack_tree", "pack_tree_plain",
-           "shared_pack", "min_label_keys", "wavefront_count_plain",
-           "wavefront_min_label_plain", "wavefront_fill_plain",
-           "wavefront_fixed_plain", "lockstep_traverse", "count_epilogue",
-           "min_label_epilogue", "fill_epilogue", "fixed_epilogue",
-           "fill_lanes", "fixed_carry"]
+           "wavefront_fixed", "wavefront_potential", "PackedTree",
+           "pack_tree", "pack_tree_plain", "shared_pack", "min_label_keys",
+           "wavefront_count_plain", "wavefront_min_label_plain",
+           "wavefront_fill_plain", "wavefront_fixed_plain",
+           "wavefront_potential_plain", "lockstep_traverse",
+           "count_epilogue", "min_label_epilogue", "fill_epilogue",
+           "fixed_epilogue", "potential_epilogue", "fill_lanes",
+           "fixed_carry", "inv_sqrt_rn", "inv_sqrt_plain"]
 
 _INT32_MAX = 2**31 - 1
+# The per-lane counters, one row each in the order of ``TraversalStats``'s
+# fields: nodes_visited, aabb_tests, leaf_tests, callback_hits,
+# early_exits (0/1), max_depth.
+_N_STATS = len(TraversalStats._fields)
 
 
 def _check_inputs(bvh: Bvh, centers, r2, order):
@@ -107,14 +123,18 @@ _TREE = [_P, _P, _P, _I]
 def _lib() -> ctypes.CDLL:
     lib = _build.library("wavefront")
     lib.wavefront_pack.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P]
-    lib.wavefront_count.argtypes = _TREE + [_P, _P, _P, _I, _I, _P, _P]
-    lib.wavefront_min_label.argtypes = _TREE + [_P, _P, _P, _I, _P, _I, _P,
-                                                _P]
-    lib.wavefront_fill.argtypes = _TREE + [_P, _P, _P, _I, _P, _I, _L, _P, _P]
-    lib.wavefront_fixed.argtypes = _TREE + [_P, _P, _P, _I, _L, _P, _P, _P]
+    # Every traversal entry: tree, order, centers, r2, q, start, then its own.
+    query = _TREE + [_P, _P, _P, _I, _P]
+    lib.wavefront_count.argtypes = query + [_I, _P, _P, _P, _P]
+    lib.wavefront_min_label.argtypes = query + [_P, _I, _P, _P]
+    lib.wavefront_fill.argtypes = query + [_P, _I, _L, _P, _P]
+    lib.wavefront_fixed.argtypes = query + [_L, _P, _P, _P]
+    lib.wavefront_potential.argtypes = query + [_P, ctypes.c_float, _P, _P]
+    lib.wavefront_rsqrt_probe.argtypes = [_P, _P, _I, _P]
     for fn in (lib.wavefront_pack, lib.wavefront_count,
                lib.wavefront_min_label, lib.wavefront_fill,
-               lib.wavefront_fixed):
+               lib.wavefront_fixed, lib.wavefront_potential,
+               lib.wavefront_rsqrt_probe):
         fn.restype = _I
     lib.cuda_error_string.argtypes = [_I]
     lib.cuda_error_string.restype = ctypes.c_char_p
@@ -206,40 +226,59 @@ def min_label_keys(bvh: Bvh, obj_labels, obj_core, sentinel: int):
 # Plain PyTorch version
 # ---------------------------------------------------------------------------
 
-def lockstep_traverse(bvh: Bvh, centers, r2, lanes, carry0, epilogue):
+def lockstep_traverse(bvh: Bvh, centers, r2, lanes, carry0, epilogue, *,
+                      start=None, depths=None):
     """Lockstep rope walk over the query indices ``lanes``, the algorithm of
-    the reference kernel in torch ops. ``epilogue(carry, node, leaf_hit)
-    -> (carry, done)`` runs on the live lanes each hop and must leave lanes
-    without ``leaf_hit`` unchanged. Returns the final carry per lane, in
-    ``lanes`` order, and the number of node visits (hops) it took."""
+    the reference kernel in torch ops. Query ``qi`` starts at ``start[qi]``
+    (the root where ``start`` is None); one that starts at ``SENTINEL``
+    walks nothing. ``epilogue(carry, node, leaf_hit, d2) -> (carry, done)``
+    runs on the live lanes each hop, with ``d2`` the squared distance of
+    the hop's test, and must leave lanes without ``leaf_hit`` unchanged.
+    Returns the final carry per lane, in ``lanes`` order, and the number
+    of node visits (hops) it took; with a node depth table ``depths`` also
+    the lanes' counters, (6, m) int32 in ``TraversalStats`` order, as
+    ``_one_stackless_stats`` counts them (``repro/core/query.py:274-309``):
+    every iteration, internal and leaf iterations, leaf hits, whether the
+    epilogue ended the walk, and the deepest node visited."""
     n = bvh.num_leaves
     left, rope = bvh.left_child.long(), bvh.rope.long()
     out = carry0.clone()
-    pos = torch.arange(lanes.numel(), device=lanes.device)
-    node = torch.zeros_like(lanes)
-    carry = carry0
-    c, rr = centers[lanes], r2[lanes]
+    node = torch.zeros_like(lanes) if start is None else start[lanes].long()
+    stats = None if depths is None else torch.zeros(
+        (_N_STATS, lanes.numel()), dtype=torch.int32,
+        device=lanes.device)
+    walks = node != SENTINEL
+    pos = torch.nonzero(walks).flatten()
+    node, carry = node[walks], carry0[walks]
+    c, rr = centers[lanes[walks]], r2[lanes[walks]]
     hops = 0
     while pos.numel():
         hops += pos.numel()
-        hit = point_aabb_dist2(c, bvh.node_lo[node], bvh.node_hi[node]) <= rr
+        d2 = point_aabb_dist2(c, bvh.node_lo[node], bvh.node_hi[node])
+        hit = d2 <= rr
         is_leaf = node >= n - 1
-        carry, done = epilogue(carry, node, is_leaf & hit)
+        carry, done = epilogue(carry, node, is_leaf & hit, d2)
+        if stats is not None:
+            stats[:4, pos] += torch.stack([torch.ones_like(hit), ~is_leaf,
+                                           is_leaf, is_leaf & hit]).int()
+            stats[5, pos] = torch.maximum(stats[5, pos], depths[node])
         node = torch.where(hit & ~is_leaf, left[node.clamp(max=n - 2)],
                            rope[node])
         live = (node != SENTINEL) & ~done
         fin = ~live
         out[pos[fin]] = carry[fin]
+        if stats is not None:
+            stats[4, pos[fin]] = done[fin].int()
         pos, node, carry = pos[live], node[live], carry[live]
         c, rr = c[live], rr[live]
-    return out, hops
+    return (out, hops) if stats is None else (out, hops, stats)
 
 
 def count_epilogue(stop_at: int | None):
     """COUNT: one more per leaf hit; done once the count reaches stop_at."""
     stop = _INT32_MAX if stop_at is None else int(stop_at)
 
-    def epilogue(count, _node, leaf_hit):
+    def epilogue(count, _node, leaf_hit, _d2):
         count = count + leaf_hit.to(count.dtype)
         return count, leaf_hit & (count >= stop)
     return epilogue
@@ -250,7 +289,7 @@ def min_label_epilogue(bvh: Bvh, obj_labels, obj_core):
     n = bvh.num_leaves
     leaf_perm = bvh.leaf_perm.long()
 
-    def epilogue(best, node, leaf_hit):
+    def epilogue(best, node, leaf_hit, _d2):
         obj = leaf_perm[(node - (n - 1)).clamp(0, n - 1)]
         cand = torch.where(leaf_hit & obj_core[obj], obj_labels[obj], best)
         return torch.minimum(best, cand), torch.zeros_like(leaf_hit)
@@ -264,7 +303,7 @@ def fill_epilogue(bvh: Bvh, indices):
     n, capacity = bvh.num_leaves, indices.numel()
     leaf_perm = bvh.leaf_perm
 
-    def epilogue(pos, node, leaf_hit):
+    def epilogue(pos, node, leaf_hit, _d2):
         w = torch.nonzero(leaf_hit).flatten()
         indices[pos[w]] = leaf_perm[node[w] - (n - 1)]
         pos = pos + leaf_hit.to(pos.dtype)
@@ -279,7 +318,7 @@ def fixed_epilogue(bvh: Bvh, buf):
     n, capacity = bvh.num_leaves, buf.shape[1]
     leaf_perm, flat = bvh.leaf_perm, buf.view(-1)
 
-    def epilogue(carry, node, leaf_hit):
+    def epilogue(carry, node, leaf_hit, _d2):
         count, qi = carry[:, 0], carry[:, 1]
         if capacity:
             w = torch.nonzero(leaf_hit).flatten()
@@ -290,17 +329,45 @@ def fixed_epilogue(bvh: Bvh, buf):
     return epilogue
 
 
-def wavefront_count_plain(bvh: Bvh, centers, r2, stop_at=None):
-    """ε-hit counts per query, saturating at ``stop_at`` when it is set."""
+def inv_sqrt_plain(x: torch.Tensor) -> torch.Tensor:
+    """1/sqrt(x) of float32 ``x`` with the square root and the reciprocal
+    each rounded correctly to float32, as the kernel computes it
+    (``__frcp_rn(__fsqrt_rn(x))``). Each step is taken in float64 and
+    rounded to float32, which for a square root or a quotient gives the
+    correctly rounded float32 result (53 bits >= 2·24 + 2). On the card
+    the float64 steps are exact IEEE operations, so this equals the kernel
+    bit for bit; torch's float32 ``sqrt`` on the CPU is not always
+    correctly rounded, and its float64 one is within an ulp of float64,
+    which the rounding to float32 absorbs."""
+    s = x.double().sqrt().float()
+    return s.double().reciprocal().float()
+
+
+def potential_epilogue(soft2: torch.Tensor):
+    """POTENTIAL: ``acc - 1/sqrt(d2 + soft2)`` on each leaf hit, with
+    ``soft2`` a float32 scalar tensor, the reciprocal square root by
+    :func:`inv_sqrt_plain`; never done."""
+    def epilogue(acc, _node, leaf_hit, d2):
+        term = inv_sqrt_plain(d2 + soft2)
+        return torch.where(leaf_hit, acc - term, acc), torch.zeros_like(leaf_hit)
+    return epilogue
+
+
+def wavefront_count_plain(bvh: Bvh, centers, r2, stop_at=None, start=None,
+                          depths=None):
+    """ε-hit counts per query, saturating at ``stop_at`` when it is set;
+    with ``depths``, ``(counts, stats)`` as :func:`wavefront_count`."""
     q = centers.shape[0]
     lanes = torch.arange(q, device=centers.device)
     zeros = torch.zeros(q, dtype=torch.int32, device=centers.device)
-    return lockstep_traverse(bvh, centers, r2, lanes, zeros,
-                             count_epilogue(stop_at))[0]
+    res = lockstep_traverse(bvh, centers, r2, lanes, zeros,
+                            count_epilogue(stop_at), start=start,
+                            depths=depths)
+    return res[0] if depths is None else (res[0], res[2])
 
 
 def wavefront_min_label_plain(bvh: Bvh, centers, r2, obj_labels, obj_core,
-                              queries_mask, sentinel: int):
+                              queries_mask, sentinel: int, start=None):
     """Min ``obj_labels[j]`` over core objects within r of each query in
     ``queries_mask``; ``sentinel`` for the rest and where none is hit."""
     out = torch.full((centers.shape[0],), int(sentinel), dtype=torch.int32,
@@ -308,26 +375,27 @@ def wavefront_min_label_plain(bvh: Bvh, centers, r2, obj_labels, obj_core,
     lanes = torch.nonzero(queries_mask).flatten()
     out[lanes] = lockstep_traverse(
         bvh, centers, r2, lanes, out[lanes],
-        min_label_epilogue(bvh, obj_labels, obj_core))[0]
+        min_label_epilogue(bvh, obj_labels, obj_core), start=start)[0]
     return out
 
 
 def fill_lanes(offsets, capacity: int):
     """The queries FILL walks, those whose row starts below ``capacity``,
     and their first write positions (int64)."""
-    start = offsets[:-1].long()
-    lanes = torch.nonzero(start < capacity).flatten()
-    return lanes, start[lanes]
+    first = offsets[:-1].long()
+    lanes = torch.nonzero(first < capacity).flatten()
+    return lanes, first[lanes]
 
 
-def wavefront_fill_plain(bvh: Bvh, centers, r2, offsets, capacity: int):
+def wavefront_fill_plain(bvh: Bvh, centers, r2, offsets, capacity: int,
+                         start=None):
     """(capacity,) int32: hit ``k`` of query ``qi``, in traversal order, at
     ``offsets[qi] + k`` when that is below ``capacity``; -1 elsewhere."""
     indices = torch.full((capacity,), -1, dtype=torch.int32,
                          device=centers.device)
-    lanes, start = fill_lanes(offsets, capacity)
-    lockstep_traverse(bvh, centers, r2, lanes, start,
-                      fill_epilogue(bvh, indices))
+    lanes, first = fill_lanes(offsets, capacity)
+    lockstep_traverse(bvh, centers, r2, lanes, first,
+                      fill_epilogue(bvh, indices), start=start)
     return indices
 
 
@@ -337,7 +405,7 @@ def fixed_carry(q: int, device):
     return lanes, torch.stack([torch.zeros_like(lanes), lanes], 1)
 
 
-def wavefront_fixed_plain(bvh: Bvh, centers, r2, capacity: int):
+def wavefront_fixed_plain(bvh: Bvh, centers, r2, capacity: int, start=None):
     """``(buf (q, capacity) int32, counts (q,) int32)``: hit ``k`` of each
     query at slot ``min(k, capacity - 1)`` of its row, -1 in unused slots,
     and the true hit counts."""
@@ -345,41 +413,78 @@ def wavefront_fixed_plain(bvh: Bvh, centers, r2, capacity: int):
                      device=centers.device)
     lanes, carry0 = fixed_carry(centers.shape[0], centers.device)
     carry = lockstep_traverse(bvh, centers, r2, lanes, carry0,
-                              fixed_epilogue(bvh, buf))[0]
+                              fixed_epilogue(bvh, buf), start=start)[0]
     return buf, carry[:, 0].to(torch.int32)
+
+
+def wavefront_potential_plain(bvh: Bvh, centers, r2, soft2: float,
+                              active=None, start=None):
+    """(q,) float32: ``-Σ 1/sqrt(d2 + soft2)`` over each active query's
+    hits, summed in rope order; 0 outside ``active``."""
+    q = centers.shape[0]
+    out = torch.zeros(q, dtype=torch.float32, device=centers.device)
+    lanes = (torch.arange(q, device=centers.device) if active is None
+             else torch.nonzero(active).flatten())
+    s2 = torch.tensor(soft2, dtype=torch.float32, device=centers.device)
+    out[lanes] = lockstep_traverse(bvh, centers, r2, lanes, out[lanes],
+                                   potential_epilogue(s2), start=start)[0]
+    return out
 
 
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
+def _check_start(start, q: int, device):
+    if start is not None and (start.dtype != torch.int32
+                              or start.shape != (q,)
+                              or start.device != device):
+        raise ValueError("start must be (q,) int32 node ids on the queries' "
+                         "device")
+
+
 def wavefront_count(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor, *,
                     stop_at: int | None = None,
-                    order: torch.Tensor | None = None) -> torch.Tensor:
+                    order: torch.Tensor | None = None,
+                    start: torch.Tensor | None = None,
+                    depths: torch.Tensor | None = None):
     """(q,) int32 ε-hit counts of ``centers`` with per-query squared radii
     ``r2``, saturating at ``stop_at``. ``order`` (int32 permutation) is the
-    order in which threads take queries; it changes no result."""
+    order in which threads take queries; it changes no result. ``start``
+    (int32 node per query, ``SENTINEL``: no walk) replaces the root.
+
+    With ``depths``, the (2n-1,) int32 node depth table
+    (``repro_torch.core.query.node_depths``), returns ``(counts, stats)``:
+    ``stats`` (6, q) int32, a row per ``TraversalStats`` field (``early_exits``
+    as 0/1), from the kernel's counter instance."""
     _check_inputs(bvh, centers, r2, order)
-    if not centers.is_cuda:
-        return wavefront_count_plain(bvh, centers, r2, stop_at)
     q = centers.shape[0]
+    _check_start(start, q, centers.device)
+    if depths is not None and (depths.dtype != torch.int32
+                               or depths.shape != (2 * bvh.num_leaves - 1,)):
+        raise ValueError("depths must be the (2n-1,) int32 node depth table")
+    if not centers.is_cuda:
+        return wavefront_count_plain(bvh, centers, r2, stop_at, start, depths)
     out = torch.empty(q, dtype=torch.int32, device=centers.device)
-    if q == 0:
-        return out
-    packed = _packed(bvh)
-    lib = _lib()
-    code = lib.wavefront_count(
-        *_tree_args(packed, None), _ptr(order), _ptr(centers), _ptr(r2), q,
-        -1 if stop_at is None else int(stop_at), _ptr(out), _stream())
-    _build.check(lib, code, "wavefront_count")
-    wavefront_count.launches += 1
-    return out
+    stats = None if depths is None else torch.empty(
+        (_N_STATS, q), dtype=torch.int32, device=centers.device)
+    if q:
+        packed = _packed(bvh)
+        lib = _lib()
+        code = lib.wavefront_count(
+            *_tree_args(packed, None), _ptr(order), _ptr(centers), _ptr(r2),
+            q, _ptr(start), -1 if stop_at is None else int(stop_at),
+            _ptr(depths), _ptr(stats), _ptr(out), _stream())
+        _build.check(lib, code, "wavefront_count")
+        wavefront_count.launches += 1
+    return out if depths is None else (out, stats)
 
 
 def wavefront_min_label(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
                         obj_labels: torch.Tensor, obj_core: torch.Tensor,
                         queries_mask: torch.Tensor, sentinel: int, *,
-                        order: torch.Tensor | None = None) -> torch.Tensor:
+                        order: torch.Tensor | None = None,
+                        start: torch.Tensor | None = None) -> torch.Tensor:
     """(q,) int32: for each query in ``queries_mask``, the min over core
     objects within r of ``obj_labels`` (int32, tree object index);
     ``sentinel`` where none is hit and outside the mask."""
@@ -388,10 +493,12 @@ def wavefront_min_label(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
             or queries_mask.dtype != torch.bool:
         raise ValueError("obj_labels must be int32, obj_core and "
                          "queries_mask bool")
+    q = centers.shape[0]
+    _check_start(start, q, centers.device)
     if not centers.is_cuda:
         return wavefront_min_label_plain(bvh, centers, r2, obj_labels,
-                                         obj_core, queries_mask, sentinel)
-    q = centers.shape[0]
+                                         obj_core, queries_mask, sentinel,
+                                         start)
     out = torch.empty(q, dtype=torch.int32, device=centers.device)
     if q == 0:
         return out
@@ -400,7 +507,7 @@ def wavefront_min_label(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
     lib = _lib()
     code = lib.wavefront_min_label(
         *_tree_args(packed, key), _ptr(order), _ptr(centers), _ptr(r2), q,
-        _ptr(queries_mask), int(sentinel), _ptr(out), _stream())
+        _ptr(start), _ptr(queries_mask), int(sentinel), _ptr(out), _stream())
     _build.check(lib, code, "wavefront_min_label")
     wavefront_min_label.launches += 1
     return out
@@ -408,7 +515,8 @@ def wavefront_min_label(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
 
 def wavefront_fill(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
                    offsets: torch.Tensor, capacity: int, *,
-                   order: torch.Tensor | None = None) -> torch.Tensor:
+                   order: torch.Tensor | None = None,
+                   start: torch.Tensor | None = None) -> torch.Tensor:
     """(capacity,) int32 CSR indices: hit ``k`` of query ``qi``, in
     traversal order, at ``offsets[qi] + k`` when that is below
     ``capacity``; hits at or past it are dropped, and -1 fills the rest.
@@ -417,12 +525,14 @@ def wavefront_fill(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
     in which threads take queries; it changes no result."""
     _check_inputs(bvh, centers, r2, order)
     q, capacity = centers.shape[0], int(capacity)
+    _check_start(start, q, centers.device)
     if offsets.dtype not in (torch.int32, torch.int64) \
             or offsets.shape != (q + 1,) or capacity < 0:
         raise ValueError("offsets must be (q+1,) int32 or int64 and "
                          "capacity >= 0")
     if not centers.is_cuda:
-        return wavefront_fill_plain(bvh, centers, r2, offsets, capacity)
+        return wavefront_fill_plain(bvh, centers, r2, offsets, capacity,
+                                    start)
     indices = torch.full((capacity,), -1, dtype=torch.int32,
                          device=centers.device)
     if q == 0 or capacity == 0:
@@ -431,7 +541,7 @@ def wavefront_fill(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
     lib = _lib()
     code = lib.wavefront_fill(
         *_tree_args(packed, bvh.leaf_perm), _ptr(order), _ptr(centers),
-        _ptr(r2), q,
+        _ptr(r2), q, _ptr(start),
         _ptr(offsets), int(offsets.dtype == torch.int64), capacity,
         _ptr(indices), _stream())
     _build.check(lib, code, "wavefront_fill")
@@ -440,17 +550,19 @@ def wavefront_fill(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
 
 
 def wavefront_fixed(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
-                    capacity: int, *, order: torch.Tensor | None = None):
+                    capacity: int, *, order: torch.Tensor | None = None,
+                    start: torch.Tensor | None = None):
     """``(buf, counts)``: ``buf`` (q, capacity) int32 holds hit ``k`` of
     each query, in traversal order, at slot ``min(k, capacity - 1)`` (so
     the last slot ends with the last hit), -1 in unused slots; ``counts``
     (q,) int32 the true hit counts. ``order`` changes no result."""
     _check_inputs(bvh, centers, r2, order)
     q, capacity = centers.shape[0], int(capacity)
+    _check_start(start, q, centers.device)
     if capacity < 0:
         raise ValueError("capacity must be >= 0")
     if not centers.is_cuda:
-        return wavefront_fixed_plain(bvh, centers, r2, capacity)
+        return wavefront_fixed_plain(bvh, centers, r2, capacity, start)
     buf = torch.full((q, capacity), -1, dtype=torch.int32,
                      device=centers.device)
     counts = torch.empty(q, dtype=torch.int32, device=centers.device)
@@ -460,13 +572,62 @@ def wavefront_fixed(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
     lib = _lib()
     code = lib.wavefront_fixed(
         *_tree_args(packed, bvh.leaf_perm), _ptr(order), _ptr(centers),
-        _ptr(r2), q, capacity, _ptr(buf), _ptr(counts), _stream())
+        _ptr(r2), q, _ptr(start), capacity, _ptr(buf), _ptr(counts),
+        _stream())
     _build.check(lib, code, "wavefront_fixed")
     wavefront_fixed.launches += 1
     return buf, counts
+
+
+def wavefront_potential(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
+                        soft2: float, active: torch.Tensor | None = None, *,
+                        order: torch.Tensor | None = None,
+                        start: torch.Tensor | None = None) -> torch.Tensor:
+    """(q,) float32: for each query in ``active`` (bool; None: all), the
+    softened potential ``-Σ 1/sqrt(d2 + soft2)`` over the objects within
+    r, summed in rope order; 0 outside ``active``, whose queries walk
+    nothing. ``soft2`` is taken as float32. ``order`` changes no result."""
+    _check_inputs(bvh, centers, r2, order)
+    q = centers.shape[0]
+    _check_start(start, q, centers.device)
+    if active is not None and (active.dtype != torch.bool
+                               or active.shape != (q,)):
+        raise ValueError("active must be a (q,) bool mask")
+    if not centers.is_cuda:
+        return wavefront_potential_plain(bvh, centers, r2, soft2, active,
+                                         start)
+    out = torch.empty(q, dtype=torch.float32, device=centers.device)
+    if q == 0:
+        return out
+    packed = _packed(bvh)
+    lib = _lib()
+    code = lib.wavefront_potential(
+        *_tree_args(packed, None), _ptr(order), _ptr(centers), _ptr(r2), q,
+        _ptr(start), _ptr(active), float(soft2), _ptr(out), _stream())
+    _build.check(lib, code, "wavefront_potential")
+    wavefront_potential.launches += 1
+    return out
+
+
+def inv_sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """1/sqrt(x) of float32 values by POTENTIAL's sequence: on the card the
+    kernel's own (``rsqrt_probe_kernel``), on the CPU its plain version,
+    which the kernel must equal bit for bit."""
+    if x.dtype != torch.float32:
+        raise ValueError("x must be float32")
+    if not x.is_cuda:
+        return inv_sqrt_plain(x)
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    if x.numel():
+        lib = _lib()
+        code = lib.wavefront_rsqrt_probe(_ptr(x), _ptr(y), x.numel(), _stream())
+        _build.check(lib, code, "wavefront_rsqrt_probe")
+    return y
 
 
 wavefront_count.launches = 0
 wavefront_min_label.launches = 0
 wavefront_fill.launches = 0
 wavefront_fixed.launches = 0
+wavefront_potential.launches = 0

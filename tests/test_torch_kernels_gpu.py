@@ -595,3 +595,156 @@ def test_fdbscan_grid_card_equals_cpu(cuda):
     for f in want._fields:
         torch.testing.assert_close(getattr(got, f).cpu(), getattr(want, f),
                                    rtol=0, atol=0)
+
+
+def _bits32(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _start_nodes(cuda, n_nodes, q, seed):
+    """Random start nodes, internal nodes and leaves, a quarter SENTINEL."""
+    rng = np.random.default_rng(seed)
+    start = rng.integers(0, n_nodes, q).astype(np.int32)
+    start[rng.random(q) < 0.25] = -1
+    return torch.from_numpy(start).to(cuda)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("ordered", [False, True])
+def test_wavefront_potential_matches_plain(cuda, masked, ordered):
+    """POTENTIAL bit-equal to its plain version, a self-join at two radii
+    and off-tree queries with a radius each."""
+    pts, bvh = _tree(cuda, 6000, 21)
+    n = pts.shape[0]
+    rng = np.random.default_rng(22 + masked)
+    active = torch.from_numpy(rng.random(n) < 0.5).to(cuda) if masked else None
+    order = bvh.leaf_perm if ordered else None
+    for eps in (0.01, 0.04):
+        r2 = torch.full((n,), eps, device=cuda) ** 2
+        got = kw.wavefront_potential(bvh, pts, r2, (eps * 1e-2) ** 2, active,
+                                     order=order)
+        want = kw.wavefront_potential_plain(bvh, pts, r2, (eps * 1e-2) ** 2, active)
+        assert torch.equal(_bits32(got), _bits32(want))
+        if masked:
+            assert not bool(got[~active].any())
+    centers = torch.from_numpy(rng.uniform(-0.2, 1.2, (3000, 3)).astype(np.float32)).to(cuda)
+    r2 = torch.from_numpy(rng.uniform(0, 0.05, 3000).astype(np.float32) ** 2).to(cuda)
+    got = kw.wavefront_potential(bvh, centers, r2, 1e-7)
+    want = kw.wavefront_potential_plain(bvh, centers, r2, 1e-7)
+    assert torch.equal(_bits32(got), _bits32(want))
+
+
+def test_inv_sqrt_sequence_matches_plain(cuda):
+    """The kernel's 1/sqrt sequence against ``inv_sqrt_plain`` over every
+    exponent of float32's positive normal range and subnormals."""
+    rng = np.random.default_rng(23)
+    bits = rng.integers(1, 0x7F800000, 1 << 22, dtype=np.int64).astype(np.int32)
+    x = torch.from_numpy(bits).view(torch.float32).to(cuda)
+    assert torch.equal(_bits32(kw.inv_sqrt_rn(x)), _bits32(kw.inv_sqrt_plain(x)))
+
+
+@pytest.mark.parametrize("stop_at", [None, 1, 4])
+def test_wavefront_count_stats_match_plain(cuda, stop_at):
+    """The counter instance: all six rows bit-equal to the plain counters,
+    and the counts identical to the instance without counters."""
+    from repro_torch.core.query import node_depths
+    pts, bvh = _tree(cuda, 8000, 24)
+    n = pts.shape[0]
+    r2 = torch.from_numpy(np.random.default_rng(25).uniform(
+        0, 0.04, n).astype(np.float32) ** 2).to(cuda)
+    depths = node_depths(bvh)
+    before = kw.wavefront_count.launches
+    counts, stats = kw.wavefront_count(bvh, pts, r2, stop_at=stop_at,
+                                       order=bvh.leaf_perm, depths=depths)
+    assert kw.wavefront_count.launches == before + 1
+    want_counts, want_stats = kw.wavefront_count_plain(bvh, pts, r2, stop_at,
+                                                       depths=depths)
+    assert stats.shape == (6, n) and stats.dtype == torch.int32
+    assert torch.equal(counts, want_counts) and torch.equal(stats, want_stats)
+    assert torch.equal(counts, kw.wavefront_count(bvh, pts, r2, stop_at=stop_at))
+    assert torch.equal(stats[3], counts)
+
+
+def test_every_instance_takes_start_nodes(cuda):
+    """COUNT (with and without counters), MIN_LABEL, FILL, FIXED and
+    POTENTIAL from random start nodes, a quarter of them SENTINEL, each
+    bit-equal to its plain version, in a random thread order."""
+    from repro_torch.core.query import node_depths
+    pts, bvh = _tree(cuda, 5000, 26)
+    n = q = pts.shape[0]
+    rng = np.random.default_rng(27)
+    r2 = torch.from_numpy(rng.uniform(0, 0.03, q).astype(np.float32) ** 2).to(cuda)
+    order = torch.from_numpy(rng.permutation(q).astype(np.int32)).to(cuda)
+    start = _start_nodes(cuda, 2 * n - 1, q, 28)
+    idle = start == -1
+    depths = node_depths(bvh)
+    for stop in (None, 2):
+        got = kw.wavefront_count(bvh, pts, r2, stop_at=stop, order=order, start=start)
+        assert torch.equal(got, kw.wavefront_count_plain(bvh, pts, r2, stop, start))
+        assert not bool(got[idle].any())
+        got = kw.wavefront_count(bvh, pts, r2, stop_at=stop, order=order,
+                                 start=start, depths=depths)
+        want = kw.wavefront_count_plain(bvh, pts, r2, stop, start, depths)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert not bool(got[1][:, idle].any())
+    labels = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(cuda)
+    core = torch.from_numpy(rng.random(n) < 0.6).to(cuda)
+    mask = torch.from_numpy(rng.random(q) < 0.8).to(cuda)
+    got = kw.wavefront_min_label(bvh, pts, r2, labels, core, mask, n, order=order,
+                                 start=start)
+    assert torch.equal(got, kw.wavefront_min_label_plain(bvh, pts, r2, labels, core,
+                                                         mask, n, start))
+    counts = kw.wavefront_count(bvh, pts, r2, start=start)
+    for dtype, cut in ((torch.int32, 1), (torch.int32, 2), (torch.int64, 1)):
+        offsets = _offsets(counts, dtype)
+        cap = int(offsets[-1]) // cut
+        got = kw.wavefront_fill(bvh, pts, r2, offsets, cap, order=order, start=start)
+        assert torch.equal(got, kw.wavefront_fill_plain(bvh, pts, r2, offsets, cap,
+                                                        start))
+    for cap in (1, int(counts.max())):
+        got = kw.wavefront_fixed(bvh, pts, r2, cap, order=order, start=start)
+        want = kw.wavefront_fixed_plain(bvh, pts, r2, cap, start)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got = kw.wavefront_potential(bvh, pts, r2, 1e-8, mask, order=order, start=start)
+    want = kw.wavefront_potential_plain(bvh, pts, r2, 1e-8, mask, start)
+    assert torch.equal(_bits32(got), _bits32(want))
+    assert not bool(got[idle].any())
+
+
+def test_all_sentinel_starts_walk_nothing(cuda):
+    pts, bvh = _tree(cuda, 1000, 29)
+    r2 = torch.full((1000,), 0.05 ** 2, device=cuda)
+    start = torch.full((1000,), -1, dtype=torch.int32, device=cuda)
+    assert not bool(kw.wavefront_count(bvh, pts, r2, start=start).any())
+    assert not bool(kw.wavefront_potential(bvh, pts, r2, 1e-6, start=start).any())
+
+
+def test_halo_products_card_equal_cpu(cuda):
+    """The halo-products example's pipeline on the card against the CPU:
+    labels, catalog integers, most-bound indices and potentials, and SO
+    masses exact; one POTENTIAL launch and iters + 2 COUNT launches."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "examples" / "halo_catalog_torch.py"
+    spec = importlib.util.spec_from_file_location("halo_catalog_torch", path)
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    pts, vel, _, _ = ex.make_particles()
+    got = ex.run(pts, vel, cuda)
+    want = ex.run(pts, vel, "cpu")
+    for g, w in zip(got, want):
+        for f in w._fields:
+            a, b = getattr(g, f).cpu(), getattr(w, f)
+            if f in ("mass", "center", "vmean", "vdisp", "rmax"):
+                # Catalog sums in the segment kernel's order.
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+            else:
+                assert torch.equal(_bits32(a), _bits32(b)), f
+    before = (kw.wavefront_potential.launches, kw.wavefront_count.launches)
+    from repro_torch.halos import most_bound_centers, so_masses
+    cat = got[1]
+    mb = most_bound_centers(pts, cat.particle_halo, ex.EPS * 2,
+                            capacity=ex.CAPACITY, device=cuda)
+    so_masses(pts, mb.center, cat.count > 0, r_max=0.1, iters=20, device=cuda)
+    assert (kw.wavefront_potential.launches - before[0],
+            kw.wavefront_count.launches - before[1]) == (1, 22)

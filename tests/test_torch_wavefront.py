@@ -127,7 +127,7 @@ def _key_min(bvh, centers, r2, key, mask, sentinel):
     ``sentinel`` and takes the min with the key of every leaf hit."""
     n = bvh.num_leaves
 
-    def epilogue(best, node, leaf_hit):
+    def epilogue(best, node, leaf_hit, _d2):
         k = key[(node - (n - 1)).clamp(0, n - 1)]
         return torch.where(leaf_hit, torch.minimum(best, k), best), \
             torch.zeros_like(leaf_hit)
