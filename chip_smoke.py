@@ -5,7 +5,9 @@
 
 The paths: HACC in-situ halo finding, the halo products (most-bound
 centers and SO masses), ArborX's neighbor lists, the adjacency-graph
-DBSCAN, the grid DBSCAN and the eps-pairwise ops.
+DBSCAN, the grid DBSCAN, the eps-pairwise ops, and the query engine's
+other predicates (IntersectsBox, all-hits rays) and trees (box leaves,
+30-bit codes) with its stack backend and generic callbacks.
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. Phases, each of which must pass:
@@ -18,9 +20,10 @@ CUDA toolkit. Phases, each of which must pass:
    pack prologue) may spill, none but POTENTIAL may hold an ``FFMA``, and
    POTENTIAL must hold as many as a probe kernel that holds only its IEEE
    1/sqrt sequence (both counts printed); each traversal instance,
-   POTENTIAL and the counter instance of COUNT included, must read its
-   node records with 128-bit loads (``LDG.E.128``); their registers and
-   counts of 128-bit and narrower ``LDG`` are printed. No instance of the stencil kernel (and neither of
+   POTENTIAL, the counter instance of COUNT and the box and ray
+   instances on point and box leaves included, must read its node and
+   box-leaf records with 128-bit loads (``LDG.E.128``); their registers
+   and counts of 128-bit and narrower ``LDG`` are printed. No instance of the stencil kernel (and neither of
    its two prologues) may hold an ``FFMA``; their registers and spills
    are printed. No instance of the segment kernel may spill or hold an
    atomic (``ATOM``/``RED``: its sums are combined in a fixed order), and
@@ -36,7 +39,13 @@ CUDA toolkit. Phases, each of which must pass:
    nodes, a quarter of them ``SENTINEL``, on the same tree, COUNT with a
    radius per query (4096 queries, radii up to 2 eps, timed against its
    plain version for phase 9's SO rows), and POTENTIAL's 1/sqrt sequence
-   on 2^24 positive floats against its plain version, the segment
+   on 2^24 positive floats against its plain version; every box and ray
+   instance (COUNT with and without early exit, its counters, FILL with
+   int32 and int64 offsets, FIXED) and spheres on box leaves, on the
+   same tree and on a box-leaf tree of its points' eps-boxes, with
+   2^14 boxes (a quarter degenerate) and 2^12 rays (axis-aligned ones,
+   components in (-1e-12, 0), origins on leaf-box faces), from the root
+   and from random start nodes, bit for bit; the segment
    reductions at the catalog's shapes, 2^24 x 8 and 2^24 x 1, on the
    catalog's shape of ids (360,001 runs: 300,000 of 2-9 rows, 60,000 of
    Pareto sizes, one of 300,000 rows, then a neutral tail of a fifth of
@@ -54,7 +63,11 @@ CUDA toolkit. Phases, each of which must pass:
    exact, ``query_csr_device`` at half the total, ``query_csr_buffered``
    from capacity 8 and ``dbscan_graph_cc``, all exact; ``fdbscan_grid``
    and ``fdbscan_grid_auto`` (from capacity 2) at 2^18 uniform points,
-   and ``eps_neighbor_counts``/``eps_min_label`` at 2^12 x 64, all exact.
+   and ``eps_neighbor_counts``/``eps_min_label`` at 2^12 x 64, all exact;
+   at 2^16 ``fdbscan(use_64bit=False)``, ``fdbscan(use_stack=True,
+   early_stop=False)``, ``query_count(backend="stack", with_stats=True)``
+   and the generic ``query`` with the quickstart's index-sum callback,
+   exact (the generic query launches no kernel).
 4. The main path: ``InsituAnalyzer`` in simulation mode over two analysis
    steps of 2^24 particles (4096 Plummer spheres plus 20% background).
    The launch counters are set to 0 before each step and read after it;
@@ -104,6 +117,25 @@ CUDA toolkit. Phases, each of which must pass:
    launch's time, hops and longest walk from the counter instance; and
    one launch of the counter instance at the final SO radii, its largest
    and 99th-percentile ``nodes_visited`` and its time against COUNT's.
+11. The query engine at 2^24 on phase 4's cloud and eps (run before
+   phase 9's line), each step with its seconds, peak memory and launches
+   by instance (counters set to 0 before it): ``build_bvh`` over 30-bit
+   and 63-bit codes and Table 1's counts (points sharing a code, the
+   largest run), ``fdbscan(use_64bit=False)`` == ``fdbscan()``;
+   IntersectsBox eps-cubes with ``query_count`` (each count >= the
+   sphere's, 64 sampled against brute force), with counters,
+   ``query_csr`` (each row holds the sphere's row) and
+   ``query_csr_buffered`` from 32 (== ``query_csr``); a tree of the
+   particles' eps-boxes (``build_bvh_objects``) and 2^20 skewers with
+   ``query_count`` and ``query_csr``, 64 sampled rows against a
+   brute-force slab test over all boxes and their t sums from the generic
+   ``query`` bit for bit (no counter moves); spheres of radius 0 ==
+   degenerate boxes on that tree; rays from particles on the point tree;
+   the stack rungs ``fdbscan(use_stack=True)`` with and without early
+   exit at the largest power of two that finishes in 60 s, labels ==
+   ``fdbscan``'s (torch ops, no kernel). Every new (predicate, leaf)
+   instance of COUNT, and FILL and FIXED on the box and ray paths, must
+   have launched.
 9. One JSON line with each kernel's launches on its path, time per launch
    at that path's inputs, bound with the card's name and power limit
    beside it, plain version's time and library yardstick. The traversal
@@ -120,7 +152,11 @@ CUDA toolkit. Phases, each of which must pass:
    bound per launch, and each launch's ms, hops and longest walk) and
    ``wavefront_count_stats`` (with COUNT's time at the same inputs);
    their plain times are taken on a part of the input, named in
-   ``plain_input``.
+   ``plain_input``. Phase 11 adds a row for each instance on its path
+   (COUNT, its counters, FILL and FIXED for IntersectsBox on points;
+   COUNT and FILL for rays on box leaves; COUNT for spheres and boxes on
+   box leaves and rays on points), with its ``ops_per_hop`` and its plain
+   time on a part of the input.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the port beside this file, it exits nonzero and prints no
@@ -129,6 +165,7 @@ result. It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import importlib
 import contextlib
 import itertools
 import json
@@ -351,18 +388,40 @@ def tile_kernel_report():
     return out
 
 
-# The traversal template's instances (epilogue, offset type, counters),
-# its pack prologue, and the probe that holds only POTENTIAL's 1/sqrt
-# sequence, by a tag of their mangled names.
-WAVEFRONT_KERNELS = {"wavefront_count": "wavefront_kernelILi0EiLb0EE",
-                     "wavefront_count_stats": "wavefront_kernelILi0EiLb1EE",
-                     "wavefront_min_label": "wavefront_kernelILi1EiLb0EE",
-                     "wavefront_fill": "wavefront_kernelILi2EiLb0EE",
-                     "wavefront_fill_int64": "wavefront_kernelILi2ExLb0EE",
-                     "wavefront_fixed": "wavefront_kernelILi3EiLb0EE",
-                     "wavefront_potential": "wavefront_kernelILi4EiLb0EE",
+# The traversal template's instances (epilogue, predicate, box leaves,
+# offset type, counters), its pack prologue, and the probe that holds only
+# POTENTIAL's 1/sqrt sequence, by a tag of their mangled names.
+PREDICATE_IDS = {"sphere": 0, "box": 1, "ray": 2}
+# The (predicate, leaf kind) pairs that B1 (a)-(c) added; spheres on point
+# leaves were there before.
+NEW_KINDS = (("box", "point"), ("box", "box"), ("ray", "point"),
+             ("ray", "box"), ("sphere", "box"))
+
+
+def wave_tag(epi: int, pred: str = "sphere", leaf: str = "point",
+             off: str = "i", stats: bool = False) -> str:
+    return (f"wavefront_kernelILi{epi}ELi{PREDICATE_IDS[pred]}"
+            f"ELb{int(leaf == 'box')}E{off}Lb{int(stats)}EE")
+
+
+WAVEFRONT_KERNELS = {"wavefront_count": wave_tag(0),
+                     "wavefront_count_stats": wave_tag(0, stats=True),
+                     "wavefront_min_label": wave_tag(1),
+                     "wavefront_fill": wave_tag(2),
+                     "wavefront_fill_int64": wave_tag(2, off="x"),
+                     "wavefront_fixed": wave_tag(3),
+                     "wavefront_potential": wave_tag(4),
                      "wavefront_pack": "pack_kernel",
                      "rsqrt_probe": "rsqrt_probe_kernel"}
+for _pred, _leaf in NEW_KINDS:
+    _k = f"{_pred}_{_leaf}"
+    WAVEFRONT_KERNELS.update({
+        f"wavefront_count_{_k}": wave_tag(0, _pred, _leaf),
+        f"wavefront_count_stats_{_k}": wave_tag(0, _pred, _leaf, stats=True),
+        f"wavefront_fill_{_k}": wave_tag(2, _pred, _leaf),
+        f"wavefront_fill_int64_{_k}": wave_tag(2, _pred, _leaf, off="x"),
+        f"wavefront_fixed_{_k}": wave_tag(3, _pred, _leaf)})
+del _pred, _leaf, _k
 
 
 def wavefront_report():
@@ -374,8 +433,8 @@ def wavefront_report():
     than the probe, whose only FFMAs are those of the IEEE square root and
     reciprocal (so the distance of POTENTIAL has none either); or if a
     traversal instance has fewer than two 128-bit loads (the halves of an
-    internal node's record; with fewer, records would be read in
-    pieces)."""
+    internal node's record, and of a box leaf's; with fewer, records would
+    be read in pieces)."""
     out = kernel_report("wavefront", WAVEFRONT_KERNELS)
     probe_ffma = out["rsqrt_probe"]["sass"]["FFMA"]
     for key, rep in out.items():
@@ -519,6 +578,7 @@ def phase2_kernels(seed: int, n_tree: int = 1 << 20, n_rows: int = 1 << 24):
             f"exact")
     del got, want, counts
     small = phase2_traversal_options(seed, bvh, pts, r2, eps, order, n_rows)
+    phase2_predicates(seed, bvh, pts, eps)
 
     rows, segs = n_rows, 1 << 20
     ids, tail = catalog_ids(seed + 3, rows)
@@ -665,6 +725,125 @@ def phase2_traversal_options(seed, bvh, pts, r2, eps, order, n_values):
     return small
 
 
+def skewers(torch, seed: int, m: int, lo, hi, pts):
+    """``m`` rays through the cloud (lines of sight): origins uniform on
+    the scene's low-z face aimed at uniform points of its high-z face;
+    1/16 of them along z exactly, from under a random particle; 1/64 with
+    an x component in (-1e-12, 0), whose inverse is +inf. Returns
+    (origins, directions) float32 on the card."""
+    rng = np.random.default_rng(seed)
+    lo, hi = lo.cpu().numpy(), hi.cpu().numpy()
+    o = rng.uniform(lo, hi, (m, 3)).astype(np.float32)
+    o[:, 2] = lo[2]
+    target = rng.uniform(lo, hi, (m, 3)).astype(np.float32)
+    target[:, 2] = hi[2]
+    d = target - o
+    axis = np.arange(0, m, 16)
+    under = pts[torch.from_numpy(rng.integers(0, pts.shape[0], axis.size))
+                .to(pts.device)].cpu().numpy()
+    o[axis, :2] = under[:, :2]
+    d[axis] = (0.0, 0.0, 1.0)
+    tiny = np.arange(1, m, 64)
+    d[tiny, 0] = -rng.uniform(0, 1e-12, tiny.size).astype(np.float32)
+    return torch.from_numpy(o).to(DEV), torch.from_numpy(d).to(DEV)
+
+
+def phase2_predicates(seed, bvh, pts, eps, q_box: int = 1 << 14,
+                      q_ray: int = 1 << 12):
+    """B1 (a)-(c) on the card against the plain versions, bit for bit:
+    COUNT (with and without early exit), its counter instance, FILL
+    (int32 offsets at the exact capacity, int64 at half) and FIXED for
+    boxes (up to 4 eps wide, a quarter degenerate) and rays (from points
+    of the cloud's box in random directions, a quarter along z, 1/64 with
+    a component in (-1e-12, 0), some from particles and from leaf-box
+    faces) on phase 2's point tree and on a box-leaf tree of its points'
+    eps-boxes, and spheres on the box-leaf tree; from the root and from
+    random start nodes, a quarter of them SENTINEL. A plain walk lasts as
+    long as its longest query's (one torch iteration a hop), so the query
+    counts are small and each plain run is held against several kernel
+    outputs: COUNT with early exit against the saturated plain counts, the
+    exact FILL against FIXED's plain rows, wide enough for every hit."""
+    import torch
+    tq = importlib.import_module("repro_torch.core.query")
+    from repro_torch.core.bvh import build_bvh_objects
+    from repro_torch.core.geometry import safe_inv, scene_bounds
+    from repro_torch.kernels import wavefront as kw
+
+    n = pts.shape[0]
+    lo, hi = scene_bounds(pts)
+    trees = {"point": bvh, "box": build_bvh_objects(pts - eps, pts + eps, lo, hi)}
+    got, want = kw.pack_tree(trees["box"]), kw.pack_tree_plain(trees["box"])
+    require(got.leaves.shape == (n, 8) and all(
+        torch.equal(getattr(got, f).view(torch.int32),
+                    getattr(want, f).view(torch.int32)) for f in got._fields),
+        "pack_tree of the box-leaf tree")
+    rng = np.random.default_rng(seed + 21)
+    sel = torch.from_numpy(rng.choice(n, q_box, replace=False)).to(DEV)
+    half = torch.from_numpy(rng.uniform(0, 2 * eps, (q_box, 3))
+                            .astype(np.float32)).to(DEV)
+    blo, bhi = pts[sel] - half, pts[sel] + half
+    blo[: q_box // 4] = bhi[: q_box // 4] = pts[sel[: q_box // 4]]
+    lo_np, hi_np = lo.cpu().numpy(), hi.cpu().numpy()
+    o = rng.uniform(lo_np, hi_np, (q_ray, 3)).astype(np.float32)
+    d = rng.standard_normal((q_ray, 3)).astype(np.float32)
+    d[::4] = (0.0, 0.0, 1.0)
+    d[1::64, 0] = -rng.uniform(0, 1e-12, d[1::64].shape[0]).astype(np.float32)
+    o, d = torch.from_numpy(o).to(DEV), torch.from_numpy(d).to(DEV)
+    k = torch.from_numpy(rng.integers(0, n, q_ray)).to(DEV)
+    o[2::5] = pts[k[2::5]]                      # from a particle
+    o[3::5] = pts[k[3::5]] - eps                # from a leaf box's low corner
+    d[3::10, 0] = -3e-13
+    geo = {"box": (blo.contiguous(), bhi.contiguous()),
+           "ray": (o, safe_inv(d)),
+           "sphere": (pts[sel].contiguous(),
+                      torch.full((q_box,), eps, device=DEV) ** 2)}
+    for pred, leaf in NEW_KINDS:
+        t0 = time.perf_counter()
+        b = trees[leaf]
+        qa, qb = geo[pred]
+        q = qa.shape[0]
+        depths = tq.node_depths(b)
+        start = torch.from_numpy(rng.integers(0, 2 * n - 1, q).astype(np.int32)).to(DEV)
+        start[torch.from_numpy(rng.random(q) < 0.25).to(DEV)] = -1
+        for st in (None, start):
+            got = kw.wavefront_count(b, qa, qb, pred=pred, start=st, depths=depths)
+            want = kw.wavefront_count_plain(b, qa, qb, None, st, depths, pred=pred)
+            # With early exit a count saturates at stop_at: min(count, 2).
+            require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                    and torch.equal(kw.wavefront_count(b, qa, qb, pred=pred,
+                                                       start=st), want[0])
+                    and torch.equal(kw.wavefront_count(b, qa, qb, pred=pred,
+                                                       start=st, stop_at=2),
+                                    want[0].clamp(max=2)),
+                    f"COUNT and its counters {pred}/{leaf}, start={st is not None}")
+            if st is None:
+                root = want[0]
+        counts = want[0]
+        offsets = exclusive_scan(torch, counts, torch.int64)
+        cap = int(offsets[-1]) // 2
+        require(torch.equal(
+            kw.wavefront_fill(b, qa, qb, offsets, cap, pred=pred, start=start),
+            kw.wavefront_fill_plain(b, qa, qb, offsets, cap, start, pred=pred)),
+            f"FILL {pred}/{leaf}, int64 offsets at half capacity, from start nodes")
+        # FIXED rows wide enough for every hit hold each query's hits in
+        # walk order: compacted, they are the exact FILL from the root.
+        width = 1 << max(int(root.max()) - 1, 0).bit_length()
+        got = kw.wavefront_fixed(b, qa, qb, width, pred=pred)
+        want = kw.wavefront_fixed_plain(b, qa, qb, width, pred=pred)
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                and torch.equal(got[1], root), f"FIXED {pred}/{leaf}")
+        offsets, rows = tq._compact_csr(want[0], root)
+        require(torch.equal(kw.wavefront_fill(b, qa, qb, offsets, int(offsets[-1]),
+                                              pred=pred), rows),
+                f"FILL {pred}/{leaf}, int32 offsets, exact capacity")
+        log(f"[2] {pred} queries on {leaf} leaves ({q} queries, {int(root.sum())} "
+            f"hits from the root, {int(counts.sum())} from start nodes, "
+            f"{int((start == -1).sum())} SENTINEL): COUNT (stop_at None and 2), "
+            f"counters, FILL (int64 at half capacity from start nodes, int32 "
+            f"exact), FIXED (width {width}), bit-equal to the plain versions "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+
 def catalog_ids(seed: int, rows: int):
     """Sorted segment ids of the halo catalog's shape over ``rows`` rows, and
     the length of their neutral tail. At 2^24 rows: 300,000 runs of 2-9
@@ -729,7 +908,7 @@ def phase3_whole_path(seed: int, cfg, n: int = 1 << 18, n_lists: int = 1 << 16):
     log(f"[3] card == CPU at {n} particles: labels, core mask, "
         f"{int(res_g.num_rounds)} rounds and catalog ints exact; stats {st_g}")
 
-    from repro_torch.core import query as tq
+    tq = importlib.import_module("repro_torch.core.query")
     from repro_torch.core.bvh import build_bvh
     from repro_torch.core.dbscan import dbscan_graph_cc
     from repro_torch.core.geometry import scene_bounds
@@ -764,12 +943,63 @@ def phase3_whole_path(seed: int, cfg, n: int = 1 << 18, n_lists: int = 1 << 16):
         f"hits), query_csr_device (capacity {trunc.indices.numel()}), "
         f"query_csr_buffered ({buffered.attempts} attempts) and "
         f"dbscan_graph_cc (capacity 64) exact")
+    phase3_engine(pos, eps)
+
+
+def phase3_engine(pos, eps):
+    """The 32-bit build, the stack backend and the generic engine, card
+    against CPU: ``fdbscan(use_64bit=False)``, ``fdbscan(use_stack=True,
+    early_stop=False)``, ``query_count(backend="stack", with_stats=True)``
+    and ``query`` with the quickstart's index-sum callback, all exact; the
+    generic query launches no kernel."""
+    import torch
+    tq = importlib.import_module("repro_torch.core.query")
+    from repro_torch.core.bvh import build_bvh
+    from repro_torch.core.dbscan import fdbscan
+    from repro_torch.core.geometry import scene_bounds
+
+    def index_sum(acc, qi, j, d2):
+        return acc + j, False
+
+    out, kernels = {}, kernel_wrappers()
+    for dev in (DEV, "cpu"):
+        t0 = time.perf_counter()
+        pts = torch.from_numpy(pos).to(dev)
+        bvh = build_bvh(pts, *scene_bounds(pts))
+        pred = tq.within(pts, eps)
+        res = [fdbscan(pos, eps, 2, use_64bit=False, device=dev),
+               fdbscan(pos, eps, 2, use_stack=True, early_stop=False, device=dev),
+               tq.query_count(bvh, pred, backend="stack", with_stats=True)]
+        reset_counts(kernels)
+        res.append(tq.query(bvh, pred, index_sum,
+                            torch.zeros((), dtype=torch.int64), sort_queries=True))
+        require(not any(fn.launches for fn in kernels.values()),
+                "the generic query launches no kernel")
+        require(int(res[-1].sum()) == int(tq.query_csr(bvh, pred).indices
+                                          .sum(dtype=torch.int64)),
+                "index sums == the CSR's")
+        out[dev] = res
+        log(f"[3] fdbscan (32-bit codes; stack backend without early exit), "
+            f"query_count(backend='stack', with_stats=True) and the generic "
+            f"query on {dev}: {time.perf_counter() - t0:.1f} s")
+    for name, got, want in zip(("fdbscan(use_64bit=False)",
+                                "fdbscan(use_stack=True, early_stop=False)",
+                                "query_count(backend='stack', with_stats=True)",
+                                "query index sums"), out[DEV], out["cpu"]):
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        for g, w in zip(got, want):
+            for a, b in (zip(g, w) if isinstance(w, tuple) else ((g, w),)):
+                require(torch.equal(a.cpu(), b), f"{name} card vs CPU")
+    log(f"[3] card == CPU at {pos.shape[0]} particles: fdbscan over 30-bit "
+        f"codes, fdbscan with the stack backend, the stack backend's counts "
+        f"and six counter rows, and the generic query's index sums exact")
 
 
 def phase4_main_path(seed: int, n: int, cfg):
     import torch
     from repro_torch.analysis import insitu
-    from repro_torch.core import dbscan, query
+    from repro_torch.core import dbscan
+    query = importlib.import_module("repro_torch.core.query")
     from repro_torch.core.bvh import build_bvh
     from repro_torch.core.geometry import scene_bounds
     from repro_torch.data.pipeline import hacc_benchmark_epsilon
@@ -855,7 +1085,7 @@ def sync_debug_error(torch):
 
 def phase5_neighbor_lists(seed: int, n: int, card: str, wave: dict):
     import torch
-    from repro_torch.core import query as tq
+    tq = importlib.import_module("repro_torch.core.query")
     from repro_torch.core.bvh import build_bvh
     from repro_torch.core.geometry import scene_bounds
     from repro_torch.data.pipeline import hacc_benchmark_epsilon
@@ -1345,7 +1575,7 @@ def phase3_grid_and_pairwise(seed: int, n: int = 1 << 18, n_pairs: int = 1 << 12
 def phase7_grid(seed: int, n: int, card: str, stencil: dict):
     import torch
     from repro_torch.core import fdbscan_grid as tgrid
-    from repro_torch.core import query as tq
+    tq = importlib.import_module("repro_torch.core.query")
     from repro_torch.core.bvh import build_bvh
     from repro_torch.core.dbscan import count_neighbors, fdbscan
     from repro_torch.core.geometry import scene_bounds
@@ -1498,7 +1728,7 @@ def phase7_grid(seed: int, n: int, card: str, stencil: dict):
     grid_counts = tgrid._gather_slots(counts_cells, bins.slot_of_point.long(), 0)
     del bins, counts_cells
     bvh = build_bvh(pts, *scene_bounds(pts))
-    exact = count_neighbors(bvh, pts, eps, order=bvh.leaf_perm)
+    exact = count_neighbors(bvh, pts, pts, eps, order=bvh.leaf_perm)
     diff = grid_counts - exact
     idx = torch.nonzero(diff).flatten()
     # Every pair the expanded formula can put on the other side of eps lies
@@ -1630,7 +1860,7 @@ def brute_counts(torch, pts, center, r):
 def phase10_halo_products(seed: int, n: int, cfg, card: str, wave: dict,
                           small: dict):
     import torch
-    from repro_torch.core import query as tq
+    tq = importlib.import_module("repro_torch.core.query")
     from repro_torch.core.bvh import build_bvh
     from repro_torch.core.dbscan import fdbscan
     from repro_torch.core.geometry import scene_bounds
@@ -1841,6 +2071,457 @@ def phase10_halo_products(seed: int, n: int, cfg, card: str, wave: dict,
     return rows
 
 
+# Float operations a hop of the box and slab tests. Box: per axis two
+# subtractions, two maxes and a product, then two sums and the compare (18,
+# as the sphere's). Ray: per axis two subtractions, two products, a min and
+# a max, then two maxes and two mins across axes, the max with 0 and the
+# compare. The flushes of subnormals (compares and selects) are not counted.
+BOX_FLOPS_PER_HOP = 3 * 5 + 2 + 1
+RAY_FLOPS_PER_HOP = 3 * 6 + 4 + 1 + 1
+OPS_PER_HOP = {"sphere": FLOPS_PER_HOP, "box": BOX_FLOPS_PER_HOP,
+               "ray": RAY_FLOPS_PER_HOP}
+STACK_RUNG_S = 60.0
+
+
+@contextlib.contextmanager
+def counted_step(torch, name: str, kernels: dict):
+    """Counters set to 0 before the block; its seconds (host clock to a
+    synchronize), peak memory and launches by instance printed after."""
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"step": name}
+    t0 = time.perf_counter()
+    yield rec
+    torch.cuda.synchronize()
+    rec["s"] = time.perf_counter() - t0
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["launches"] = instance_counts(kernels)
+    log(f"[11] {name}: {rec['s']:.3f} s, peak memory {rec['peak_gib']:.2f} "
+        f"GiB, launches {rec['launches']}")
+
+
+def rows_contain(torch, big, small, n: int, chunks: int = 16) -> bool:
+    """Whether each row of the CSR ``small`` is, as a set, inside the same
+    row of ``big``; in chunks of rows, by sorted keys row * n + index."""
+    q = big.offsets.numel() - 1
+    edges = np.linspace(0, q, chunks + 1).astype(np.int64)
+
+    def keys(csr, a, b):
+        off = csr.offsets.long()
+        rows = torch.repeat_interleave(torch.arange(a, b, device=DEV),
+                                       off[a + 1:b + 1] - off[a:b])
+        return rows * n + csr.indices[int(off[a]):int(off[b])].long()
+
+    for a, b in zip(edges[:-1].tolist(), edges[1:].tolist()):
+        kb = keys(big, a, b).sort().values
+        ks = keys(small, a, b)
+        if ks.numel() and (kb.numel() == 0 or not bool(
+                (kb[torch.searchsorted(kb, ks).clamp(max=kb.numel() - 1)]
+                 == ks).all())):
+            return False
+    return True
+
+
+def predicate_row(torch, kw, *, name, wrapper, pred, leaf, bvh, run, sub_run,
+                  plain, hops, nbytes, launches, path, plain_input, card,
+                  wave, wave_key):
+    """A phase 9 row of a B1 (a)-(c) instance at phase 11's inputs:
+    ``run()`` the path's launch (pack included, as the protocols pack per
+    launch), ``sub_run()`` and ``plain()`` the kernel and its plain version
+    on a part of the inputs, which must agree bit for bit."""
+    ms = cuda_ms(torch, run, 3)
+    got = sub_run()
+    sub_ms = cuda_ms(torch, sub_run, 3)
+    want, plain_ms = timed_once(torch, plain)
+    same = all(torch.equal(g, w) for g, w in zip(
+        got if isinstance(got, tuple) else (got,),
+        want if isinstance(want, tuple) else (want,)))
+    require(same, f"{name} {pred}/{leaf} on a part of the path's input")
+    b_ms, b_by = bound(nbytes, hops * OPS_PER_HOP[pred])
+    return {"name": name, "wrapper": wrapper, "instance": f"{pred}/{leaf}",
+            "route": "cuda", "source": "src/repro_torch/kernels/csrc/wavefront.cu",
+            "replaces": ("src/repro/kernels/wavefront.py:245" if wrapper ==
+                         "wavefront_fill" else "src/repro/kernels/wavefront.py:97"),
+            "launches": launches, "path": path, "card": card,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "plain_input": plain_input, "ms_at_plain_input": sub_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "ops_per_hop": OPS_PER_HOP[pred],
+            **traversal_fields(torch, kw, bvh, hops, ms, wave, wave_key)}
+
+
+def phase11_predicates(seed: int, n: int, card: str, wave: dict):
+    import torch
+    tq = importlib.import_module("repro_torch.core.query")
+    from repro_torch.core import morton
+    from repro_torch.core.bvh import build_bvh, build_bvh_objects
+    from repro_torch.core.dbscan import fdbscan
+    from repro_torch.core.geometry import aabb_aabb_dist2, ray_box, safe_inv, scene_bounds
+    from repro_torch.data.pipeline import hacc_benchmark_epsilon
+    from repro_torch.kernels import wavefront as kw
+
+    t_all = time.perf_counter()
+    pos, _, _ = plummer_cloud(seed, n)
+    pts = torch.from_numpy(pos).to(DEV)
+    del pos
+    eps = hacc_benchmark_epsilon(1.0, n)
+    lo, hi = scene_bounds(pts)
+    kernels = kernel_wrappers()
+    rng = np.random.default_rng(seed + 30)
+    rows, steps = [], []
+    sub_box = torch.from_numpy(rng.choice(n, min(n, 1 << 14), replace=False)).to(DEV)
+
+    # 1. The 32-bit build: Table 1's shared codes, and fdbscan over it.
+    with counted_step(torch, "build_bvh(use_64bit=False)", kernels) as rec:
+        bvh32 = build_bvh(pts, lo, hi, use_64bit=False)
+    steps.append(rec)
+    with counted_step(torch, "build_bvh (63-bit codes)", kernels) as rec:
+        bvh = build_bvh(pts, lo, hi)
+    steps.append(rec)
+    unit = morton.normalize_points(pts, lo, hi)
+    table = {}
+    for bits, codes in ((32, morton.morton32(unit)), (64, morton.morton64(unit))):
+        _, inverse, counts = torch.unique(codes, return_inverse=True,
+                                          return_counts=True)
+        table[bits] = {"shared": int((counts[inverse] > 1).sum()),
+                       "largest_run": int(counts.max())}
+    del unit, codes, inverse, counts, bvh32
+    log(f"[11] Table 1 at {n} particles: 30-bit codes shared by "
+        f"{table[32]['shared']} points ({table[32]['shared'] / n:.4f}), "
+        f"largest run {table[32]['largest_run']}; 63-bit codes shared by "
+        f"{table[64]['shared']} ({table[64]['shared'] / n:.6f}), largest run "
+        f"{table[64]['largest_run']}")
+    with counted_step(torch, "fdbscan(use_64bit=False)", kernels) as rec:
+        r32 = fdbscan(pts, eps, 2, use_64bit=False, device=DEV)
+    steps.append(rec)
+    r64 = fdbscan(pts, eps, 2, device=DEV)
+    require(all(torch.equal(getattr(r32, f), getattr(r64, f)) for f in r32._fields),
+            "fdbscan over 30-bit codes == over 63-bit codes")
+    log(f"[11] fdbscan(use_64bit=False): labels, core mask and "
+        f"{int(r64.num_rounds)} rounds == fdbscan()'s")
+    del r32, r64
+
+    # 2. IntersectsBox: each particle's eps-cube.
+    order = bvh.leaf_perm
+    sphere = tq.within(pts, eps)
+    cubes = tq.intersects_box(pts - eps, pts + eps)
+    qa, qb = cubes.lo.contiguous(), cubes.hi.contiguous()
+    sph_counts = tq.query_count(bvh, sphere, order=order)
+    with counted_step(torch, "IntersectsBox query_count (eps-cubes)", kernels) as rec:
+        bc = tq.query_count(bvh, cubes, order=order)
+    steps.append(rec)
+    count_launches = rec["launches"].get("wavefront_count box/point", 0)
+    require(bool((bc >= sph_counts).all()), "cube counts >= sphere counts")
+    for i in rng.choice(n, 64, replace=False).tolist():
+        brute = int((aabb_aabb_dist2(qa[i].expand(n, 3), qb[i].expand(n, 3),
+                                     pts, pts) <= 0).sum())
+        require(brute == int(bc[i]), f"cube count of particle {i} against brute force")
+    with counted_step(torch, "IntersectsBox query_count(with_stats=True)", kernels) as rec:
+        bc2, bst = tq.query_count(bvh, cubes, order=order, with_stats=True)
+    steps.append(rec)
+    stats_launches = rec["launches"].get("wavefront_count box/point", 0)
+    require(torch.equal(bc, bc2), "counts with and without counters")
+    box_hops = int(bst.nodes_visited.sum(dtype=torch.int64))
+    log(f"[11] IntersectsBox counts: mean {bc.float().mean().item():.2f} "
+        f"(sphere {sph_counts.float().mean().item():.2f}), largest {int(bc.max())}; "
+        f">= the sphere counts; 64 sampled == brute force; {box_hops} hops")
+    scsr = tq.query_csr(bvh, sphere, order=order)
+    with counted_step(torch, "IntersectsBox query_csr exact", kernels) as rec:
+        bcsr = tq.query_csr(bvh, cubes, order=order)
+    steps.append(rec)
+    csr_launches = rec["launches"]
+    require(torch.equal(bcsr.offsets[1:] - bcsr.offsets[:-1], bc),
+            "CSR row lengths == counts")
+    require(rows_contain(torch, bcsr, scsr, n), "each cube row holds the sphere row")
+    total = int(bcsr.total)
+    log(f"[11] IntersectsBox query_csr: {total} hits (sphere {int(scsr.total)}); "
+        f"every row holds its sphere row as a set")
+    del scsr, bst, bc2
+    with counted_step(torch, "IntersectsBox query_csr_buffered from 32", kernels) as rec:
+        buf = tq.query_csr_buffered(bvh, cubes, capacity=32, order=order)
+    steps.append(rec)
+    require(torch.equal(buf.offsets, bcsr.offsets)
+            and torch.equal(buf.indices, bcsr.indices),
+            "query_csr_buffered == query_csr")
+    log(f"[11] query_csr_buffered: {buf.attempts} attempts, == query_csr")
+    fixed_launches = rec["launches"].get("wavefront_fixed box/point", 0)
+    cap = 32 << (buf.attempts - 1)
+    del buf
+    sq = sub_box.numel()
+    sa, sb = qa[sub_box].contiguous(), qb[sub_box].contiguous()
+    s_off = exclusive_scan(torch, kw.wavefront_count(bvh, sa, sb, pred="box"),
+                           torch.int32)
+    s_tot = int(s_off[-1])
+    plain_input = f"{sq} sampled queries of the {n}"
+    box_q_bytes = tree_bytes(bvh) + n * (4 + 12 + 12)
+    common = dict(pred="box", leaf="point", bvh=bvh, card=card, wave=wave,
+                  plain_input=plain_input)
+    rows.append(predicate_row(
+        torch, kw, name="wavefront_count_box_point", wrapper="wavefront_count",
+        run=lambda: kw.wavefront_count(bvh, qa, qb, pred="box", order=order),
+        sub_run=lambda: kw.wavefront_count(bvh, sa, sb, pred="box"),
+        plain=lambda: kw.wavefront_count_plain(bvh, sa, sb, pred="box"),
+        hops=box_hops, nbytes=box_q_bytes + n * 4, launches=count_launches,
+        path="query_count(IntersectsBox eps-cubes)", wave_key="wavefront_count_box_point",
+        **common))
+    depths = tq.node_depths(bvh)
+    rows.append(predicate_row(
+        torch, kw, name="wavefront_count_stats_box_point", wrapper="wavefront_count",
+        run=lambda: kw.wavefront_count(bvh, qa, qb, pred="box", order=order,
+                                       depths=depths),
+        sub_run=lambda: kw.wavefront_count(bvh, sa, sb, pred="box", depths=depths),
+        plain=lambda: kw.wavefront_count_plain(bvh, sa, sb, None, None, depths,
+                                               pred="box"),
+        hops=box_hops, nbytes=box_q_bytes + depths.numel() * 4 + n * 4 * 7,
+        launches=stats_launches,
+        path="query_count(IntersectsBox eps-cubes, with_stats=True)",
+        wave_key="wavefront_count_stats_box_point", **common))
+    rows.append(predicate_row(
+        torch, kw, name="wavefront_fill_box_point", wrapper="wavefront_fill",
+        run=lambda: kw.wavefront_fill(bvh, qa, qb, bcsr.offsets, total, pred="box",
+                                      order=order),
+        sub_run=lambda: kw.wavefront_fill(bvh, sa, sb, s_off, s_tot, pred="box"),
+        plain=lambda: kw.wavefront_fill_plain(bvh, sa, sb, s_off, s_tot, pred="box"),
+        hops=box_hops, nbytes=box_q_bytes + (n + 1) * 4 + total * 4,
+        launches=csr_launches.get("wavefront_fill box/point", 0),
+        path="query_csr(IntersectsBox eps-cubes) exact", wave_key="wavefront_fill_box_point",
+        **common))
+    rows.append(predicate_row(
+        torch, kw, name="wavefront_fixed_box_point", wrapper="wavefront_fixed",
+        run=lambda: kw.wavefront_fixed(bvh, qa, qb, 32, pred="box", order=order),
+        sub_run=lambda: kw.wavefront_fixed(bvh, sa, sb, 32, pred="box"),
+        plain=lambda: kw.wavefront_fixed_plain(bvh, sa, sb, 32, pred="box"),
+        hops=box_hops, nbytes=box_q_bytes + n * 32 * 4 + n * 4,
+        launches=fixed_launches,
+        path=f"query_csr_buffered(IntersectsBox eps-cubes) from 32 (to {cap}); "
+             f"ms at the first attempt's capacity 32",
+        wave_key="wavefront_fixed_box_point", **common))
+    del bcsr, cubes, qa, qb, sph_counts, bc
+
+    # 3. Box leaves and rays: the particles' eps-boxes, 2^20 skewers.
+    with counted_step(torch, "build_bvh_objects over the eps-boxes", kernels) as rec:
+        obvh = build_bvh_objects(pts - eps, pts + eps, lo, hi)
+    steps.append(rec)
+    m = max(1 << 10, n >> 4)
+    o, d = skewers(torch, seed + 31, m, lo, hi, pts)
+    rays = tq.ray(o, d)
+    ro, rinv = o, safe_inv(d)
+    with counted_step(torch, f"rays query_count ({m} skewers, box leaves)", kernels) as rec:
+        rc = tq.query_count(obvh, rays, sort_queries=True)
+    steps.append(rec)
+    ray_count_launches = rec["launches"].get("wavefront_count ray/box", 0)
+    with counted_step(torch, "rays query_csr exact (box leaves)", kernels) as rec:
+        rcsr = tq.query_csr(obvh, rays, sort_queries=True)
+    steps.append(rec)
+    ray_csr_launches = rec["launches"]
+    require(torch.equal(rcsr.offsets[1:] - rcsr.offsets[:-1], rc), "ray CSR == counts")
+    axis = torch.arange(0, m, 16, device=DEV)
+    require(bool((rc[axis] >= 1).all()), "every axis-aligned skewer pierces "
+            "the box of the particle above its origin")
+    blo, bhi = pts - eps, pts + eps
+    sample = rng.choice(m, 64, replace=False)
+    sample[:8] = np.arange(0, 16 * 8, 16)           # axis-aligned ones
+    sample[8:12] = np.arange(1, 64 * 4, 64)         # inverse +inf ones
+    t_rows = []
+    for i in sample.tolist():
+        t, hit = ray_box(ro[i].expand(n, 3), rinv[i].expand(n, 3), blo, bhi)
+        a, b = int(rcsr.offsets[i]), int(rcsr.offsets[i + 1])
+        row = rcsr.indices[a:b].long()
+        require(int(hit.sum()) == b - a and bool(hit[row].all()),
+                f"ray {i}: CSR row == brute-force slab test")
+        t_rows.append(t[row].cpu().numpy())
+    kernels_before = instance_counts(kernels)
+    with counted_step(torch, "generic query: index and t sums of 64 rays "
+                             "(torch ops on the card)", kernels) as rec:
+        sums = tq.query(obvh, tq.ray(o[sample], d[sample]),
+                        lambda c, qi, j, t: ((c[0] + j, c[1] + t, c[2] + 1), False),
+                        (torch.zeros((), dtype=torch.int64),
+                         torch.zeros((), dtype=torch.float32),
+                         torch.zeros((), dtype=torch.int32)))
+    steps.append(rec)
+    require(rec["launches"] == {}, "the generic query moves no counter")
+    del kernels_before
+    for k, i in enumerate(sample.tolist()):
+        a, b = int(rcsr.offsets[i]), int(rcsr.offsets[i + 1])
+        acc = np.float32(0)
+        for v in t_rows[k]:
+            acc = np.float32(acc + v)
+        require(int(sums[2][k]) == b - a and int(sums[0][k]) == int(
+            rcsr.indices[a:b].sum(dtype=torch.int64)), f"ray {i}: generic query")
+        require(np.float32(sums[1][k].item()).view(np.int32)
+                == acc.view(np.int32), f"ray {i}: t sum bits")
+    log(f"[11] rays on box leaves: {int(rcsr.total)} hits, mean "
+        f"{rc.float().mean().item():.2f} a ray, largest {int(rc.max())}; 64 "
+        f"sampled rows == a brute-force slab test over all {n} boxes, and "
+        f"their t sums (in rope order, from the generic query) bit-equal")
+    depths_o = tq.node_depths(obvh)
+    rq = m
+    sub_ray = torch.from_numpy(rng.choice(m, min(m, 1 << 12), replace=False)).to(DEV)
+    r_sa, r_sb = ro[sub_ray].contiguous(), rinv[sub_ray].contiguous()
+    r_off = exclusive_scan(torch, kw.wavefront_count(obvh, r_sa, r_sb, pred="ray"),
+                           torch.int32)
+    r_tot = int(r_off[-1])
+    rorder = tq.query_sort_permutation(obvh, o)
+    ray_hops = int(kw.wavefront_count(obvh, ro, rinv, pred="ray", order=rorder,
+                                      depths=depths_o)[1][0].sum(dtype=torch.int64))
+    rtotal = int(rcsr.total)
+    ray_bytes = tree_bytes(obvh) + rq * (4 + 12 + 12)
+    common = dict(pred="ray", leaf="box", bvh=obvh, card=card, wave=wave,
+                  plain_input=f"{sub_ray.numel()} sampled skewers of the {m}")
+    rows.append(predicate_row(
+        torch, kw, name="wavefront_count_ray_box", wrapper="wavefront_count",
+        run=lambda: kw.wavefront_count(obvh, ro, rinv, pred="ray", order=rorder),
+        sub_run=lambda: kw.wavefront_count(obvh, r_sa, r_sb, pred="ray"),
+        plain=lambda: kw.wavefront_count_plain(obvh, r_sa, r_sb, pred="ray"),
+        hops=ray_hops, nbytes=ray_bytes + rq * 4, launches=ray_count_launches,
+        path=f"query_count(Ray) of {m} skewers on the eps-box tree",
+        wave_key="wavefront_count_ray_box", **common))
+    rows.append(predicate_row(
+        torch, kw, name="wavefront_fill_ray_box", wrapper="wavefront_fill",
+        run=lambda: kw.wavefront_fill(obvh, ro, rinv, rcsr.offsets, rtotal,
+                                      pred="ray", order=rorder),
+        sub_run=lambda: kw.wavefront_fill(obvh, r_sa, r_sb, r_off, r_tot, pred="ray"),
+        plain=lambda: kw.wavefront_fill_plain(obvh, r_sa, r_sb, r_off, r_tot,
+                                              pred="ray"),
+        hops=ray_hops, nbytes=ray_bytes + (rq + 1) * 4 + rtotal * 4,
+        launches=ray_csr_launches.get("wavefront_fill ray/box", 0),
+        path=f"query_csr(Ray) of {m} skewers on the eps-box tree, exact",
+        wave_key="wavefront_fill_ray_box", **common))
+    del rcsr, rc
+
+    # Spheres of radius 0 on the box leaves == degenerate boxes [p, p].
+    oorder = obvh.leaf_perm
+    with counted_step(torch, "Within(p, 0) query_count on the eps-box tree", kernels) as rec:
+        c0 = tq.query_count(obvh, tq.within(pts, 0.0), order=oorder)
+    steps.append(rec)
+    s0_launches = rec["launches"].get("wavefront_count sphere/box", 0)
+    with counted_step(torch, "IntersectsBox([p, p]) query_count on the eps-box tree",
+                      kernels) as rec:
+        c1 = tq.query_count(obvh, tq.intersects_box(pts, pts), order=oorder)
+    steps.append(rec)
+    b0_launches = rec["launches"].get("wavefront_count box/box", 0)
+    require(torch.equal(c0, c1), "sphere r=0 == degenerate box on box leaves")
+    require(bool((c0 >= 1).all()), "each particle lies in its own eps-box")
+    log(f"[11] radius-0 spheres == degenerate boxes on the eps-box tree: mean "
+        f"{c0.float().mean().item():.2f} boxes a particle")
+    zero = torch.zeros(n, dtype=torch.float32, device=DEV)
+    hops0 = int(kw.wavefront_count(obvh, pts, zero, order=oorder, depths=depths_o)[1][0]
+                .sum(dtype=torch.int64))
+    s_pts = pts[sub_box].contiguous()
+    for pred, qb_, launches, name in (("sphere", zero, s0_launches,
+                                       "wavefront_count_sphere_box"),
+                                      ("box", pts, b0_launches,
+                                       "wavefront_count_box_box")):
+        s_qb = qb_[sub_box].contiguous()
+        rows.append(predicate_row(
+            torch, kw, name=name, wrapper="wavefront_count", pred=pred, leaf="box",
+            bvh=obvh, card=card, wave=wave,
+            plain_input=f"{sub_box.numel()} sampled particles of the {n}",
+            run=lambda p=pred, b=qb_: kw.wavefront_count(obvh, pts, b, pred=p,
+                                                         order=oorder),
+            sub_run=lambda p=pred, b=s_qb: kw.wavefront_count(obvh, s_pts, b, pred=p),
+            plain=lambda p=pred, b=s_qb: kw.wavefront_count_plain(obvh, s_pts, b,
+                                                                   pred=p),
+            hops=hops0, nbytes=tree_bytes(obvh) + n * (4 + 12 + 12 + 4),
+            launches=launches,
+            path=("query_count(Within(p, 0))" if pred == "sphere" else
+                  "query_count(IntersectsBox([p, p]))") + " on the eps-box tree",
+            wave_key=name))
+    del c0, c1, zero, obvh, depths_o
+
+    # Rays on the point tree, from particles: each hits at least its own
+    # particle (t = 0 on every axis), unless a component's inverse is +inf.
+    k = torch.from_numpy(rng.integers(0, n, m)).to(DEV)
+    po = pts[k].contiguous()
+    pd = d.clone()
+    with counted_step(torch, f"rays from particles query_count ({m}, point tree)",
+                      kernels) as rec:
+        pc = tq.query_count(bvh, tq.ray(po, pd), sort_queries=True)
+    steps.append(rec)
+    rp_launches = rec["launches"].get("wavefront_count ray/point", 0)
+    pinv = safe_inv(pd)
+    finite = torch.isfinite(pinv).all(1)
+    require(bool((pc[finite] >= 1).all()), "a ray from a particle hits it")
+    for i in sample[:16].tolist():
+        _, hit = ray_box(po[i].expand(n, 3), pinv[i].expand(n, 3), pts, pts)
+        require(int(hit.sum()) == int(pc[i]), f"ray {i} on points: brute force")
+    log(f"[11] rays from particles on the point tree: mean "
+        f"{pc.float().mean().item():.3f} points a ray; those with finite "
+        f"inverses >= 1; 16 sampled == brute force")
+    porder = tq.query_sort_permutation(bvh, po)
+    hops_p = int(kw.wavefront_count(bvh, po, pinv, pred="ray", order=porder,
+                                    depths=depths)[1][0].sum(dtype=torch.int64))
+    ps_a, ps_b = po[sub_ray].contiguous(), pinv[sub_ray].contiguous()
+    rows.append(predicate_row(
+        torch, kw, name="wavefront_count_ray_point", wrapper="wavefront_count",
+        pred="ray", leaf="point", bvh=bvh, card=card, wave=wave,
+        plain_input=f"{sub_ray.numel()} sampled rays of the {m}",
+        run=lambda: kw.wavefront_count(bvh, po, pinv, pred="ray", order=porder),
+        sub_run=lambda: kw.wavefront_count(bvh, ps_a, ps_b, pred="ray"),
+        plain=lambda: kw.wavefront_count_plain(bvh, ps_a, ps_b, pred="ray"),
+        hops=hops_p, nbytes=tree_bytes(bvh) + m * (4 + 12 + 12 + 4),
+        launches=rp_launches, path=f"query_count(Ray) of {m} rays from particles "
+                                   f"on the point tree",
+        wave_key="wavefront_count_ray_point"))
+    del pc, po, pd, pinv, depths
+
+    seen = set()
+    for rec in steps:
+        seen.update(k for k in rec["launches"] if " " in k)
+    for pred, leaf in NEW_KINDS:
+        require(f"wavefront_count {pred}/{leaf}" in seen,
+                f"COUNT {pred}/{leaf} launched in phase 11")
+    for key in ("wavefront_fill box/point", "wavefront_fixed box/point",
+                "wavefront_fill ray/box"):
+        require(key in seen, f"{key} launched in phase 11")
+    del bvh
+
+    # 4. The stack rungs: fdbscan(use_stack=True), its count pass in torch
+    # ops (the reference's stack backend is no kernel either).
+    def rung(size: int, early: bool):
+        p_, _, _ = plummer_cloud(seed, size)
+        p_ = torch.from_numpy(p_).to(DEV)
+        e_ = hacc_benchmark_epsilon(1.0, size)
+        with counted_step(torch, f"fdbscan(use_stack=True, early_stop={early}) "
+                                 f"at 2^{size.bit_length() - 1}: count pass in "
+                                 f"torch ops on the card", kernels) as rec:
+            r = fdbscan(p_, e_, 2, use_stack=True, early_stop=early, device=DEV)
+        ref = fdbscan(p_, e_, 2, device=DEV)
+        require(torch.equal(r.labels, ref.labels) and torch.equal(
+            r.core_mask, ref.core_mask), "stack rung labels == fdbscan's")
+        require("wavefront_count sphere/point" not in rec["launches"],
+                "the stack rung's count pass launches no kernel")
+        return rec
+
+    # The largest power of two that finishes within the limit: a guess
+    # from a probe at 2^18, then one power up at a time while a run
+    # finishes, one down while it does not.
+    probe = rung(min(n, 1 << 18), False)
+    log2n = n.bit_length() - 1
+    k = min(log2n, 18 + int(np.floor(np.log2(STACK_RUNG_S / max(probe["s"], 1e-3)))))
+    fits = {}
+    while k not in fits and 10 <= k <= log2n:
+        fits[k] = rung(1 << k, False)
+        if fits[k]["s"] > STACK_RUNG_S:
+            log(f"[11] 2^{k} took {fits[k]['s']:.1f} s, over {STACK_RUNG_S:.0f} s")
+            k -= 1
+        elif k < log2n:
+            k += 1
+    passed = [j for j, r in fits.items() if r["s"] <= STACK_RUNG_S]
+    require(bool(passed), f"a stack rung finishes in {STACK_RUNG_S:.0f} s")
+    k = max(passed)
+    slow = fits[k]
+    fast = rung(1 << k, True)
+    require(fast["s"] <= STACK_RUNG_S, "rung (2) within the time")
+    log(f"[11] stack rungs at 2^{k} (the largest power of two <= 2^{log2n} that "
+        f"finishes in {STACK_RUNG_S:.0f} s; torch ops, not a kernel): rung (2) "
+        f"{fast['s']:.2f} s, rung (2b) {slow['s']:.2f} s; labels == fdbscan's")
+    log(f"[11] phase 11 steps: {json.dumps(steps)}; table {json.dumps(table)}; "
+        f"{time.perf_counter() - t_all:.1f} s")
+    return rows
+
+
 def phase9_kernel_line(launches_by_step, records, more_rows, card, wave, seg_rep):
     import torch
     from repro_torch.kernels import segment as ks
@@ -1963,6 +2644,26 @@ HACC_KERNELS = ("wavefront_count", "wavefront_min_label", "segment_sum_sorted",
                 "segment_max_sorted")
 
 
+def reset_counts(kernels: dict) -> None:
+    """Every launch counter of ``kernels`` to 0, per instance too."""
+    for fn in kernels.values():
+        fn.launches = 0
+        getattr(fn, "instances", {}).clear()
+
+
+def instance_counts(kernels: dict) -> dict:
+    """Launches since the last reset, by wrapper and, for the traversal,
+    by "<predicate>/<leaf kind>"."""
+    out = {}
+    for k, fn in kernels.items():
+        kinds = getattr(fn, "instances", None)
+        if kinds:
+            out.update({f"{k} {kind}": v for kind, v in kinds.items() if v})
+        elif fn.launches:
+            out[k] = fn.launches
+    return out
+
+
 def kernel_wrappers(names=None) -> dict:
     from repro_torch.kernels import pairwise as kp
     from repro_torch.kernels import segment as ks
@@ -2033,8 +2734,12 @@ def main(argv=None) -> int:
                                       wave, small)
     log(f"[10] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    pred_rows = phase11_predicates(args.seed, 1 << args.n_log2, card, wave)
+    log(f"[11] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     phase9_kernel_line(launches_by_step, records,
-                       nl_rows + grid_rows + pair_rows + halo_rows, card, wave,
+                       nl_rows + grid_rows + pair_rows + halo_rows + pred_rows,
+                       card, wave,
                        seg)
     log(f"[9] done in {time.perf_counter() - t0:.1f} s; "
         f"total {time.perf_counter() - t_all:.1f} s")

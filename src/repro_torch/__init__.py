@@ -11,3 +11,8 @@ Entry points (``fdbscan``, ``dbscan_graph_cc``, ``fdbscan_grid``,
 ``InsituAnalyzer``) run on the card unless the caller passes
 ``device="cpu"``; without a card and without that request they raise.
 """
+
+# The core package first: its re-exports reach ``kernels.wavefront``, which
+# reads ``core.bvh``, so an import that starts at a kernel module would
+# otherwise find the core half-initialized.
+from repro_torch import core  # noqa: E402,F401

@@ -1,10 +1,14 @@
-"""Linear BVH construction; port of ``repro/core/bvh.py`` (``build_bvh``).
+"""Linear BVH construction; port of ``repro/core/bvh.py`` (``build_bvh``
+and ``build_bvh_objects``, over 63-bit or 30-bit Morton codes).
 
-Karras (2012) ranges over 63-bit Morton codes, closed-form ropes and a
+Karras (2012) ranges over the sorted Morton codes, closed-form ropes and a
 bottom-up AABB fixpoint, all as torch ops vectorised over nodes (the
 reference build is not a Pallas kernel either). Every field comes out
 bit-identical to the reference: integer topology exactly, boxes because
-they are mins and maxes of the same float32 points.
+they are mins and maxes of the same float32 leaf boxes, taken with XLA's
+semantics for NaN and signed zeros. Clustered clouds share 30-bit codes
+heavily (the paper's Table 1), so in the 32-bit build the index
+tie-break of ``common_prefix_length32`` shapes much of the tree.
 
 Node numbering (ArborX convention): internal nodes ``0 .. n-2`` (root 0),
 leaf ``k`` in Morton order is node ``(n-1) + k``; ``SENTINEL = -1``.
@@ -16,10 +20,11 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import morton as _morton
+from repro_torch.core.geometry import ieee_maximum, ieee_minimum
 
 SENTINEL = -1
 
-__all__ = ["Bvh", "build_bvh", "SENTINEL"]
+__all__ = ["Bvh", "build_bvh", "build_bvh_objects", "SENTINEL"]
 
 
 class Bvh(NamedTuple):
@@ -34,14 +39,19 @@ class Bvh(NamedTuple):
     node_hi: torch.Tensor      # (2n-1, 3)
     range_left: torch.Tensor   # (n-1,) inclusive leaf range per internal node
     range_right: torch.Tensor  # (n-1,)
+    # Whether leaf boxes may have extent (``build_bvh_objects``); False
+    # where every leaf box is a point (``build_bvh``); None: unknown, to
+    # be read from the boxes. The kernel's leaf records depend on it.
+    box_leaves: bool | None = None
 
     @property
     def num_leaves(self) -> int:
         return self.leaf_perm.shape[0]
 
 
-def _karras_ranges(codes: torch.Tensor):
-    """(first, last, gamma) per internal node, int64, over sorted codes.
+def _karras_ranges(codes: torch.Tensor, prefix):
+    """(first, last, gamma) per internal node, int64, over sorted codes,
+    with ``prefix(codes, i, j)`` Karras' delta for their width.
 
     The reference runs the exponential search as a ``while_loop`` and the
     two binary searches as fixed 32-step scans per node; here each search
@@ -50,7 +60,7 @@ def _karras_ranges(codes: torch.Tensor):
     n = codes.shape[0]
 
     def delta(i, j):
-        return _morton.common_prefix_length64(codes, i, j)
+        return prefix(codes, i, j)
 
     i = torch.arange(n - 1, device=codes.device, dtype=torch.int64)
     d = torch.sign(delta(i, i + 1) - delta(i, i - 1))
@@ -88,17 +98,40 @@ def _karras_ranges(codes: torch.Tensor):
 
 
 def build_bvh(points: torch.Tensor, scene_lo: torch.Tensor,
-              scene_hi: torch.Tensor) -> Bvh:
+              scene_hi: torch.Tensor, use_64bit: bool = True) -> Bvh:
     """Build an LBVH over (n, 3) float32 points (leaf box = point), on the
-    points' device. n must be >= 2."""
-    n = points.shape[0]
+    points' device, over 63-bit Morton codes or, with ``use_64bit=False``,
+    30-bit ones. n must be >= 2."""
+    return _build(points, points, points, scene_lo, scene_hi, use_64bit,
+                  box_leaves=False)
+
+
+def build_bvh_objects(leaf_lo: torch.Tensor, leaf_hi: torch.Tensor,
+                      scene_lo: torch.Tensor, scene_hi: torch.Tensor,
+                      use_64bit: bool = True) -> Bvh:
+    """Build an LBVH over boxed objects, (n, 3) float32 corners, on their
+    device; Morton codes from the box centres ``(lo + hi) * 0.5`` in
+    float32, as the reference takes them. n must be >= 2."""
+    return _build((leaf_lo + leaf_hi) * 0.5, leaf_lo, leaf_hi, scene_lo,
+                  scene_hi, use_64bit, box_leaves=True)
+
+
+def _build(centers, leaf_lo, leaf_hi, scene_lo, scene_hi, use_64bit: bool,
+           *, box_leaves: bool) -> Bvh:
+    n = centers.shape[0]
     if n < 2:
-        raise ValueError(f"build_bvh needs at least 2 points, got {n}")
-    dev = points.device
-    unit = _morton.normalize_points(points, scene_lo, scene_hi)
-    codes = _morton.morton64(unit)
-    perm = _morton.sort_by_morton64(codes)
-    first, last, gamma = _karras_ranges(codes[perm])
+        raise ValueError(f"a BVH needs at least 2 objects, got {n}")
+    dev = centers.device
+    unit = _morton.normalize_points(centers, scene_lo, scene_hi)
+    if use_64bit:
+        codes = _morton.morton64(unit)
+        perm = _morton.sort_by_morton64(codes)
+        prefix = _morton.common_prefix_length64
+    else:
+        codes = _morton.morton32(unit)
+        perm = _morton.sort_by_morton32(codes)
+        prefix = _morton.common_prefix_length32
+    first, last, gamma = _karras_ranges(codes[perm], prefix)
 
     left = torch.where(first == gamma, gamma + (n - 1), gamma)
     right = torch.where(last == gamma + 1, gamma + n, gamma + 1)
@@ -116,10 +149,11 @@ def build_bvh(points: torch.Tensor, scene_lo: torch.Tensor,
     rope = torch.cat([rope_of(last),
                       rope_of(torch.arange(n, device=dev, dtype=torch.int64))])
 
-    # Boxes: leaves from points, internal nodes bottom-up until all ready.
-    inf = torch.full((n - 1, 3), float("inf"), dtype=points.dtype, device=dev)
-    node_lo = torch.cat([inf, points[perm]])
-    node_hi = torch.cat([-inf, points[perm]])
+    # Boxes: leaves from the objects, internal nodes bottom-up until all
+    # ready.
+    inf = torch.full((n - 1, 3), float("inf"), dtype=leaf_lo.dtype, device=dev)
+    node_lo = torch.cat([inf, leaf_lo[perm]])
+    node_hi = torch.cat([-inf, leaf_hi[perm]])
     ready = torch.cat([torch.zeros(n - 1, dtype=torch.bool, device=dev),
                        torch.ones(n, dtype=torch.bool, device=dev)])
     pending = torch.arange(n - 1, device=dev)
@@ -128,8 +162,8 @@ def build_bvh(points: torch.Tensor, scene_lo: torch.Tensor,
         ok = ready[lc] & ready[rc]
         done = pending[ok]
         lc, rc = lc[ok], rc[ok]
-        node_lo[done] = torch.minimum(node_lo[lc], node_lo[rc])
-        node_hi[done] = torch.maximum(node_hi[lc], node_hi[rc])
+        node_lo[done] = ieee_minimum(node_lo[lc], node_lo[rc])
+        node_hi[done] = ieee_maximum(node_hi[lc], node_hi[rc])
         ready[done] = True
         pending = pending[~ok]
 
@@ -137,4 +171,5 @@ def build_bvh(points: torch.Tensor, scene_lo: torch.Tensor,
     return Bvh(leaf_perm=perm.to(i32), left_child=left.to(i32),
                right_child=right.to(i32), rope=rope.to(i32),
                node_lo=node_lo, node_hi=node_hi,
-               range_left=first.to(i32), range_right=last.to(i32))
+               range_left=first.to(i32), range_right=last.to(i32),
+               box_leaves=box_leaves)

@@ -1,11 +1,14 @@
 """DBSCAN; port of ``repro/core/dbscan.py`` (``fdbscan`` and its passes,
-and ``dbscan_graph_cc``).
+and ``dbscan_graph_cc``), over 63-bit or 30-bit Morton codes.
 
 Phase 1 counts ε-neighbours with early exit at ``min_pts``; phase 2 runs
 min-label hooking plus pointer jumping to a fixpoint, each round's labels
 coming from a fused traversal; a border pass gives non-core points the
 smallest root among their core neighbours. Both traversals are the
-wavefront kernel's epilogues. Hooking is a deterministic scatter-min, so
+wavefront kernel's epilogues (with ``use_stack=True`` the count pass
+takes the stack backend, in torch ops, as the reference's does: the
+Figure 4 ladder's pre-stackless rungs). Hooking is a deterministic
+scatter-min, so
 labels (the smallest original index per cluster) and the number of rounds
 are the reference's exactly.
 
@@ -40,12 +43,20 @@ class DbscanResult(NamedTuple):
     num_rounds: torch.Tensor  # () int32, union fixpoint rounds taken
 
 
-def count_neighbors(bvh: Bvh, queries: torch.Tensor, eps,
-                    min_pts: int | None = None, *,
+def count_neighbors(bvh: Bvh, points, queries: torch.Tensor, eps,
+                    min_pts: int | None = None, use_stack: bool = False, *,
                     order: torch.Tensor | None = None) -> torch.Tensor:
     """ε-neighbour counts per query, the query point included; with
-    ``min_pts`` counting stops (and saturates) there."""
-    return query_count(bvh, within(queries, eps), stop_at=min_pts, order=order)
+    ``min_pts`` counting stops (and saturates) there. ``points`` is kept
+    for the reference's signature; the engine tests against the tree's
+    leaf volumes. ``use_stack`` takes the stack backend."""
+    del points
+    return query_count(bvh, within(queries, eps), stop_at=min_pts,
+                       backend="stack" if use_stack else "stackless",
+                       order=None if use_stack else order)
+
+
+_INT32 = torch.iinfo(torch.int32)
 
 
 def min_core_label_on(bvh: Bvh, query_pts: torch.Tensor, eps, obj_labels,
@@ -53,12 +64,26 @@ def min_core_label_on(bvh: Bvh, query_pts: torch.Tensor, eps, obj_labels,
                       order: torch.Tensor | None = None) -> torch.Tensor:
     """For each query in ``queries_mask``, the min over core ε-neighbour
     objects j of ``obj_labels[j]`` (tree object index), ``sentinel`` if
-    none and outside the mask."""
+    none and outside the mask. The result has ``obj_labels``'s dtype, as
+    the reference's does. The kernel carries int32 labels (ROADMAP B1
+    (e)): int64 labels or a sentinel outside the int32 range raise
+    ``ValueError`` rather than wrap (an int64 tensor's range costs one
+    host sync)."""
+    sentinel = int(sentinel)
+    if not _INT32.min <= sentinel <= _INT32.max:
+        raise ValueError(f"sentinel {sentinel} is outside int32; int64 labels "
+                         "are not ported yet (ROADMAP B1 (e))")
+    if obj_labels.dtype != torch.int32 and obj_labels.numel() and (
+            int(obj_labels.min()) < _INT32.min
+            or int(obj_labels.max()) > _INT32.max):
+        raise ValueError("obj_labels hold values outside int32; int64 labels "
+                         "are not ported yet (ROADMAP B1 (e))")
     pred = within(query_pts, eps)
-    return wavefront_min_label(
+    out = wavefront_min_label(
         bvh, pred.centers.contiguous(), squared_radii(pred),
         obj_labels.to(torch.int32).contiguous(), obj_core.contiguous(),
         queries_mask.contiguous(), sentinel, order=order)
+    return out.to(obj_labels.dtype)
 
 
 def _finish_labels(parent, border_candidate, core, n):
@@ -103,22 +128,20 @@ def fdbscan(points, eps, min_pts: int, *, early_stop: bool = True,
     """FDBSCAN over (n, 3) points: fused traversal + count + union.
 
     Runs on ``device`` (``None``: the CUDA card; raises without one).
-    ``use_stack`` and 32-bit Morton codes are not ported yet."""
-    if use_stack or not use_64bit:
-        raise NotImplementedError(
-            "use_stack=True and use_64bit=False are not ported yet "
-            "(ROADMAP A8)")
+    ``use_stack`` takes the stack backend for the count pass only, as the
+    reference does; ``use_64bit=False`` builds the tree over 30-bit Morton
+    codes."""
     dev = resolve_device(device)
     points = as_tensor_on(points, torch.float32, dev)
     n = points.shape[0]
     lo, hi = scene_bounds(points)
-    bvh = build_bvh(points, lo, hi)
+    bvh = build_bvh(points, lo, hi, use_64bit=use_64bit)
 
     # All the traversals of this tree read one packed copy of it.
     with shared_pack(bvh):
-        counts = count_neighbors(bvh, points, eps,
+        counts = count_neighbors(bvh, points, points, eps,
                                  min_pts if early_stop else None,
-                                 order=bvh.leaf_perm)
+                                 use_stack=use_stack, order=bvh.leaf_perm)
         core = counts >= min_pts
         parent, rounds = union_rounds(bvh, points, eps, core, n)
         border = min_core_label_on(bvh, points, eps, parent, core, ~core, n,
@@ -139,14 +162,11 @@ def dbscan_graph_cc(points, eps, min_pts: int, neighbor_capacity: int = 64,
     The edges handed to ``connected_components`` are the valid core-core
     slots only; the reference passes all ``n·capacity`` slots with a mask,
     and masked edges are no-ops, so the labels are the same."""
-    if not use_64bit:
-        raise NotImplementedError(
-            "use_64bit=False is not ported yet (ROADMAP A8)")
     dev = resolve_device(device)
     points = as_tensor_on(points, torch.float32, dev)
     n = points.shape[0]
     lo, hi = scene_bounds(points)
-    bvh = build_bvh(points, lo, hi)
+    bvh = build_bvh(points, lo, hi, use_64bit=use_64bit)
 
     nbrs, counts, _overflow = query_fixed(bvh, within(points, eps),
                                           neighbor_capacity,

@@ -1,5 +1,5 @@
-"""Morton codes; port of ``repro/core/morton.py`` (30-bit and 63-bit codes
-and their sorts; ``common_prefix_length32`` and the 32-bit build remain).
+"""Morton codes; port of ``repro/core/morton.py`` (30-bit and 63-bit codes,
+their sorts and Karras' delta operator on each).
 
 The reference holds a 63-bit code as a ``(hi, lo)`` pair of uint32, and a
 30-bit code as one uint32, because JAX runs without x64. PyTorch has no
@@ -21,6 +21,7 @@ __all__ = [
     "morton64",
     "sort_by_morton32",
     "sort_by_morton64",
+    "common_prefix_length32",
     "common_prefix_length64",
 ]
 
@@ -106,4 +107,18 @@ def common_prefix_length64(codes: torch.Tensor, i: torch.Tensor,
     js = j.clamp(0, n - 1)
     x = codes[i] ^ codes[js]
     d = torch.where(x != 0, 64 - _bit_length(x), 96 - _bit_length(i ^ js))
+    return torch.where(valid, d, torch.full_like(d, -1))
+
+
+def common_prefix_length32(codes: torch.Tensor, i: torch.Tensor,
+                           j: torch.Tensor) -> torch.Tensor:
+    """Karras' delta for sorted 30-bit codes (int64 holding the
+    reference's uint32) with index tie-breaking: ``clz32(c_i ^ c_j)`` when
+    the codes differ, else ``32 + clz32(i ^ j)``. Out-of-range ``j`` gives
+    -1. int64 in, int64 out."""
+    n = codes.shape[0]
+    valid = (j >= 0) & (j < n)
+    js = j.clamp(0, n - 1)
+    x = codes[i] ^ codes[js]
+    d = torch.where(x != 0, 32 - _bit_length(x), 64 - _bit_length(i ^ js))
     return torch.where(valid, d, torch.full_like(d, -1))

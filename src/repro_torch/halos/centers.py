@@ -52,15 +52,12 @@ def halo_potentials(points, eps, *, softening=None, active=None,
     one). ``active`` (bool) masks queries: the rest return 0 and, unlike
     the reference's, walk nothing (the same output). ``bvh``: a tree over
     these very ``points``, which skips the build."""
-    if not use_64bit:
-        raise NotImplementedError(
-            "use_64bit=False is not ported yet (ROADMAP A8)")
     dev = resolve_device(device)
     points = as_tensor_on(points, torch.float32, dev)
     if active is not None:
         active = as_tensor_on(active, torch.bool, dev)
     if bvh is None:
-        bvh = build_bvh(points, *scene_bounds(points))
+        bvh = build_bvh(points, *scene_bounds(points), use_64bit=use_64bit)
     pred = within(points, np.float32(eps))
     # A self-join: threads take the queries in the tree's leaf order.
     return wavefront_potential(bvh, pred.centers, squared_radii(pred),

@@ -102,15 +102,12 @@ def so_masses(points, centers, valid, *, delta=200.0, particle_mass=1.0,
 
     The reference density is the mean particle density
     ``n × particle_mass / box_volume``."""
-    if not use_64bit:
-        raise NotImplementedError(
-            "use_64bit=False is not ported yet (ROADMAP A8)")
     dev = resolve_device(device)
     points = as_tensor_on(points, torch.float32, dev)
     centers = as_tensor_on(centers, torch.float32, dev)
     valid = as_tensor_on(valid, torch.bool, dev)
     if bvh is None:
-        bvh = build_bvh(points, *scene_bounds(points))
+        bvh = build_bvh(points, *scene_bounds(points), use_64bit=use_64bit)
 
     def count_fn(c, r):
         return sphere_counts(bvh, points, c, r)

@@ -21,8 +21,15 @@ def _t(a, dtype, device) -> torch.Tensor:
 
 def bvh_from_numpy(leaf_perm, left_child, right_child, rope, node_lo, node_hi,
                    range_left, range_right, device="cpu") -> Bvh:
-    """A port ``Bvh`` from the reference's eight fields as numpy arrays."""
+    """A port ``Bvh`` from the reference's eight fields as numpy arrays,
+    from ``build_bvh`` or ``build_bvh_objects``: ``box_leaves`` says
+    whether any leaf box has extent."""
     i32, f32 = torch.int32, torch.float32
+    n = np.asarray(leaf_perm).shape[0]
+    leaf_lo = np.asarray(node_lo, np.float32)[n - 1:]
+    leaf_hi = np.asarray(node_hi, np.float32)[n - 1:]
+    box_leaves = not np.array_equal(leaf_lo.view(np.int32),
+                                    leaf_hi.view(np.int32))
     return Bvh(leaf_perm=_t(leaf_perm, i32, device),
                left_child=_t(left_child, i32, device),
                right_child=_t(right_child, i32, device),
@@ -30,7 +37,8 @@ def bvh_from_numpy(leaf_perm, left_child, right_child, rope, node_lo, node_hi,
                node_lo=_t(node_lo, f32, device),
                node_hi=_t(node_hi, f32, device),
                range_left=_t(range_left, i32, device),
-               range_right=_t(range_right, i32, device))
+               range_right=_t(range_right, i32, device),
+               box_leaves=box_leaves)
 
 
 def morton64_to_int64(hi, lo) -> torch.Tensor:

@@ -13,6 +13,21 @@
 //   * `wavefront_fill_round` (:245), the fill pass of the count-then-fill
 //     CSR protocol `query_csr_device` (epilogue FILL).
 //
+// The Pallas kernel builds its node and leaf tests in the kernel from
+// `_pred_fns` (src/repro/core/query.py:566-624) for any predicate on any
+// tree. Here the predicate and the leaf kind are template parameters:
+//   * SPHERE (`Within`): a centre and r^2 per query; hit where the
+//     point-box distance^2 is <= r^2;
+//   * BOX (`IntersectsBox`): a box per query; hit where `aabb_aabb_dist2`
+//     (the reference's own formula: gaps, squares, sum) is <= 0;
+//   * RAY (the all-hits `Ray`): an origin and inv = `_safe_inv(direction)`
+//     per query, computed once by the wrapper (an IEEE division), so that
+//     no instance divides; hit by the slab test `_ray_box` (:834-841);
+//   * POINT leaves (`build_bvh`, a leaf's box is its point) or BOX leaves
+//     (`build_bvh_objects`, a leaf's lo and hi).
+// COUNT (and its STATS instance), FILL and FIXED take every combination;
+// MIN_LABEL and POTENTIAL take SPHERE on POINT leaves only.
+//
 // The TPU kernels advance a block of 128 queries in lockstep, one rope hop
 // per iteration, because a TPU core runs one wide instruction stream. On
 // Hopper each query is its own thread, and a warp of 32 threads walks 32
@@ -39,8 +54,13 @@
 // traversal, or once for all of `fdbscan`'s traversals of one tree):
 //   * internal node i (0 .. n-2): 32 bytes, two float4,
 //     {lo.x, lo.y, lo.z, bits(left_child)} {hi.x, hi.y, hi.z, bits(rope)};
-//   * leaf k (node n-1+k): 16 bytes, one float4, {x, y, z, bits(rope)}; a
-//     leaf's box is its point (`build_bvh`: node_lo == node_hi at leaves).
+//   * leaf k (node n-1+k) of a point tree: 16 bytes, one float4,
+//     {x, y, z, bits(rope)}; a leaf's box is its point (`build_bvh`:
+//     node_lo == node_hi at leaves);
+//   * leaf k of a box-leaf tree: 32 bytes, {lo.xyz, bits(rope)}
+//     {hi.xyz, bits(rope)}. The wrapper takes the layout from the tree
+//     (`Bvh.box_leaves`), never packs a box-leaf tree as points, and
+//     launches the instance that reads that layout.
 // Indices travel as raw int32 bits in the w lanes: SENTINEL = -1 is a NaN
 // pattern, and only bit copies (never a float operation) touch it.
 // A hop is one dependent fetch: an internal hop issues both 16-byte loads
@@ -71,10 +91,17 @@
 // threads a block and `__launch_bounds__(512, 3)`: at least 3 blocks, 48
 // of an SM's 64 warps, resident, each thread within 42 registers (ptxas
 // uses 22-26, so 4 blocks fit; `chip_smoke.py` phase 1 checks that no
-// instance spills). The work is data dependent: the hops each query
+// instance spills); RAY instances, at least 2 blocks (64 registers). The work is data dependent: the hops each query
 // needs. FILL and FIXED add one 4-byte store per hit; in a self-join a
 // warp's 32 queries own 32 rows far apart in the output, so each store
 // instruction touches up to 32 sectors (rows in thread order save 7%).
+//
+// The box and ray instances (`chip_smoke.py` phase 11, H100 80GB HBM3 at
+// 700 W): IntersectsBox eps-cubes of 2^24 particles walk at 304 Ghops/s,
+// the self-join's regime; 2^20 rays through the cloud on its tree of
+// eps-boxes at 61 Ghops/s, 46x their operations bound. A warp's rays,
+// sorted by origin, head in different directions, so their walks diverge
+// and their record reads stop sharing lines (inferred, not measured).
 //
 // POTENTIAL adds -1/sqrt(d2 + soft2) per hit to a float carry, d2 the hit
 // test's own squared distance, in rope order: the reference's callback
@@ -113,13 +140,24 @@
 //
 // Exactness: the hop rule is `_one_stackless` (src/repro/core/query.py:182):
 // at a leaf, run the leaf test, the epilogue only on a hit, then follow the
-// rope; at an internal node, descend to `left_child` if the point-box
-// distance is within r^2, else follow the rope; stop when the epilogue says
-// done. The distance is summed as ((dx*dx + dy*dy) + dz*dz) with
-// round-to-nearest intrinsics, so no multiply-add is contracted and the
-// result rounds as the reference's left-to-right float32 sum.
+// rope; at an internal node, descend to `left_child` on a hit, else follow
+// the rope; stop when the epilogue says done. Each test equals its plain
+// version (`kernels/wavefront.py`, `core/geometry.py`) bit for bit, and
+// through it the reference on XLA:CPU:
+//   * every product and sum is a round-to-nearest intrinsic, so no
+//     multiply-add is contracted; distances sum as ((x*x + y*y) + z*z);
+//   * min and max propagate NaN, as XLA's and torch's do (fminf/fmaxf
+//     drop a NaN operand): a ray whose origin lies on a face it runs along
+//     with a direction in (-1e-12, 0) gets inv = +inf and 0 * inf = NaN,
+//     and the reference reports a miss;
+//   * XLA:CPU flushes subnormal inputs and results to zero, so every
+//     product flushes (`flush`), and the slab test also flushes the box,
+//     the origin and its differences, which inv scales up; nothing else
+//     changes, so POTENTIAL's 1/sqrt keeps its IEEE bits and the FFMA count
+//     of the probe.
 
 #include <cuda_runtime.h>
+#include <cfloat>
 #include <climits>
 #include <cstdint>
 
@@ -131,18 +169,85 @@ constexpr int kMinBlocks = 3;
 constexpr int kPackThreads = 256;
 
 enum Epilogue { COUNT = 0, MIN_LABEL = 1, FILL = 2, FIXED = 3, POTENTIAL = 4 };
+enum Predicate { SPHERE = 0, BOX = 1, RAY = 2 };
 
-__device__ __forceinline__ float axis_gap(float p, float lo, float hi) {
-  return fmaxf(fmaxf(__fsub_rn(lo, p), __fsub_rn(p, hi)), 0.0f);
+// Resident blocks an SM must hold: 3 caps a thread at 42 registers; the
+// slab test's six t values and a ray's six floats take more, so RAY
+// instances ask for 2 (64 registers).
+constexpr int min_blocks(int pred) { return pred == RAY ? 2 : kMinBlocks; }
+
+// max and min that propagate NaN (either operand), as XLA's and torch's:
+// one instruction each on the card (PTX max.NaN/min.NaN, sm_80 and up),
+// where fmaxf/fminf would drop a NaN operand.
+__device__ __forceinline__ float max_nan(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return (a > b || a != a) ? a : b;
+#endif
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return (a < b || a != a) ? a : b;
+#endif
+}
+
+// A subnormal value to a zero of its sign, as XLA:CPU flushes it; NaN and
+// normals kept.
+__device__ __forceinline__ float flush(float x) {
+  return fabsf(x) < FLT_MIN ? copysignf(0.0f, x) : x;
+}
+
+// d * d, flushed; a square is never negative, so no sign to keep.
+__device__ __forceinline__ float sq(float d) {
+  const float p = __fmul_rn(d, d);
+  return p < FLT_MIN ? 0.0f : p;
+}
+
+// max(a - b, c - d, 0), the gap of one axis.
+__device__ __forceinline__ float gap(float a, float b, float c, float d) {
+  return max_nan(max_nan(__fsub_rn(a, b), __fsub_rn(c, d)), 0.0f);
+}
+
+__device__ __forceinline__ float sum_sq(float dx, float dy, float dz) {
+  return __fadd_rn(__fadd_rn(sq(dx), sq(dy)), sq(dz));
 }
 
 // Squared distance from (px, py, pz) to the box [lo.xyz, hi.xyz].
 __device__ __forceinline__ float point_box_dist2(float px, float py, float pz,
                                                  const float4& lo, const float4& hi) {
-  const float dx = axis_gap(px, lo.x, hi.x);
-  const float dy = axis_gap(py, lo.y, hi.y);
-  const float dz = axis_gap(pz, lo.z, hi.z);
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+  return sum_sq(gap(lo.x, px, px, hi.x), gap(lo.y, py, py, hi.y), gap(lo.z, pz, pz, hi.z));
+}
+
+// `aabb_aabb_dist2(qlo, qhi, lo, hi)`: gaps max(lo - qhi, qlo - hi, 0).
+__device__ __forceinline__ float box_box_dist2(float ax, float ay, float az, float bx,
+                                               float by, float bz, const float4& lo,
+                                               const float4& hi) {
+  return sum_sq(gap(lo.x, bx, ax, hi.x), gap(lo.y, by, ay, hi.y), gap(lo.z, bz, az, hi.z));
+}
+
+// Slab entry and exit of one axis: t0 = (lo - o) * inv, t1 = (hi - o) * inv.
+__device__ __forceinline__ float slab(float lo, float o, float inv) {
+  return flush(__fmul_rn(flush(__fsub_rn(flush(lo), o)), inv));
+}
+
+// `_ray_box(origin, inv, lo, hi)`'s hit: max(tmin, 0) <= tmax, with
+// tmin = max over axes of min(t0, t1), tmax = min over axes of max(t0, t1).
+// The origin and inv come flushed. A NaN anywhere makes it a miss.
+__device__ __forceinline__ bool ray_hits(float ox, float oy, float oz, float ix, float iy,
+                                         float iz, const float4& lo, const float4& hi) {
+  const float ax = slab(lo.x, ox, ix), bx = slab(hi.x, ox, ix);
+  const float ay = slab(lo.y, oy, iy), by = slab(hi.y, oy, iy);
+  const float az = slab(lo.z, oz, iz), bz = slab(hi.z, oz, iz);
+  const float tmin = max_nan(max_nan(min_nan(ax, bx), min_nan(ay, by)), min_nan(az, bz));
+  const float tmax = min_nan(min_nan(max_nan(ax, bx), max_nan(ay, by)), max_nan(az, bz));
+  return tmax >= max_nan(tmin, 0.0f);
 }
 
 // 1/sqrt(x), each step correctly rounded (torch: x.sqrt().reciprocal()).
@@ -180,12 +285,17 @@ struct Epi {
 // POTENTIAL: acc -= 1/sqrt(d2 + soft2) per hit; never done.
 // `out[qi]` receives the int carry (FILL has none and writes no `out`;
 // POTENTIAL writes `e.potential[qi]` instead).
-template <int EPI, typename Off, bool STATS>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+// Per query: SPHERE reads its centre qa[qi] and r2 = qb[qi]; BOX its box
+// qa[qi] (lo), qb[qi] (hi); RAY its origin qa[qi] and inv qb[qi]; each row
+// of qa and of a 3-wide qb is 3 floats.
+template <int EPI, int PRED, bool BOX_LEAF, typename Off, bool STATS>
+__global__ void __launch_bounds__(kThreads, min_blocks(PRED))
 wavefront_kernel(Tree t, const int* __restrict__ order,
-                 const float* __restrict__ centers, const float* __restrict__ r2,
+                 const float* __restrict__ qa, const float* __restrict__ qb,
                  int q, const int* __restrict__ start, Epi<Off> e,
                  int* __restrict__ out) {
+  static_assert((EPI != MIN_LABEL && EPI != POTENTIAL) || (PRED == SPHERE && !BOX_LEAF),
+                "MIN_LABEL and POTENTIAL take spheres on point leaves");
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= q) return;
   const int qi = order ? __ldg(order + lane) : lane;
@@ -203,8 +313,14 @@ wavefront_kernel(Tree t, const int* __restrict__ order,
     pos = static_cast<long long>(e.offsets[qi]);
     if (pos >= e.capacity) return;
   }
-  const float px = centers[3 * qi], py = centers[3 * qi + 1], pz = centers[3 * qi + 2];
-  const float rr = r2[qi];
+  float ax = qa[3 * qi], ay = qa[3 * qi + 1], az = qa[3 * qi + 2];
+  float bx, by = 0.0f, bz = 0.0f;
+  if constexpr (PRED == SPHERE) {
+    bx = qb[qi];
+  } else {
+    bx = qb[3 * qi], by = qb[3 * qi + 1], bz = qb[3 * qi + 2];
+  }
+  if constexpr (PRED == RAY) ax = flush(ax), ay = flush(ay), az = flush(az);
   const int first_leaf = t.n - 1;
   int node = start ? __ldg(start + qi) : 0;
   int nodes = 0, aabb = 0, leaves = 0, hits = 0, max_depth = 0;
@@ -212,14 +328,22 @@ wavefront_kernel(Tree t, const int* __restrict__ order,
   while (node != kSentinel) {
     const bool leaf = node >= first_leaf;
     const int k = node - first_leaf;
-    const float4* rec = leaf ? t.leaves + k : t.inner + 2 * node;
+    const float4* rec = leaf ? t.leaves + (BOX_LEAF ? 2 * k : k) : t.inner + 2 * node;
     const float4 lo = __ldg(rec);
-    const float4 hi = leaf ? lo : __ldg(rec + 1);
+    const float4 hi = (leaf && !BOX_LEAF) ? lo : __ldg(rec + 1);
     // A leaf's key is fetched with its record, not after the test.
     int key = 0;
     if constexpr (EPI != COUNT && EPI != POTENTIAL) key = leaf ? __ldg(t.key + k) : 0;
-    const float d2 = point_box_dist2(px, py, pz, lo, hi);
-    const bool hit = d2 <= rr;
+    float d2 = 0.0f;
+    bool hit;
+    if constexpr (PRED == SPHERE) {
+      d2 = point_box_dist2(ax, ay, az, lo, hi);
+      hit = d2 <= bx;
+    } else if constexpr (PRED == BOX) {
+      hit = box_box_dist2(ax, ay, az, bx, by, bz, lo, hi) <= 0.0f;
+    } else {
+      hit = ray_hits(ax, ay, az, bx, by, bz, lo, hi);
+    }
     if constexpr (STATS) {
       ++nodes;
       leaves += leaf;
@@ -277,31 +401,59 @@ rsqrt_probe_kernel(const float* __restrict__ x, float* __restrict__ y, int n) {
   if (i < n) y[i] = inv_sqrt_rn(x[i]);
 }
 
-// One thread per node: node i's box and links into its record.
+// One thread per node: node i's box and links into its record; a leaf's
+// into one record (point leaves) or two (box leaves).
 __global__ void __launch_bounds__(kPackThreads)
 pack_kernel(const float* __restrict__ node_lo, const float* __restrict__ node_hi,
             const int* __restrict__ left_child, const int* __restrict__ rope, int n,
-            float4* __restrict__ inner, float4* __restrict__ leaves) {
+            int box_leaves, float4* __restrict__ inner, float4* __restrict__ leaves) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= 2LL * n - 1) return;
   const float* lo = node_lo + 3 * i;
+  const float* hi = node_hi + 3 * i;
   const float link = __int_as_float(rope[i]);
   if (i < n - 1) {
-    const float* hi = node_hi + 3 * i;
     inner[2 * i] = make_float4(lo[0], lo[1], lo[2], __int_as_float(left_child[i]));
     inner[2 * i + 1] = make_float4(hi[0], hi[1], hi[2], link);
+  } else if (box_leaves) {
+    const long long k = i - (n - 1);
+    leaves[2 * k] = make_float4(lo[0], lo[1], lo[2], link);
+    leaves[2 * k + 1] = make_float4(hi[0], hi[1], hi[2], link);
   } else {
     leaves[i - (n - 1)] = make_float4(lo[0], lo[1], lo[2], link);
   }
 }
 
-template <int EPI, bool STATS = false, typename Off>
-int launch(const Tree& t, const int* order, const float* centers, const float* r2,
-           int q, const int* start, const Epi<Off>& e, int* out, cudaStream_t stream) {
+template <int EPI, int PRED, bool BOX_LEAF, bool STATS, typename Off>
+int launch(const Tree& t, const int* order, const float* qa, const float* qb, int q,
+           const int* start, const Epi<Off>& e, int* out, cudaStream_t stream) {
   const int blocks = (q + kThreads - 1) / kThreads;
-  wavefront_kernel<EPI, Off, STATS><<<blocks, kThreads, 0, stream>>>(
-      t, order, centers, r2, q, start, e, out);
+  wavefront_kernel<EPI, PRED, BOX_LEAF, Off, STATS><<<blocks, kThreads, 0, stream>>>(
+      t, order, qa, qb, q, start, e, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instance of EPI for the predicate `pred` and the tree's leaf kind.
+template <int EPI, bool STATS = false, typename Off>
+int dispatch(const Tree& t, int box_leaves, const int* order, const float* qa,
+             const float* qb, int pred, int q, const int* start, const Epi<Off>& e,
+             int* out, cudaStream_t s) {
+  switch (2 * pred + (box_leaves ? 1 : 0)) {
+    case 2 * SPHERE:
+      return launch<EPI, SPHERE, false, STATS>(t, order, qa, qb, q, start, e, out, s);
+    case 2 * SPHERE + 1:
+      return launch<EPI, SPHERE, true, STATS>(t, order, qa, qb, q, start, e, out, s);
+    case 2 * BOX:
+      return launch<EPI, BOX, false, STATS>(t, order, qa, qb, q, start, e, out, s);
+    case 2 * BOX + 1:
+      return launch<EPI, BOX, true, STATS>(t, order, qa, qb, q, start, e, out, s);
+    case 2 * RAY:
+      return launch<EPI, RAY, false, STATS>(t, order, qa, qb, q, start, e, out, s);
+    case 2 * RAY + 1:
+      return launch<EPI, RAY, true, STATS>(t, order, qa, qb, q, start, e, out, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 Tree tree(const float* inner, const float* leaves, const int* key, int n) {
@@ -318,97 +470,107 @@ const char* cuda_error_string(int code) {
 }
 
 // node_lo, node_hi: (2n-1, 3) float32; left_child: (n-1,); rope: (2n-1,)
-// int32. inner: (n-1, 8) and leaves: (n, 4) float32, 16-byte aligned.
+// int32. inner: (n-1, 8) and leaves: (n, 4), or (n, 8) with box_leaves,
+// float32, 16-byte aligned.
 int wavefront_pack(const float* node_lo, const float* node_hi, const int* left_child,
-                   const int* rope, int n, float* inner, float* leaves,
+                   const int* rope, int n, int box_leaves, float* inner, float* leaves,
                    cudaStream_t stream) {
   const long long nodes = 2LL * n - 1;
   const int blocks = static_cast<int>((nodes + kPackThreads - 1) / kPackThreads);
   pack_kernel<<<blocks, kPackThreads, 0, stream>>>(
-      node_lo, node_hi, left_child, rope, n, reinterpret_cast<float4*>(inner),
+      node_lo, node_hi, left_child, rope, n, box_leaves, reinterpret_cast<float4*>(inner),
       reinterpret_cast<float4*>(leaves));
   return static_cast<int>(cudaGetLastError());
 }
 
 // In every traversal entry, inner and leaves are `wavefront_pack`'s
-// records, key is (n,) int32 in leaf order (or null), order the thread
-// order of the q queries (or null), and start their (q,) int32 start nodes
-// (null: the root; SENTINEL: no walk). stop_at < 0 means no early exit;
-// with depths (the (2n-1,) int32 node depth table) non-null the STATS
-// instance also writes the (6, q) int32 counters `stats`.
+// records (box_leaves: the layout they were packed in), key is (n,) int32
+// in leaf order (or null), order the thread order of the q queries (or
+// null), qa and qb their geometry for the predicate `pred` (SPHERE: (q, 3)
+// centres and (q,) r2; BOX: (q, 3) lo and hi; RAY: (q, 3) origins and
+// inverse directions), and start their (q,) int32 start nodes (null: the
+// root; SENTINEL: no walk). stop_at < 0 means no early exit; with depths
+// (the (2n-1,) int32 node depth table) non-null the STATS instance also
+// writes the (6, q) int32 counters `stats`.
 int wavefront_count(const float* inner, const float* leaves, const int* key, int n,
-                    const int* order, const float* centers, const float* r2, int q,
-                    const int* start, int stop_at, const int* depths, int* stats,
-                    int* out, cudaStream_t stream) {
+                    int box_leaves, const int* order, const float* qa, const float* qb,
+                    int pred, int q, const int* start, int stop_at, const int* depths,
+                    int* stats, int* out, cudaStream_t stream) {
   Epi<int> e{};
   e.stop_at = stop_at < 0 ? INT_MAX : stop_at;
   const Tree t = tree(inner, leaves, key, n);
   if (depths) {
     e.depths = depths;
     e.stats = stats;
-    return launch<COUNT, true>(t, order, centers, r2, q, start, e, out, stream);
+    return dispatch<COUNT, true>(t, box_leaves, order, qa, qb, pred, q, start, e, out,
+                                 stream);
   }
-  return launch<COUNT>(t, order, centers, r2, q, start, e, out, stream);
+  return dispatch<COUNT>(t, box_leaves, order, qa, qb, pred, q, start, e, out, stream);
 }
 
 // key[k]: the label of leaf k's object where it is core, else sentinel.
+// SPHERE on point leaves only.
 int wavefront_min_label(const float* inner, const float* leaves, const int* key, int n,
-                        const int* order, const float* centers, const float* r2,
-                        int q, const int* start, const bool* qmask, int sentinel,
-                        int* out, cudaStream_t stream) {
+                        int box_leaves, const int* order, const float* qa,
+                        const float* qb, int pred, int q, const int* start,
+                        const bool* qmask, int sentinel, int* out, cudaStream_t stream) {
+  if (pred != SPHERE || box_leaves) return static_cast<int>(cudaErrorInvalidValue);
   Epi<int> e{};
   e.qmask = qmask;
   e.sentinel = sentinel;
-  return launch<MIN_LABEL>(tree(inner, leaves, key, n), order, centers, r2, q, start,
-                           e, out, stream);
+  return launch<MIN_LABEL, SPHERE, false, false>(tree(inner, leaves, key, n), order, qa,
+                                                 qb, q, start, e, out, stream);
 }
 
 // key: leaf_perm. offsets: (q + 1,) int32 (offsets_64 == 0) or int64;
 // indices: (capacity,) int32, set to -1 by the caller.
 int wavefront_fill(const float* inner, const float* leaves, const int* key, int n,
-                   const int* order, const float* centers, const float* r2, int q,
-                   const int* start, const void* offsets, int offsets_64,
-                   long long capacity, int* indices, cudaStream_t stream) {
+                   int box_leaves, const int* order, const float* qa, const float* qb,
+                   int pred, int q, const int* start, const void* offsets,
+                   int offsets_64, long long capacity, int* indices, cudaStream_t stream) {
   const Tree t = tree(inner, leaves, key, n);
   if (offsets_64) {
     Epi<long long> e{};
     e.offsets = static_cast<const long long*>(offsets);
     e.capacity = capacity;
     e.indices = indices;
-    return launch<FILL>(t, order, centers, r2, q, start, e, nullptr, stream);
+    return dispatch<FILL>(t, box_leaves, order, qa, qb, pred, q, start, e, nullptr,
+                          stream);
   }
   Epi<int> e{};
   e.offsets = static_cast<const int*>(offsets);
   e.capacity = capacity;
   e.indices = indices;
-  return launch<FILL>(t, order, centers, r2, q, start, e, nullptr, stream);
+  return dispatch<FILL>(t, box_leaves, order, qa, qb, pred, q, start, e, nullptr, stream);
 }
 
 // key: leaf_perm. buf: (q, capacity) int32, set to -1 by the caller;
 // counts: (q,) int32.
 int wavefront_fixed(const float* inner, const float* leaves, const int* key, int n,
-                    const int* order, const float* centers, const float* r2, int q,
-                    const int* start, long long capacity, int* buf, int* counts,
-                    cudaStream_t stream) {
+                    int box_leaves, const int* order, const float* qa, const float* qb,
+                    int pred, int q, const int* start, long long capacity, int* buf,
+                    int* counts, cudaStream_t stream) {
   Epi<int> e{};
   e.capacity = capacity;
   e.indices = buf;
-  return launch<FIXED>(tree(inner, leaves, key, n), order, centers, r2, q, start, e,
-                       counts, stream);
+  return dispatch<FIXED>(tree(inner, leaves, key, n), box_leaves, order, qa, qb, pred, q,
+                         start, e, counts, stream);
 }
 
 // active: (q,) bool queries to run (null: all); out: (q,) float32, 0 at
-// inactive queries.
+// inactive queries. SPHERE on point leaves only.
 int wavefront_potential(const float* inner, const float* leaves, const int* key, int n,
-                        const int* order, const float* centers, const float* r2,
-                        int q, const int* start, const bool* active, float soft2,
-                        float* out, cudaStream_t stream) {
+                        int box_leaves, const int* order, const float* qa,
+                        const float* qb, int pred, int q, const int* start,
+                        const bool* active, float soft2, float* out,
+                        cudaStream_t stream) {
+  if (pred != SPHERE || box_leaves) return static_cast<int>(cudaErrorInvalidValue);
   Epi<int> e{};
   e.qmask = active;
   e.soft2 = soft2;
   e.potential = out;
-  return launch<POTENTIAL>(tree(inner, leaves, key, n), order, centers, r2, q, start,
-                           e, nullptr, stream);
+  return launch<POTENTIAL, SPHERE, false, false>(tree(inner, leaves, key, n), order, qa,
+                                                 qb, q, start, e, nullptr, stream);
 }
 
 // y[i] = 1/sqrt(x[i]) by POTENTIAL's sequence, for n float32 values.

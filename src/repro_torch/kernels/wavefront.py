@@ -30,8 +30,24 @@ Every wrapper takes a start node per query (``start``, the reference's
 ``start_nodes``, ``repro/kernels/wavefront.py:135-139``); a query that
 starts at ``SENTINEL`` walks nothing and keeps its initial carry.
 
+The reference kernel builds its tests in the kernel from ``_pred_fns``
+(``repro/core/query.py:566-624``) for any predicate on any tree. COUNT,
+FILL and FIXED take ``pred=`` one of :data:`PREDICATES`, each with its
+per-query geometry ``(qa, qb)``:
+
+* ``"sphere"`` (``Within``): centres (q, 3) and squared radii (q,);
+* ``"box"`` (``IntersectsBox``): box corners lo (q, 3) and hi (q, 3);
+* ``"ray"`` (the all-hits ``Ray``): origins (q, 3) and inverse directions
+  (q, 3), ``core.geometry.safe_inv`` of the directions;
+
+on trees whose leaves are points (``build_bvh``) or boxes
+(``build_bvh_objects``). MIN_LABEL and POTENTIAL take spheres on point
+trees only; anything else raises ``ValueError`` (ROADMAP B1 (d)).
+
 A wrapper launches the kernel for CUDA tensors and runs the plain PyTorch
-version for CPU tensors; ``<wrapper>.launches`` counts kernel launches.
+version for CPU tensors; ``<wrapper>.launches`` counts kernel launches,
+and ``<wrapper>.instances`` counts them by ``"<pred>/<leaf kind>"``
+(``"sphere/point"``, ``"ray/box"``, ...).
 The plain version is the lockstep wavefront of the reference kernel
 (``repro/kernels/wavefront.py:180-215``): every live query advances one
 rope hop per iteration, and queries drop out of the working set when they
@@ -39,7 +55,8 @@ finish.
 
 The kernel reads the tree as packed node records (:func:`pack_tree`):
 an internal node's box with its left child and rope in 32 bytes, a leaf's
-point with its rope in 16, indices as raw int32 bits. A wrapper packs the
+point with its rope in 16 (a box leaf's lo and hi, each with the rope, in
+32), indices as raw int32 bits. A wrapper packs the
 tree before it launches the traversal, once per call, or once for all the
 traversals of a tree inside :func:`shared_pack`; a leaf hop reads one
 int32 key (:func:`min_label_keys` for MIN_LABEL, ``leaf_perm`` for FILL
@@ -47,6 +64,7 @@ and FIXED).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import functools
@@ -56,13 +74,15 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.bvh import SENTINEL, Bvh
-from repro_torch.core.geometry import point_aabb_dist2
+from repro_torch.core.geometry import (aabb_aabb_dist2, point_aabb_dist2,
+                                       ray_box)
 from repro_torch.kernels import _build
 from repro_torch.obs.stats import TraversalStats
 
-__all__ = ["wavefront_count", "wavefront_min_label", "wavefront_fill",
-           "wavefront_fixed", "wavefront_potential", "PackedTree",
-           "pack_tree", "pack_tree_plain", "shared_pack", "min_label_keys",
+__all__ = ["PREDICATES", "pred_test", "leaf_boxes", "wavefront_count",
+           "wavefront_min_label", "wavefront_fill", "wavefront_fixed",
+           "wavefront_potential", "PackedTree", "pack_tree", "pack_tree_plain",
+           "shared_pack", "min_label_keys",
            "wavefront_count_plain", "wavefront_min_label_plain",
            "wavefront_fill_plain", "wavefront_fixed_plain",
            "wavefront_potential_plain", "lockstep_traverse",
@@ -75,19 +95,33 @@ _INT32_MAX = 2**31 - 1
 # fields: nodes_visited, aabb_tests, leaf_tests, callback_hits,
 # early_exits (0/1), max_depth.
 _N_STATS = len(TraversalStats._fields)
+# The predicates of the kernel's template, by their enum value there.
+PREDICATES = {"sphere": 0, "box": 1, "ray": 2}
 
 
-def _check_inputs(bvh: Bvh, centers, r2, order):
-    q = centers.shape[0]
-    if centers.dtype != torch.float32 or centers.shape != (q, 3):
-        raise ValueError(f"centers must be (q, 3) float32, got "
-                         f"{tuple(centers.shape)} {centers.dtype}")
-    if r2.dtype != torch.float32 or r2.shape != (q,):
-        raise ValueError("r2 must be (q,) float32")
+def _check_inputs(bvh: Bvh, qa, qb, order, pred: str = "sphere"):
+    if pred not in PREDICATES:
+        raise ValueError(f"pred must be one of {sorted(PREDICATES)}, got "
+                         f"{pred!r}")
+    q = qa.shape[0]
+    if qa.dtype != torch.float32 or qa.shape != (q, 3):
+        raise ValueError(f"queries must be (q, 3) float32, got "
+                         f"{tuple(qa.shape)} {qa.dtype}")
+    want = (q,) if pred == "sphere" else (q, 3)
+    if qb.dtype != torch.float32 or qb.shape != want:
+        raise ValueError(f"{pred} queries take a second {want} float32 array "
+                         f"(r2, hi or inverse directions), got "
+                         f"{tuple(qb.shape)} {qb.dtype}")
     if order is not None and (order.dtype != torch.int32 or order.shape != (q,)):
         raise ValueError("order must be a (q,) int32 permutation")
-    if bvh.node_lo.device != centers.device:
+    if bvh.node_lo.device != qa.device or qb.device != qa.device:
         raise ValueError("the tree and the queries must be on one device")
+
+
+def _spheres_on_points(bvh: Bvh, what: str):
+    if leaf_boxes(bvh):
+        raise ValueError(f"{what} takes trees whose leaves are points; box "
+                         "leaves are not ported for it (ROADMAP B1 (d))")
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -108,7 +142,17 @@ def _vec_ptr(t: torch.Tensor) -> int:
 
 def _tree_args(packed: "PackedTree", key: torch.Tensor | None):
     return [_vec_ptr(packed.inner), _vec_ptr(packed.leaves), _ptr(key),
-            packed.leaves.shape[0]]
+            packed.leaves.shape[0], int(packed.box_leaves)]
+
+
+def _query_args(order, qa, qb, pred: str, start):
+    return [_ptr(order), _ptr(qa), _ptr(qb), PREDICATES[pred], qa.shape[0],
+            _ptr(start)]
+
+
+def _launched(wrapper, pred: str, packed: "PackedTree") -> None:
+    wrapper.launches += 1
+    wrapper.instances[f"{pred}/{'box' if packed.box_leaves else 'point'}"] += 1
 
 
 def _stream() -> int:
@@ -116,15 +160,16 @@ def _stream() -> int:
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_TREE = [_P, _P, _P, _I]
+_TREE = [_P, _P, _P, _I, _I]
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.library("wavefront")
-    lib.wavefront_pack.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P]
-    # Every traversal entry: tree, order, centers, r2, q, start, then its own.
-    query = _TREE + [_P, _P, _P, _I, _P]
+    lib.wavefront_pack.argtypes = [_P, _P, _P, _P, _I, _I, _P, _P, _P]
+    # Every traversal entry: tree (records, key, n, box_leaves), then
+    # order, qa, qb, pred, q, start, then its own.
+    query = _TREE + [_P, _P, _P, _I, _I, _P]
     lib.wavefront_count.argtypes = query + [_I, _P, _P, _P, _P]
     lib.wavefront_min_label.argtypes = query + [_P, _I, _P, _P]
     lib.wavefront_fill.argtypes = query + [_P, _I, _L, _P, _P]
@@ -150,10 +195,25 @@ class PackedTree(NamedTuple):
     last column (``Tensor.view``, never a conversion: ``SENTINEL`` is a NaN
     pattern). ``inner[i]`` = lo.xyz, left_child, hi.xyz, rope of internal
     node i; ``leaves[k]`` = x, y, z, rope of leaf k (node n-1+k), whose
-    box is its point."""
+    box is its point, or, where leaves are boxes, lo.xyz, rope, hi.xyz,
+    rope."""
 
     inner: torch.Tensor   # (n-1, 8)
-    leaves: torch.Tensor  # (n, 4)
+    leaves: torch.Tensor  # (n, 4), or (n, 8) with box leaves
+
+    @property
+    def box_leaves(self) -> bool:
+        return self.leaves.shape[1] == 8
+
+
+def leaf_boxes(bvh: Bvh) -> bool:
+    """Whether the tree's leaves need box records: ``bvh.box_leaves``
+    where the tree carries it, else read from the boxes (one host sync)."""
+    if bvh.box_leaves is not None:
+        return bool(bvh.box_leaves)
+    n = bvh.num_leaves
+    return not torch.equal(bvh.node_lo[n - 1:].view(torch.int32),
+                           bvh.node_hi[n - 1:].view(torch.int32))
 
 
 def pack_tree_plain(bvh: Bvh) -> PackedTree:
@@ -162,27 +222,32 @@ def pack_tree_plain(bvh: Bvh) -> PackedTree:
     lo, hi, rope = bvh.node_lo.view(i32), bvh.node_hi.view(i32), bvh.rope
     inner = torch.cat([lo[:n - 1], bvh.left_child[:, None], hi[:n - 1],
                        rope[:n - 1, None]], 1)
-    leaves = torch.cat([lo[n - 1:], rope[n - 1:, None]], 1)
+    parts = [lo[n - 1:], rope[n - 1:, None]]
+    if leaf_boxes(bvh):
+        parts += [hi[n - 1:], rope[n - 1:, None]]
+    leaves = torch.cat(parts, 1)
     return PackedTree(inner.view(torch.float32), leaves.view(torch.float32))
 
 
 def pack_tree(bvh: Bvh) -> PackedTree:
-    """The node records of ``bvh`` (a tree from ``build_bvh``: leaf boxes
-    are points, so only ``node_lo`` is read at leaves). On the card the
-    pack kernel of ``csrc/wavefront.cu`` writes them; for CPU tensors its
-    plain version. Extra memory: (n-1)·32 + n·16 bytes."""
+    """The node records of ``bvh``, with box leaf records where
+    :func:`leaf_boxes` says the tree needs them (a ``build_bvh_objects``
+    tree is never packed as points). On the card the pack kernel of
+    ``csrc/wavefront.cu`` writes them; for CPU tensors its plain version.
+    Extra memory: (n-1)·32 + n·16 bytes (n·32 with box leaves)."""
     if bvh.leaf_perm.dtype != torch.int32 or bvh.node_lo.dtype != torch.float32:
         raise ValueError("Bvh index fields must be int32 and boxes float32")
     if not bvh.node_lo.is_cuda:
         return pack_tree_plain(bvh)
     n, f32, dev = bvh.num_leaves, torch.float32, bvh.node_lo.device
+    box = leaf_boxes(bvh)
     packed = PackedTree(torch.empty((n - 1, 8), dtype=f32, device=dev),
-                        torch.empty((n, 4), dtype=f32, device=dev))
+                        torch.empty((n, 8 if box else 4), dtype=f32, device=dev))
     lib = _lib()
     code = lib.wavefront_pack(
         _ptr(bvh.node_lo), _ptr(bvh.node_hi), _ptr(bvh.left_child),
-        _ptr(bvh.rope), n, _vec_ptr(packed.inner), _vec_ptr(packed.leaves),
-        _stream())
+        _ptr(bvh.rope), n, int(box), _vec_ptr(packed.inner),
+        _vec_ptr(packed.leaves), _stream())
     _build.check(lib, code, "wavefront_pack")
     return packed
 
@@ -226,20 +291,39 @@ def min_label_keys(bvh: Bvh, obj_labels, obj_core, sentinel: int):
 # Plain PyTorch version
 # ---------------------------------------------------------------------------
 
-def lockstep_traverse(bvh: Bvh, centers, r2, lanes, carry0, epilogue, *,
-                      start=None, depths=None):
+def pred_test(pred: str, qa, qb, lo, hi):
+    """``(value, hit)`` of queries (m rows of ``qa``, ``qb``) against
+    boxes (m, 3), the plain version of the kernel's test for ``pred``:
+    ``"sphere"`` the point-box distance² and ``d2 <= r2``; ``"box"``
+    ``aabb_aabb_dist2`` and ``<= 0``; ``"ray"`` the slab test's entry ``t``
+    and its hit. ``value`` is what a callback gets in the reference's
+    ``d2`` slot."""
+    if pred == "sphere":
+        d2 = point_aabb_dist2(qa, lo, hi)
+        return d2, d2 <= qb
+    if pred == "box":
+        d2 = aabb_aabb_dist2(qa, qb, lo, hi)
+        return d2, d2 <= 0.0
+    return ray_box(qa, qb, lo, hi)
+
+
+def lockstep_traverse(bvh: Bvh, qa, qb, lanes, carry0, epilogue, *,
+                      start=None, depths=None, pred: str = "sphere"):
     """Lockstep rope walk over the query indices ``lanes``, the algorithm of
-    the reference kernel in torch ops. Query ``qi`` starts at ``start[qi]``
-    (the root where ``start`` is None); one that starts at ``SENTINEL``
-    walks nothing. ``epilogue(carry, node, leaf_hit, d2) -> (carry, done)``
-    runs on the live lanes each hop, with ``d2`` the squared distance of
-    the hop's test, and must leave lanes without ``leaf_hit`` unchanged.
-    Returns the final carry per lane, in ``lanes`` order, and the number
-    of node visits (hops) it took; with a node depth table ``depths`` also
-    the lanes' counters, (6, m) int32 in ``TraversalStats`` order, as
-    ``_one_stackless_stats`` counts them (``repro/core/query.py:274-309``):
-    every iteration, internal and leaf iterations, leaf hits, whether the
-    epilogue ended the walk, and the deepest node visited."""
+    the reference kernel in torch ops, with the test of ``pred`` on the
+    queries' ``(qa, qb)`` (:func:`pred_test`) against the tree's node and
+    leaf boxes, points or boxes alike. Query ``qi`` starts at
+    ``start[qi]`` (the root where ``start`` is None); one that starts at
+    ``SENTINEL`` walks nothing. ``epilogue(carry, node, leaf_hit, value) ->
+    (carry, done)`` runs on the live lanes each hop, with ``value`` the
+    hop's test value (d², or a ray's ``t``), and must leave lanes without
+    ``leaf_hit`` unchanged. Returns the final carry per lane, in ``lanes``
+    order, and the number of node visits (hops) it took; with a node depth
+    table ``depths`` also the lanes' counters, (6, m) int32 in
+    ``TraversalStats`` order, as ``_one_stackless_stats`` counts them
+    (``repro/core/query.py:274-309``): every iteration, internal and leaf
+    iterations, leaf hits, whether the epilogue ended the walk, and the
+    deepest node visited."""
     n = bvh.num_leaves
     left, rope = bvh.left_child.long(), bvh.rope.long()
     out = carry0.clone()
@@ -250,14 +334,13 @@ def lockstep_traverse(bvh: Bvh, centers, r2, lanes, carry0, epilogue, *,
     walks = node != SENTINEL
     pos = torch.nonzero(walks).flatten()
     node, carry = node[walks], carry0[walks]
-    c, rr = centers[lanes[walks]], r2[lanes[walks]]
+    a, b = qa[lanes[walks]], qb[lanes[walks]]
     hops = 0
     while pos.numel():
         hops += pos.numel()
-        d2 = point_aabb_dist2(c, bvh.node_lo[node], bvh.node_hi[node])
-        hit = d2 <= rr
+        val, hit = pred_test(pred, a, b, bvh.node_lo[node], bvh.node_hi[node])
         is_leaf = node >= n - 1
-        carry, done = epilogue(carry, node, is_leaf & hit, d2)
+        carry, done = epilogue(carry, node, is_leaf & hit, val)
         if stats is not None:
             stats[:4, pos] += torch.stack([torch.ones_like(hit), ~is_leaf,
                                            is_leaf, is_leaf & hit]).int()
@@ -270,7 +353,7 @@ def lockstep_traverse(bvh: Bvh, centers, r2, lanes, carry0, epilogue, *,
         if stats is not None:
             stats[4, pos[fin]] = done[fin].int()
         pos, node, carry = pos[live], node[live], carry[live]
-        c, rr = c[live], rr[live]
+        a, b = a[live], b[live]
     return (out, hops) if stats is None else (out, hops, stats)
 
 
@@ -353,16 +436,17 @@ def potential_epilogue(soft2: torch.Tensor):
     return epilogue
 
 
-def wavefront_count_plain(bvh: Bvh, centers, r2, stop_at=None, start=None,
-                          depths=None):
-    """ε-hit counts per query, saturating at ``stop_at`` when it is set;
-    with ``depths``, ``(counts, stats)`` as :func:`wavefront_count`."""
-    q = centers.shape[0]
-    lanes = torch.arange(q, device=centers.device)
-    zeros = torch.zeros(q, dtype=torch.int32, device=centers.device)
-    res = lockstep_traverse(bvh, centers, r2, lanes, zeros,
+def wavefront_count_plain(bvh: Bvh, qa, qb, stop_at=None, start=None,
+                          depths=None, *, pred: str = "sphere"):
+    """Hit counts per query of ``pred`` (ε-counts for spheres), saturating
+    at ``stop_at`` when it is set; with ``depths``, ``(counts, stats)`` as
+    :func:`wavefront_count`."""
+    q = qa.shape[0]
+    lanes = torch.arange(q, device=qa.device)
+    zeros = torch.zeros(q, dtype=torch.int32, device=qa.device)
+    res = lockstep_traverse(bvh, qa, qb, lanes, zeros,
                             count_epilogue(stop_at), start=start,
-                            depths=depths)
+                            depths=depths, pred=pred)
     return res[0] if depths is None else (res[0], res[2])
 
 
@@ -370,6 +454,7 @@ def wavefront_min_label_plain(bvh: Bvh, centers, r2, obj_labels, obj_core,
                               queries_mask, sentinel: int, start=None):
     """Min ``obj_labels[j]`` over core objects within r of each query in
     ``queries_mask``; ``sentinel`` for the rest and where none is hit."""
+    _spheres_on_points(bvh, "MIN_LABEL")
     out = torch.full((centers.shape[0],), int(sentinel), dtype=torch.int32,
                      device=centers.device)
     lanes = torch.nonzero(queries_mask).flatten()
@@ -387,15 +472,15 @@ def fill_lanes(offsets, capacity: int):
     return lanes, first[lanes]
 
 
-def wavefront_fill_plain(bvh: Bvh, centers, r2, offsets, capacity: int,
-                         start=None):
+def wavefront_fill_plain(bvh: Bvh, qa, qb, offsets, capacity: int,
+                         start=None, *, pred: str = "sphere"):
     """(capacity,) int32: hit ``k`` of query ``qi``, in traversal order, at
     ``offsets[qi] + k`` when that is below ``capacity``; -1 elsewhere."""
     indices = torch.full((capacity,), -1, dtype=torch.int32,
-                         device=centers.device)
+                         device=qa.device)
     lanes, first = fill_lanes(offsets, capacity)
-    lockstep_traverse(bvh, centers, r2, lanes, first,
-                      fill_epilogue(bvh, indices), start=start)
+    lockstep_traverse(bvh, qa, qb, lanes, first, fill_epilogue(bvh, indices),
+                      start=start, pred=pred)
     return indices
 
 
@@ -405,15 +490,17 @@ def fixed_carry(q: int, device):
     return lanes, torch.stack([torch.zeros_like(lanes), lanes], 1)
 
 
-def wavefront_fixed_plain(bvh: Bvh, centers, r2, capacity: int, start=None):
+def wavefront_fixed_plain(bvh: Bvh, qa, qb, capacity: int, start=None, *,
+                          pred: str = "sphere"):
     """``(buf (q, capacity) int32, counts (q,) int32)``: hit ``k`` of each
     query at slot ``min(k, capacity - 1)`` of its row, -1 in unused slots,
     and the true hit counts."""
-    buf = torch.full((centers.shape[0], capacity), -1, dtype=torch.int32,
-                     device=centers.device)
-    lanes, carry0 = fixed_carry(centers.shape[0], centers.device)
-    carry = lockstep_traverse(bvh, centers, r2, lanes, carry0,
-                              fixed_epilogue(bvh, buf), start=start)[0]
+    buf = torch.full((qa.shape[0], capacity), -1, dtype=torch.int32,
+                     device=qa.device)
+    lanes, carry0 = fixed_carry(qa.shape[0], qa.device)
+    carry = lockstep_traverse(bvh, qa, qb, lanes, carry0,
+                              fixed_epilogue(bvh, buf), start=start,
+                              pred=pred)[0]
     return buf, carry[:, 0].to(torch.int32)
 
 
@@ -421,6 +508,7 @@ def wavefront_potential_plain(bvh: Bvh, centers, r2, soft2: float,
                               active=None, start=None):
     """(q,) float32: ``-Σ 1/sqrt(d2 + soft2)`` over each active query's
     hits, summed in rope order; 0 outside ``active``."""
+    _spheres_on_points(bvh, "POTENTIAL")
     q = centers.shape[0]
     out = torch.zeros(q, dtype=torch.float32, device=centers.device)
     lanes = (torch.arange(q, device=centers.device) if active is None
@@ -443,40 +531,42 @@ def _check_start(start, q: int, device):
                          "device")
 
 
-def wavefront_count(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor, *,
-                    stop_at: int | None = None,
+def wavefront_count(bvh: Bvh, qa: torch.Tensor, qb: torch.Tensor, *,
+                    pred: str = "sphere", stop_at: int | None = None,
                     order: torch.Tensor | None = None,
                     start: torch.Tensor | None = None,
                     depths: torch.Tensor | None = None):
-    """(q,) int32 ε-hit counts of ``centers`` with per-query squared radii
-    ``r2``, saturating at ``stop_at``. ``order`` (int32 permutation) is the
-    order in which threads take queries; it changes no result. ``start``
-    (int32 node per query, ``SENTINEL``: no walk) replaces the root.
+    """(q,) int32 hit counts of the queries ``(qa, qb)`` of ``pred`` (for
+    spheres, centres and squared radii: ε-counts), saturating at
+    ``stop_at``. ``order`` (int32 permutation) is the order in which
+    threads take queries; it changes no result. ``start`` (int32 node per
+    query, ``SENTINEL``: no walk) replaces the root.
 
     With ``depths``, the (2n-1,) int32 node depth table
     (``repro_torch.core.query.node_depths``), returns ``(counts, stats)``:
     ``stats`` (6, q) int32, a row per ``TraversalStats`` field (``early_exits``
     as 0/1), from the kernel's counter instance."""
-    _check_inputs(bvh, centers, r2, order)
-    q = centers.shape[0]
-    _check_start(start, q, centers.device)
+    _check_inputs(bvh, qa, qb, order, pred)
+    q = qa.shape[0]
+    _check_start(start, q, qa.device)
     if depths is not None and (depths.dtype != torch.int32
                                or depths.shape != (2 * bvh.num_leaves - 1,)):
         raise ValueError("depths must be the (2n-1,) int32 node depth table")
-    if not centers.is_cuda:
-        return wavefront_count_plain(bvh, centers, r2, stop_at, start, depths)
-    out = torch.empty(q, dtype=torch.int32, device=centers.device)
+    if not qa.is_cuda:
+        return wavefront_count_plain(bvh, qa, qb, stop_at, start, depths,
+                                     pred=pred)
+    out = torch.empty(q, dtype=torch.int32, device=qa.device)
     stats = None if depths is None else torch.empty(
-        (_N_STATS, q), dtype=torch.int32, device=centers.device)
+        (_N_STATS, q), dtype=torch.int32, device=qa.device)
     if q:
         packed = _packed(bvh)
         lib = _lib()
         code = lib.wavefront_count(
-            *_tree_args(packed, None), _ptr(order), _ptr(centers), _ptr(r2),
-            q, _ptr(start), -1 if stop_at is None else int(stop_at),
-            _ptr(depths), _ptr(stats), _ptr(out), _stream())
+            *_tree_args(packed, None), *_query_args(order, qa, qb, pred, start),
+            -1 if stop_at is None else int(stop_at), _ptr(depths), _ptr(stats),
+            _ptr(out), _stream())
         _build.check(lib, code, "wavefront_count")
-        wavefront_count.launches += 1
+        _launched(wavefront_count, pred, packed)
     return out if depths is None else (out, stats)
 
 
@@ -487,8 +577,10 @@ def wavefront_min_label(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
                         start: torch.Tensor | None = None) -> torch.Tensor:
     """(q,) int32: for each query in ``queries_mask``, the min over core
     objects within r of ``obj_labels`` (int32, tree object index);
-    ``sentinel`` where none is hit and outside the mask."""
+    ``sentinel`` where none is hit and outside the mask. Spheres on a
+    point tree only."""
     _check_inputs(bvh, centers, r2, order)
+    _spheres_on_points(bvh, "MIN_LABEL")
     if obj_labels.dtype != torch.int32 or obj_core.dtype != torch.bool \
             or queries_mask.dtype != torch.bool:
         raise ValueError("obj_labels must be int32, obj_core and "
@@ -506,76 +598,75 @@ def wavefront_min_label(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
     key = min_label_keys(bvh, obj_labels, obj_core, sentinel)
     lib = _lib()
     code = lib.wavefront_min_label(
-        *_tree_args(packed, key), _ptr(order), _ptr(centers), _ptr(r2), q,
-        _ptr(start), _ptr(queries_mask), int(sentinel), _ptr(out), _stream())
+        *_tree_args(packed, key), *_query_args(order, centers, r2, "sphere", start),
+        _ptr(queries_mask), int(sentinel), _ptr(out), _stream())
     _build.check(lib, code, "wavefront_min_label")
-    wavefront_min_label.launches += 1
+    _launched(wavefront_min_label, "sphere", packed)
     return out
 
 
-def wavefront_fill(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
+def wavefront_fill(bvh: Bvh, qa: torch.Tensor, qb: torch.Tensor,
                    offsets: torch.Tensor, capacity: int, *,
-                   order: torch.Tensor | None = None,
+                   pred: str = "sphere", order: torch.Tensor | None = None,
                    start: torch.Tensor | None = None) -> torch.Tensor:
-    """(capacity,) int32 CSR indices: hit ``k`` of query ``qi``, in
-    traversal order, at ``offsets[qi] + k`` when that is below
+    """(capacity,) int32 CSR indices: hit ``k`` of query ``qi`` of ``pred``,
+    in traversal order, at ``offsets[qi] + k`` when that is below
     ``capacity``; hits at or past it are dropped, and -1 fills the rest.
     ``offsets`` is the (q+1,) int32 or int64 exclusive scan of the counts;
     positions are int64 in the kernel either way. ``order`` is the order
     in which threads take queries; it changes no result."""
-    _check_inputs(bvh, centers, r2, order)
-    q, capacity = centers.shape[0], int(capacity)
-    _check_start(start, q, centers.device)
+    _check_inputs(bvh, qa, qb, order, pred)
+    q, capacity = qa.shape[0], int(capacity)
+    _check_start(start, q, qa.device)
     if offsets.dtype not in (torch.int32, torch.int64) \
             or offsets.shape != (q + 1,) or capacity < 0:
         raise ValueError("offsets must be (q+1,) int32 or int64 and "
                          "capacity >= 0")
-    if not centers.is_cuda:
-        return wavefront_fill_plain(bvh, centers, r2, offsets, capacity,
-                                    start)
-    indices = torch.full((capacity,), -1, dtype=torch.int32,
-                         device=centers.device)
+    if not qa.is_cuda:
+        return wavefront_fill_plain(bvh, qa, qb, offsets, capacity, start,
+                                    pred=pred)
+    indices = torch.full((capacity,), -1, dtype=torch.int32, device=qa.device)
     if q == 0 or capacity == 0:
         return indices
     packed = _packed(bvh)
     lib = _lib()
     code = lib.wavefront_fill(
-        *_tree_args(packed, bvh.leaf_perm), _ptr(order), _ptr(centers),
-        _ptr(r2), q, _ptr(start),
-        _ptr(offsets), int(offsets.dtype == torch.int64), capacity,
-        _ptr(indices), _stream())
+        *_tree_args(packed, bvh.leaf_perm),
+        *_query_args(order, qa, qb, pred, start), _ptr(offsets),
+        int(offsets.dtype == torch.int64), capacity, _ptr(indices), _stream())
     _build.check(lib, code, "wavefront_fill")
-    wavefront_fill.launches += 1
+    _launched(wavefront_fill, pred, packed)
     return indices
 
 
-def wavefront_fixed(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
-                    capacity: int, *, order: torch.Tensor | None = None,
+def wavefront_fixed(bvh: Bvh, qa: torch.Tensor, qb: torch.Tensor,
+                    capacity: int, *, pred: str = "sphere",
+                    order: torch.Tensor | None = None,
                     start: torch.Tensor | None = None):
     """``(buf, counts)``: ``buf`` (q, capacity) int32 holds hit ``k`` of
-    each query, in traversal order, at slot ``min(k, capacity - 1)`` (so
-    the last slot ends with the last hit), -1 in unused slots; ``counts``
-    (q,) int32 the true hit counts. ``order`` changes no result."""
-    _check_inputs(bvh, centers, r2, order)
-    q, capacity = centers.shape[0], int(capacity)
-    _check_start(start, q, centers.device)
+    each query of ``pred``, in traversal order, at slot ``min(k, capacity
+    - 1)`` (so the last slot ends with the last hit), -1 in unused slots;
+    ``counts`` (q,) int32 the true hit counts. ``order`` changes no
+    result."""
+    _check_inputs(bvh, qa, qb, order, pred)
+    q, capacity = qa.shape[0], int(capacity)
+    _check_start(start, q, qa.device)
     if capacity < 0:
         raise ValueError("capacity must be >= 0")
-    if not centers.is_cuda:
-        return wavefront_fixed_plain(bvh, centers, r2, capacity, start)
-    buf = torch.full((q, capacity), -1, dtype=torch.int32,
-                     device=centers.device)
-    counts = torch.empty(q, dtype=torch.int32, device=centers.device)
+    if not qa.is_cuda:
+        return wavefront_fixed_plain(bvh, qa, qb, capacity, start, pred=pred)
+    buf = torch.full((q, capacity), -1, dtype=torch.int32, device=qa.device)
+    counts = torch.empty(q, dtype=torch.int32, device=qa.device)
     if q == 0:
         return buf, counts
     packed = _packed(bvh)
     lib = _lib()
     code = lib.wavefront_fixed(
-        *_tree_args(packed, bvh.leaf_perm), _ptr(order), _ptr(centers),
-        _ptr(r2), q, _ptr(start), capacity, _ptr(buf), _ptr(counts),
-        _stream())
+        *_tree_args(packed, bvh.leaf_perm),
+        *_query_args(order, qa, qb, pred, start), capacity, _ptr(buf),
+        _ptr(counts), _stream())
     _build.check(lib, code, "wavefront_fixed")
-    wavefront_fixed.launches += 1
+    _launched(wavefront_fixed, pred, packed)
     return buf, counts
 
 
@@ -586,8 +677,10 @@ def wavefront_potential(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
     """(q,) float32: for each query in ``active`` (bool; None: all), the
     softened potential ``-Σ 1/sqrt(d2 + soft2)`` over the objects within
     r, summed in rope order; 0 outside ``active``, whose queries walk
-    nothing. ``soft2`` is taken as float32. ``order`` changes no result."""
+    nothing. ``soft2`` is taken as float32. ``order`` changes no result.
+    Spheres on a point tree only."""
     _check_inputs(bvh, centers, r2, order)
+    _spheres_on_points(bvh, "POTENTIAL")
     q = centers.shape[0]
     _check_start(start, q, centers.device)
     if active is not None and (active.dtype != torch.bool
@@ -602,10 +695,11 @@ def wavefront_potential(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
     packed = _packed(bvh)
     lib = _lib()
     code = lib.wavefront_potential(
-        *_tree_args(packed, None), _ptr(order), _ptr(centers), _ptr(r2), q,
-        _ptr(start), _ptr(active), float(soft2), _ptr(out), _stream())
+        *_tree_args(packed, None),
+        *_query_args(order, centers, r2, "sphere", start), _ptr(active),
+        float(soft2), _ptr(out), _stream())
     _build.check(lib, code, "wavefront_potential")
-    wavefront_potential.launches += 1
+    _launched(wavefront_potential, "sphere", packed)
     return out
 
 
@@ -626,8 +720,8 @@ def inv_sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-wavefront_count.launches = 0
-wavefront_min_label.launches = 0
-wavefront_fill.launches = 0
-wavefront_fixed.launches = 0
-wavefront_potential.launches = 0
+for _wrapper in (wavefront_count, wavefront_min_label, wavefront_fill,
+                 wavefront_fixed, wavefront_potential):
+    _wrapper.launches = 0
+    _wrapper.instances = collections.Counter()
+del _wrapper

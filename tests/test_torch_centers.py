@@ -110,6 +110,20 @@ def test_most_bound_centers_match_reference(labelled, factor):
     _assert_most_bound_match(got, want, pts, ph, nh, phi)
 
 
+def test_most_bound_centers_32bit_build(labelled):
+    """``use_64bit=False`` builds the tree over 30-bit codes, as the
+    reference's does."""
+    pts, ph, nh, eps = labelled
+    want = jax_most_bound_centers(jnp.asarray(pts), jnp.asarray(ph), eps,
+                                  capacity=16, use_64bit=False)
+    got = most_bound_centers(pts, ph, eps, capacity=16, use_64bit=False,
+                             device="cpu")
+    phi = np.asarray(jax_halo_potentials(jnp.asarray(pts), eps,
+                                         active=jnp.asarray(ph >= 0),
+                                         use_64bit=False))
+    _assert_most_bound_match(got, want, pts, ph, nh, phi)
+
+
 def test_most_bound_ties_go_to_the_least_index():
     """Coincident particles share a potential exactly: the least original
     index of a halo's minimum wins, as in the reference."""

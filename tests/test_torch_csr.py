@@ -16,11 +16,11 @@ import jax.numpy as jnp  # noqa: E402
 from conftest import make_clustered_points  # noqa: E402
 from repro.core.bvh import build_bvh as jax_build_bvh  # noqa: E402
 from repro.core.geometry import scene_bounds as jax_scene_bounds  # noqa: E402
-from repro_torch.core import query as tq  # noqa: E402
 from repro_torch.interop import bvh_from_numpy  # noqa: E402
 from repro_torch.kernels import wavefront as kw  # noqa: E402
 
 jq = importlib.import_module("repro.core.query")
+tq = importlib.import_module("repro_torch.core.query")
 
 BACKENDS = ["stackless", "pallas"]
 EPS = 0.05

@@ -1,16 +1,24 @@
 """The port's FDBSCAN and adjacency-graph DBSCAN on the CPU against the JAX
-reference, exactly, and FDBSCAN's partition against the numpy oracle."""
+reference, exactly, and FDBSCAN's partition against the numpy oracle; with
+the stack backend and the 32-bit build too, and ``count_neighbors`` and
+``min_core_label_on`` called the reference's way."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from conftest import make_clustered_points  # noqa: E402
+from repro.core.bvh import build_bvh as jax_build_bvh  # noqa: E402
+from repro.core.dbscan import count_neighbors as jax_count_neighbors  # noqa: E402
 from repro.core.dbscan import dbscan_graph_cc as jax_dbscan_graph_cc  # noqa: E402
 from repro.core.dbscan import fdbscan as jax_fdbscan  # noqa: E402
+from repro.core.dbscan import min_core_label_on as jax_min_core_label_on  # noqa: E402
 from repro.core.ref_numpy import dbscan_ref  # noqa: E402
-from repro_torch.core.dbscan import dbscan_graph_cc, fdbscan  # noqa: E402
+from repro_torch.core.bvh import build_bvh  # noqa: E402
+from repro_torch.core.dbscan import (count_neighbors, dbscan_graph_cc,  # noqa: E402
+                                     fdbscan, min_core_label_on)
 
 EPS = 0.03
 
@@ -44,9 +52,19 @@ def test_fdbscan_without_early_stop():
 
 @pytest.mark.parametrize("kwargs", [{"use_stack": True}, {"use_64bit": False}])
 def test_unported_options_raise(kwargs):
-    pts = np.zeros((4, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="A8"):
-        fdbscan(pts, EPS, 2, device="cpu", **kwargs)
+    """The options that raised naming A8 until the stack backend and the
+    32-bit build were ported, now exact against the reference (with and
+    without early exit)."""
+    pts = make_clustered_points(np.random.default_rng(11), 400)
+    for early_stop in (True, False):
+        want = jax_fdbscan(jnp.asarray(pts), EPS, 3, early_stop=early_stop,
+                           **kwargs)
+        got = fdbscan(pts, EPS, 3, early_stop=early_stop, device="cpu",
+                      **kwargs)
+        for field in want._fields:
+            np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                          np.asarray(getattr(want, field)),
+                                          err_msg=f"{field} {early_stop}")
 
 
 @pytest.mark.parametrize("eps,min_pts,capacity", [
@@ -78,9 +96,71 @@ def test_dbscan_graph_cc_equals_fdbscan_with_enough_capacity(eps, min_pts):
 
 
 def test_dbscan_graph_cc_unported_option_and_no_card(monkeypatch):
-    pts = np.zeros((4, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="A8"):
-        dbscan_graph_cc(pts, EPS, 2, use_64bit=False, device="cpu")
+    """``use_64bit=False`` (which raised naming A8) against the reference;
+    without a card the default device raises."""
+    pts = make_clustered_points(np.random.default_rng(12), 400)
+    want = jax_dbscan_graph_cc(jnp.asarray(pts), EPS, 2, neighbor_capacity=16,
+                               use_64bit=False)
+    got = dbscan_graph_cc(pts, EPS, 2, 16, use_64bit=False, device="cpu")
+    for field in want._fields:
+        np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                      np.asarray(getattr(want, field)),
+                                      err_msg=field)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        dbscan_graph_cc(pts, EPS, 2)
+        dbscan_graph_cc(pts[:4], EPS, 2)
+
+
+def _both_trees(pts):
+    jp = jnp.asarray(pts)
+    lo, hi = jp.min(0) - 1e-4, jp.max(0) + 1e-4
+    tp = torch.from_numpy(pts)
+    return jp, jax_build_bvh(jp, lo, hi), tp, build_bvh(
+        tp, torch.from_numpy(np.asarray(lo)), torch.from_numpy(np.asarray(hi)))
+
+
+@pytest.mark.parametrize("use_stack", [False, True])
+def test_count_neighbors_the_reference_way(use_stack):
+    """``count_neighbors(bvh, points, queries, eps, min_pts, use_stack)``
+    positionally, as ``tests/test_dbscan.py:113`` calls the reference."""
+    pts = make_clustered_points(np.random.default_rng(13), 200)
+    jp, jb, tp, tb = _both_trees(pts)
+    for min_pts in (None, 5):
+        want = np.asarray(jax_count_neighbors(jb, jp, jp, 0.05, min_pts,
+                                              use_stack))
+        got = count_neighbors(tb, tp, tp, 0.05, min_pts, use_stack)
+        np.testing.assert_array_equal(got.numpy(), want)
+    full = count_neighbors(tb, tp, tp, 0.05)
+    sat = count_neighbors(tb, tp, tp, 0.05, min_pts=5)
+    assert bool((sat <= torch.clamp(full, max=5)).all())
+
+
+def test_min_core_label_on_int64_labels():
+    """Labels keep their dtype, as the reference's (here under x64):
+    int64 labels inside the int32 range give the reference's int64
+    result; labels or a sentinel beyond it raise instead of wrapping,
+    until the kernel carries int64 keys (ROADMAP B1 (e))."""
+    pts = make_clustered_points(np.random.default_rng(14), 300)
+    n = len(pts)
+    rng = np.random.default_rng(15)
+    labels = rng.permutation(n).astype(np.int64)
+    core = rng.random(n) < 0.6
+    mask = rng.random(n) < 0.8
+    jp, jb, tp, tb = _both_trees(pts)
+    with jax.enable_x64(True):
+        want = np.asarray(jax_min_core_label_on(
+            jb, jp, EPS, jnp.asarray(labels), jnp.asarray(core),
+            jnp.asarray(mask), n))
+    assert want.dtype == np.int64
+    got = min_core_label_on(tb, tp, EPS, torch.from_numpy(labels),
+                            torch.from_numpy(core), torch.from_numpy(mask), n)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
+    wide = torch.from_numpy(labels + 2**32)
+    with pytest.raises(ValueError, match="B1 \\(e\\)"):
+        min_core_label_on(tb, tp, EPS, wide, torch.from_numpy(core),
+                          torch.from_numpy(mask), n)
+    with pytest.raises(ValueError, match="sentinel"):
+        min_core_label_on(tb, tp, EPS, torch.from_numpy(labels),
+                          torch.from_numpy(core), torch.from_numpy(mask),
+                          2**33)

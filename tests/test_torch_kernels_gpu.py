@@ -5,12 +5,13 @@ card. Marked ``gpu``: without a CUDA card every test here skips.
 
 This file imports no JAX, so it also runs on a machine without it.
 """
+import importlib
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import query as tq  # noqa: E402
 from repro_torch.core.dbscan import fdbscan  # noqa: E402
 from repro_torch.core.bvh import build_bvh  # noqa: E402
 from repro_torch.core.geometry import point_aabb_dist2, scene_bounds  # noqa: E402
@@ -19,6 +20,8 @@ from repro_torch.core import fdbscan_grid as tgrid  # noqa: E402
 from repro_torch.kernels import pairwise as kp  # noqa: E402
 from repro_torch.kernels import segment as ks  # noqa: E402
 from repro_torch.kernels import wavefront as kw  # noqa: E402
+
+tq = importlib.import_module("repro_torch.core.query")
 
 pytestmark = pytest.mark.gpu
 
@@ -748,3 +751,152 @@ def test_halo_products_card_equal_cpu(cuda):
     so_masses(pts, mb.center, cat.count > 0, r_max=0.1, iters=20, device=cuda)
     assert (kw.wavefront_potential.launches - before[0],
             kw.wavefront_count.launches - before[1]) == (1, 22)
+
+
+# --- B1 (a)-(c): box and ray predicates, box leaves -------------------------
+
+def _pred_trees(cuda, n, seed):
+    """A point tree and a box-leaf tree over the same clustered points."""
+    from repro_torch.core.bvh import build_bvh_objects
+    pts, bvh = _tree(cuda, n, seed)
+    rng = np.random.default_rng(seed + 1)
+    h = torch.from_numpy(rng.uniform(0, 0.01, (n, 3)).astype(np.float32)).to(cuda)
+    lo, hi = scene_bounds(pts)
+    return pts, h, {"point": bvh, "box": build_bvh_objects(pts - h, pts + h, lo, hi)}
+
+
+def _pred_geometry(cuda, pts, h, q, seed):
+    """(qa, qb) per predicate: spheres, boxes (a quarter degenerate at
+    points), rays (a quarter along z, some origins on leaf-box faces with
+    a component in (-1e-12, 0): inverse +inf, NaN slabs)."""
+    from repro_torch.core.geometry import safe_inv
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)  # noqa: E731
+    c = t(rng.uniform(0, 1, (q, 3)))
+    hw = t(rng.uniform(0, 0.05, (q, 3)))
+    blo, bhi = c - hw, c + hw
+    k = torch.from_numpy(rng.integers(0, pts.shape[0], q)).to(cuda)
+    blo[: q // 4], bhi[: q // 4] = pts[k[: q // 4]], pts[k[: q // 4]]
+    o = t(rng.uniform(0, 1, (q, 3)))
+    o[1::5] = pts[k[1::5]]
+    o[2::5] = (pts - h)[k[2::5]]
+    d = t(rng.standard_normal((q, 3)))
+    d[::4, :2] = 0.0
+    d[2::5, 0] = -3e-13
+    return {"sphere": (c, t(rng.uniform(0, 0.03, q)) ** 2), "box": (blo, bhi),
+            "ray": (o, safe_inv(d))}
+
+
+@pytest.mark.parametrize("leaf", ["point", "box"])
+@pytest.mark.parametrize("pred", ["sphere", "box", "ray"])
+def test_every_predicate_and_leaf_kind_matches_plain(cuda, leaf, pred):
+    """COUNT (with and without counters and early exit), FILL (int32 and
+    int64 offsets, exact and half capacity) and FIXED of each predicate on
+    each leaf kind, from the root and from random start nodes: bit-equal
+    to the plain versions."""
+    pts, h, trees = _pred_trees(cuda, 5000, 71)
+    bvh = trees[leaf]
+    qa, qb = _pred_geometry(cuda, pts, h, 3000, 72)[pred]
+    depths = tq.node_depths(bvh)
+    before = kw.wavefront_count.instances[f"{pred}/{leaf}"]
+    for start in (None, _start_nodes(cuda, 2 * 5000 - 1, 3000, 73)):
+        for stop in (None, 3):
+            got = kw.wavefront_count(bvh, qa, qb, pred=pred, stop_at=stop,
+                                     start=start)
+            want = kw.wavefront_count_plain(bvh, qa, qb, stop, start, pred=pred)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+            got = kw.wavefront_count(bvh, qa, qb, pred=pred, stop_at=stop,
+                                     start=start, depths=depths)
+            want = kw.wavefront_count_plain(bvh, qa, qb, stop, start, depths,
+                                            pred=pred)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, rtol=0, atol=0)
+        counts = kw.wavefront_count(bvh, qa, qb, pred=pred, start=start)
+        for dtype in (torch.int32, torch.int64):
+            offsets = _offsets(counts, dtype)
+            for cap in (int(offsets[-1]), int(offsets[-1]) // 2):
+                torch.testing.assert_close(
+                    kw.wavefront_fill(bvh, qa, qb, offsets, cap, pred=pred,
+                                      start=start),
+                    kw.wavefront_fill_plain(bvh, qa, qb, offsets, cap, start,
+                                            pred=pred), rtol=0, atol=0)
+        for cap in (2, 64):
+            for g, w in zip(kw.wavefront_fixed(bvh, qa, qb, cap, pred=pred,
+                                               start=start),
+                            kw.wavefront_fixed_plain(bvh, qa, qb, cap, start,
+                                                     pred=pred)):
+                torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert kw.wavefront_count.instances[f"{pred}/{leaf}"] == before + 10
+    assert int(counts.sum()) > 0
+
+
+def test_box_leaf_records_match_plain(cuda):
+    """``pack_tree`` writes 32-byte leaf records for a box-leaf tree, bit
+    for bit its plain version's, and 16-byte ones for a point tree."""
+    _, _, trees = _pred_trees(cuda, 3000, 74)
+    for leaf, bvh in trees.items():
+        got, want = kw.pack_tree(bvh), kw.pack_tree_plain(bvh)
+        assert got.leaves.shape[1] == (8 if leaf == "box" else 4)
+        for f in got._fields:
+            torch.testing.assert_close(getattr(got, f).view(torch.int32),
+                                       getattr(want, f).view(torch.int32),
+                                       rtol=0, atol=0)
+
+
+def test_protocols_of_new_predicates_card_equal_cpu(cuda):
+    """query_count (stackless and stack, with counters), query_csr and
+    query_csr_buffered for boxes and rays on both trees: the card equals
+    the CPU, and the stack backend launches no kernel."""
+    pts, h, trees = _pred_trees(cuda, 4000, 75)
+    geo = _pred_geometry(cuda, pts, h, 2000, 76)
+    for leaf, bvh in trees.items():
+        cpu_bvh = bvh._replace(**{f: getattr(bvh, f).cpu() for f in bvh._fields
+                                  if isinstance(getattr(bvh, f), torch.Tensor)})
+        preds = {"box": tq.intersects_box(*geo["box"]),
+                 "ray": tq.ray(geo["ray"][0], geo["ray"][0] * 0 + 1)}
+        for name, p in preds.items():
+            cp = type(p)(*(x.cpu() for x in p))
+            for backend in ("stackless", "stack"):
+                launches = kw.wavefront_count.launches
+                got = tq.query_count(bvh, p, backend=backend, with_stats=True)
+                assert (kw.wavefront_count.launches - launches
+                        == (backend == "stackless"))
+                want = tq.query_count(cpu_bvh, cp, backend=backend, with_stats=True)
+                torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=0)
+                for g, w in zip(got[1], want[1]):
+                    torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+            for f, g in tq.query_csr(bvh, p, sort_queries=True)._asdict().items():
+                torch.testing.assert_close(
+                    g.cpu(), getattr(tq.query_csr(cpu_bvh, cp), f), rtol=0, atol=0)
+            got = tq.query_csr_buffered(bvh, p, capacity=4)
+            want = tq.query_csr_buffered(cpu_bvh, cp, capacity=4)
+            assert got.attempts == want.attempts
+            torch.testing.assert_close(got.indices.cpu(), want.indices, rtol=0, atol=0)
+
+
+def test_min_label_and_potential_reject_box_leaves(cuda):
+    pts, _, trees = _pred_trees(cuda, 1000, 77)
+    bvh = trees["box"]
+    r2 = torch.full((1000,), 0.01, device=cuda)
+    ones = torch.ones(1000, dtype=torch.bool, device=cuda)
+    labels = torch.arange(1000, dtype=torch.int32, device=cuda)
+    before = (kw.wavefront_min_label.launches, kw.wavefront_potential.launches)
+    with pytest.raises(ValueError, match="B1"):
+        kw.wavefront_min_label(bvh, pts, r2, labels, ones, ones, 1000)
+    with pytest.raises(ValueError, match="B1"):
+        kw.wavefront_potential(bvh, pts, r2, 1e-6)
+    assert (kw.wavefront_min_label.launches,
+            kw.wavefront_potential.launches) == before
+
+
+def test_fdbscan_stack_and_32bit_card_equal_cpu(cuda):
+    """fdbscan with the stack backend (its count pass in torch ops on the
+    card) and over 30-bit codes: the card equals the CPU."""
+    pts = make_clustered_points(np.random.default_rng(78), 8000)
+    for kwargs in ({"use_stack": True}, {"use_stack": True, "early_stop": False},
+                   {"use_64bit": False}):
+        got = fdbscan(pts, 0.01, 3, device=cuda, **kwargs)
+        want = fdbscan(pts, 0.01, 3, device="cpu", **kwargs)
+        for f in want._fields:
+            torch.testing.assert_close(getattr(got, f).cpu(), getattr(want, f),
+                                       rtol=0, atol=0)

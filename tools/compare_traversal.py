@@ -15,9 +15,10 @@ seeds):
   its COUNT and MIN_LABEL inputs (each wrapper's first call);
 * times ``wavefront_count`` and ``wavefront_min_label`` on those inputs
   (phase 4's) and ``wavefront_fill`` (``query_csr``'s fill, exact
-  capacity) and ``wavefront_fixed`` (capacity 32, ``query_csr_buffered``'s
-  first attempt) on phase 5's, with CUDA events, each call as a caller
-  outside ``fdbscan`` makes it (where the tree is packed, a pack a call).
+  capacity), ``wavefront_fixed`` (capacity 32, ``query_csr_buffered``'s
+  first attempt) and ``wavefront_potential`` (every particle at 2 eps) on
+  phase 5's, with CUDA events, each call as a caller outside ``fdbscan``
+  makes it (where the tree is packed, a pack a call).
 
 Every turn must give the same kernel outputs and the same labels, core
 mask, ``num_rounds`` and catalog integers (SHA-256 of their bytes). One
@@ -28,6 +29,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import hashlib
+import importlib
 import json
 import subprocess
 import sys
@@ -37,7 +39,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[1]
 DEV = "cuda"
 TIMED = ("wavefront_count", "wavefront_min_label", "wavefront_fill",
-         "wavefront_fixed")
+         "wavefront_fixed", "wavefront_potential")
 
 
 def digest(*tensors) -> str:
@@ -54,7 +56,7 @@ def turn(root: Path, n_log2: int, reps: int, seed: int) -> dict:
     import chip_smoke as cs
     from repro_torch.analysis import insitu
     from repro_torch.core import dbscan
-    from repro_torch.core import query as tq
+    tq = importlib.import_module("repro_torch.core.query")
     from repro_torch.core.bvh import build_bvh
     from repro_torch.core.geometry import scene_bounds
     from repro_torch.data.pipeline import hacc_benchmark_epsilon
@@ -102,6 +104,11 @@ def turn(root: Path, n_log2: int, reps: int, seed: int) -> dict:
     calls["wavefront_fill"] = ((bvh, centers, r2, exact.offsets,
                                 int(exact.total)), {"order": order})
     calls["wavefront_fixed"] = ((bvh, centers, r2, 32), {"order": order})
+    # Every particle's potential at 2 eps, softened at eps / 100, as
+    # ``most_bound_centers`` takes it for halo members.
+    soft2 = float(torch.tensor(eps * 1e-2, dtype=torch.float32) ** 2)
+    calls["wavefront_potential"] = ((bvh, centers, 4 * r2, soft2),
+                                    {"order": order})
     del exact
     for name in TIMED:
         args, kwargs = calls[name]

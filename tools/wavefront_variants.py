@@ -32,7 +32,8 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-LAUNCH = "wavefront_kernel<EPI, Off, STATS><<<blocks, kThreads, 0, stream>>>"
+LAUNCH = ("wavefront_kernel<EPI, PRED, BOX_LEAF, Off, STATS>"
+          "<<<blocks, kThreads, 0, stream>>>")
 
 
 def threads(n: int, min_blocks: int):
@@ -47,7 +48,8 @@ def warps_cap(warps: int | None):
     blocks = (warps or 64) // 4
     smem = 0 if warps is None else 64 * 1024 // blocks - 1024
     return threads(128, 12) + [(
-        LAUNCH, "cudaFuncSetAttribute(wavefront_kernel<EPI, Off, STATS>, "
+        LAUNCH, "cudaFuncSetAttribute("
+        "wavefront_kernel<EPI, PRED, BOX_LEAF, Off, STATS>, "
         "cudaFuncAttributePreferredSharedMemoryCarveout, 28);\n  "
         + LAUNCH.replace(", 0, stream", f", {smem}, stream"))]
 
