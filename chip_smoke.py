@@ -5,9 +5,10 @@
 
 The paths: HACC in-situ halo finding, the halo products (most-bound
 centers and SO masses), ArborX's neighbor lists, the adjacency-graph
-DBSCAN, the grid DBSCAN, the eps-pairwise ops, and the query engine's
+DBSCAN, the grid DBSCAN, the eps-pairwise ops, the query engine's
 other predicates (IntersectsBox, all-hits rays) and trees (box leaves,
-30-bit codes) with its stack backend and generic callbacks.
+30-bit codes) with its stack backend and generic callbacks, and the pair
+traversal's DBSCAN and correlation and DenseBox.
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. Phases, each of which must pass:
@@ -19,13 +20,18 @@ CUDA toolkit. Phases, each of which must pass:
    ``HMMA`` or ``HGMMA``. No instance of the traversal kernel (and not its
    pack prologue) may spill, none but POTENTIAL may hold an ``FFMA``, and
    POTENTIAL must hold as many as a probe kernel that holds only its IEEE
-   1/sqrt sequence (both counts printed); each traversal instance,
-   POTENTIAL, the counter instance of COUNT and the box and ray
-   instances on point and box leaves included, must read its node and
+   1/sqrt sequence (both counts printed), and HISTOGRAM as many as a
+   probe holding only its bin sequence (an IEEE square root and
+   division); each traversal instance,
+   POTENTIAL, the counter instance of COUNT, the box and ray
+   instances on point and box leaves, EDGE, HISTOGRAM and DenseBox's two
+   included, must read its node and
    box-leaf records with 128-bit loads (``LDG.E.128``); their registers
    and counts of 128-bit and narrower ``LDG`` are printed. No instance of the stencil kernel (and neither of
    its two prologues) may hold an ``FFMA``; their registers and spills
-   are printed. No instance of the segment kernel may spill or hold an
+   are printed. Every ``FMUL`` and ``FADD`` of the stencil and all-pairs
+   kernels must carry ``.FTZ`` (``pairwise.cu`` flushes subnormals as
+   XLA:CPU does). No instance of the segment kernel may spill or hold an
    atomic (``ATOM``/``RED``: its sums are combined in a fixed order), and
    its D = 8 and D = 1 instances must read with 128-bit loads (or
    ``LDGSTS`` copies).
@@ -56,7 +62,14 @@ CUDA toolkit. Phases, each of which must pass:
    kernels at m x n = 1 x 5000, 129 x 257 and 3001 x 5003 for d = 1, 3,
    64, 100 and 257, at 300 x 70,000
    (candidates split across blocks) and at exact ties, eps2 the plain
-   version's own d2 of chosen pairs (all bit-exact).
+   version's own d2 of chosen pairs (all bit-exact); EDGE at capacities
+   1, 2 and 8 for a random parent and core mask, HISTOGRAM at 16 bins
+   and 2 eps from the pair start nodes, its bin sequence on 2^24 squared
+   distances (bin edges and subnormals included), and DenseBox's two on
+   the mixed trees of the 2^20 points at min_pts 2 and 5 (cell, skip and
+   point leaves; cells taken whole and scanned), all bit for bit; the
+   stencil and all-pairs kernels on inputs with subnormal coordinates,
+   products and differences, at eps2 = 0 and above.
 3. The card against the plain path on the CPU: the in-situ step at 2^18
    particles (labels, core mask, rounds and the catalog's integer fields
    exact, float fields to a stated tolerance); at 2^16, ``query_csr``
@@ -67,7 +80,10 @@ CUDA toolkit. Phases, each of which must pass:
    at 2^16 ``fdbscan(use_64bit=False)``, ``fdbscan(use_stack=True,
    early_stop=False)``, ``query_count(backend="stack", with_stats=True)``
    and the generic ``query`` with the quickstart's index-sum callback,
-   exact (the generic query launches no kernel).
+   exact (the generic query launches no kernel); ``fdbscan_pair``
+   (capacity 8), ``fdbscan_densebox`` and ``pair_count_histogram`` (2 eps)
+   at 2^16 Plummer particles, exact, and ROADMAP C9's four points, where
+   the reference's DenseBox wraps, equal to ``fdbscan``.
 4. The main path: ``InsituAnalyzer`` in simulation mode over two analysis
    steps of 2^24 particles (4096 Plummer spheres plus 20% background).
    The launch counters are set to 0 before each step and read after it;
@@ -136,6 +152,13 @@ CUDA toolkit. Phases, each of which must pass:
    ``fdbscan``'s (torch ops, no kernel). Every new (predicate, leaf)
    instance of COUNT, and FILL and FIXED on the box and ray paths, must
    have launched.
+12. The pair traversal and DenseBox on phase 4's cloud and eps at 2^24
+   (run before phase 9's line), each step with its seconds, peak memory
+   and launches by instance: ``fdbscan``, ``fdbscan_pair(edge_capacity=8)``
+   and ``fdbscan_densebox``, whose labels and core mask must equal
+   ``fdbscan``'s (both rounds, the grid's cell count and its largest run
+   printed); ``pair_count_histogram`` at r_max = 4 eps over 16 bins, whose
+   total must equal (the sum of ``query_count(within(p, 4 eps))`` - n) / 2.
 9. One JSON line with each kernel's launches on its path, time per launch
    at that path's inputs, bound with the card's name and power limit
    beside it, plain version's time and library yardstick. The traversal
@@ -156,7 +179,12 @@ CUDA toolkit. Phases, each of which must pass:
    (COUNT, its counters, FILL and FIXED for IntersectsBox on points;
    COUNT and FILL for rays on box leaves; COUNT for spheres and boxes on
    box leaves and rays on points), with its ``ops_per_hop`` and its plain
-   time on a part of the input.
+   time on a part of the input. Phase 12 adds ``wavefront_edge``,
+   ``wavefront_histogram``, ``wavefront_dense_count`` and
+   ``wavefront_dense_min_label`` at their first launch's inputs there,
+   with hops and, for DenseBox, the cells taken whole, the cells scanned
+   and the points scanned (the bound's operations), the plain version
+   over every query (HISTOGRAM: over 2^12 of them).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the port beside this file, it exits nonzero and prints no
@@ -327,13 +355,16 @@ def ptxas_report(text: str) -> dict:
 
 SASS_OPS = ("FFMA", "HMMA", "HGMMA", "FMUL", "FADD", "ATOM", "ATOMG", "ATOMS",
             "RED", "LDGSTS")
+# FP32 multiplies and adds without the flush-to-zero modifier.
+NO_FTZ = "FMUL/FADD without .FTZ"
 ATOMIC_OPS = ("ATOM", "ATOMG", "ATOMS", "RED")
 
 
 def sass_counts(so: Path) -> dict:
     """{mangled kernel: {opcode: count}} over ``SASS_OPS`` in the SASS of
-    the shared library ``so``, and its global loads split into 128-bit
-    ones ("LDG.128") and narrower ones ("LDG.other")."""
+    the shared library ``so``, its global loads split into 128-bit
+    ones ("LDG.128") and narrower ones ("LDG.other"), and its FMUL and
+    FADD instructions that lack ``.FTZ`` (``NO_FTZ``)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", str(so)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
@@ -343,11 +374,14 @@ def sass_counts(so: Path) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            out[name] = dict.fromkeys(SASS_OPS + ("LDG.128", "LDG.other"), 0)
+            out[name] = dict.fromkeys(SASS_OPS + ("LDG.128", "LDG.other", NO_FTZ), 0)
         elif name and "/*" in line:
             instr = line.split(";")[0]
             for op in pattern.findall(instr):
                 out[name][op] += 1
+            out[name][NO_FTZ] += len(re.findall(r"\b(?:FMUL|FADD)(?!\.FTZ)\b(?!\.)",
+                                                instr)) + len(re.findall(
+                r"\b(?:FMUL|FADD)\.(?!FTZ)", instr))
             if m := re.search(r"\bLDG((?:\.\w+)*)", instr):
                 out[name]["LDG.128" if ".128" in m.group(1) else "LDG.other"] += 1
     return out
@@ -373,13 +407,15 @@ def tile_kernel_report():
     """Registers, spills and SASS opcode counts of the all-pairs kernels,
     keyed by epilogue ("pairwise_count": COUNT, "pairwise_min_label":
     MIN_LABEL; "pairwise_norms": the prologue both launch). Fails if a
-    tile kernel spills or any of them holds an FFMA, HMMA or HGMMA."""
+    tile kernel spills or any of them holds an FFMA, HMMA or HGMMA, or an
+    FMUL or FADD without ``.FTZ`` (``pairwise.cu`` flushes subnormals as
+    XLA:CPU does, ROADMAP C7)."""
     out = kernel_report("pairwise", {
         "pairwise_count": "pairwise_tile_kernelILi0E",
         "pairwise_min_label": "pairwise_tile_kernelILi1E",
         "pairwise_norms": "pairwise_norms_kernel"})
     for key, rep in out.items():
-        bad = {op: rep["sass"][op] for op in ("FFMA", "HMMA", "HGMMA")
+        bad = {op: rep["sass"][op] for op in ("FFMA", "HMMA", "HGMMA", NO_FTZ)
                if rep["sass"][op]}
         require(not bad, f"{key}: SASS holds {bad}")
         if key != "pairwise_norms":
@@ -411,8 +447,13 @@ WAVEFRONT_KERNELS = {"wavefront_count": wave_tag(0),
                      "wavefront_fill_int64": wave_tag(2, off="x"),
                      "wavefront_fixed": wave_tag(3),
                      "wavefront_potential": wave_tag(4),
+                     "wavefront_edge": wave_tag(5),
+                     "wavefront_histogram": wave_tag(6),
+                     "wavefront_dense_count": wave_tag(7, leaf="box"),
+                     "wavefront_dense_min_label": wave_tag(8, leaf="box"),
                      "wavefront_pack": "pack_kernel",
-                     "rsqrt_probe": "rsqrt_probe_kernel"}
+                     "rsqrt_probe": "rsqrt_probe_kernel",
+                     "bin_probe": "bin_probe_kernel"}
 for _pred, _leaf in NEW_KINDS:
     _k = f"{_pred}_{_leaf}"
     WAVEFRONT_KERNELS.update({
@@ -436,19 +477,21 @@ def wavefront_report():
     internal node's record, and of a box leaf's; with fewer, records would
     be read in pieces)."""
     out = kernel_report("wavefront", WAVEFRONT_KERNELS)
-    probe_ffma = out["rsqrt_probe"]["sass"]["FFMA"]
+    probes = {"wavefront_potential": "rsqrt_probe",
+              "wavefront_histogram": "bin_probe"}
     for key, rep in out.items():
         require(rep["spill_stores"] == rep["spill_loads"] == 0,
                 f"{key}: ptxas reports spills {rep}")
         ffma = rep["sass"]["FFMA"]
-        if key == "wavefront_potential":
-            require(ffma == probe_ffma, f"{key}: {ffma} FFMA, the 1/sqrt "
-                    f"sequence alone has {probe_ffma}")
-            log(f"[1] {key}: {ffma} FFMA, the probe holding only its 1/sqrt "
+        if key in probes:
+            probe_ffma = out[probes[key]]["sass"]["FFMA"]
+            require(ffma == probe_ffma, f"{key}: {ffma} FFMA, its IEEE "
+                    f"sequence alone ({probes[key]}) has {probe_ffma}")
+            log(f"[1] {key}: {ffma} FFMA, the probe holding only its IEEE "
                 f"sequence {probe_ffma}")
-        elif key != "rsqrt_probe":
+        elif key not in probes.values():
             require(ffma == 0, f"{key}: SASS holds an FFMA")
-        if key not in ("wavefront_pack", "rsqrt_probe"):
+        if key not in ("wavefront_pack", *probes.values()):
             require(rep["sass"]["LDG.128"] >= 2,
                     f"{key}: fewer than two 128-bit loads {rep['sass']}")
     return out
@@ -466,12 +509,14 @@ STENCIL_KERNELS = {"stencil_count": "eps_kernelILi0ELb1E",
 
 def stencil_report():
     """Registers, spills and SASS opcode counts of every instance of the
-    stencil kernel and of its prologues. Fails if one holds an FFMA: a
+    stencil kernel and of its prologues. Fails if one holds an FFMA (a
     contracted multiply-add would round d2 otherwise than the plain
-    version."""
+    version) or an FMUL or FADD without ``.FTZ``."""
     out = kernel_report("pairwise", STENCIL_KERNELS)
     for key, rep in out.items():
         require(rep["sass"]["FFMA"] == 0, f"{key}: SASS holds an FFMA")
+        require(rep["sass"][NO_FTZ] == 0,
+                f"{key}: SASS holds an FMUL or FADD without .FTZ")
     return out
 
 
@@ -579,6 +624,7 @@ def phase2_kernels(seed: int, n_tree: int = 1 << 20, n_rows: int = 1 << 24):
     del got, want, counts
     small = phase2_traversal_options(seed, bvh, pts, r2, eps, order, n_rows)
     phase2_predicates(seed, bvh, pts, eps)
+    pair_kernel_checks(seed, bvh, pts, eps)
 
     rows, segs = n_rows, 1 << 20
     ids, tail = catalog_ids(seed + 3, rows)
@@ -2080,11 +2126,19 @@ BOX_FLOPS_PER_HOP = 3 * 5 + 2 + 1
 RAY_FLOPS_PER_HOP = 3 * 6 + 4 + 1 + 1
 OPS_PER_HOP = {"sphere": FLOPS_PER_HOP, "box": BOX_FLOPS_PER_HOP,
                "ray": RAY_FLOPS_PER_HOP}
+# HISTOGRAM per pair: the max, the square root, the division, the product
+# and the floor. DenseBox per scanned point: three differences, three
+# squares, two sums, the compare; per cell hit, the far corner: per axis a
+# sum, a product, a difference, an abs and a sum, then three squares, two
+# sums and the compare.
+OPS_PER_BIN = 5
+OPS_PER_SCAN_TEST = 9
+OPS_PER_CELL_TEST = 3 * 5 + 3 + 2 + 1
 STACK_RUNG_S = 60.0
 
 
 @contextlib.contextmanager
-def counted_step(torch, name: str, kernels: dict):
+def counted_step(torch, name: str, kernels: dict, tag: str = "[11]"):
     """Counters set to 0 before the block; its seconds (host clock to a
     synchronize), peak memory and launches by instance printed after."""
     reset_counts(kernels)
@@ -2097,7 +2151,7 @@ def counted_step(torch, name: str, kernels: dict):
     rec["s"] = time.perf_counter() - t0
     rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     rec["launches"] = instance_counts(kernels)
-    log(f"[11] {name}: {rec['s']:.3f} s, peak memory {rec['peak_gib']:.2f} "
+    log(f"{tag} {name}: {rec['s']:.3f} s, peak memory {rec['peak_gib']:.2f} "
         f"GiB, launches {rec['launches']}")
 
 
@@ -2522,6 +2576,385 @@ def phase11_predicates(seed: int, n: int, card: str, wave: dict):
     return rows
 
 
+def c9_points(torch):
+    """ROADMAP C9's four points: (0,0,0), (1,1,1) and the centres of cells
+    (1,1,1) and (1431,153,611) of DenseBox's grid at eps = 1e-3 (1733^3
+    cells of eps/sqrt(3)), whose int32 linear ids differ by exactly 2^32.
+    The reference's DenseBox puts the two centres in one cluster; they lie
+    0.9 apart."""
+    from repro_torch.core.geometry import scene_bounds
+    base = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0]])
+    lo = scene_bounds(base)[0].double()
+    cs = float(torch.tensor(1e-3) / torch.tensor(3 ** 0.5))
+    cells = torch.tensor([[1.5, 1.5, 1.5], [1431.5, 153.5, 611.5]], dtype=torch.float64)
+    return torch.cat([base, (lo + cells * cs).float()])
+
+
+def pair_kernel_checks(seed, bvh, pts, eps):
+    """Phase 2's EDGE, HISTOGRAM and DenseBox checks on the 2^20 tree, and
+    HISTOGRAM's bin sequence on 2^24 squared distances."""
+    import torch
+    from repro_torch.core.dbscan import densebox_tree
+    from repro_torch.kernels import wavefront as kw
+
+    n = pts.shape[0]
+    rng = np.random.default_rng(seed + 40)
+    perm = bvh.leaf_perm.long()
+    centers = pts[perm].contiguous()
+    r2 = torch.full((n,), eps, dtype=torch.float32, device=DEV) ** 2
+    starts = kw.pair_starts(bvh)
+    core = torch.from_numpy(rng.random(n) < 0.8).to(DEV)
+    parent = torch.from_numpy(rng.integers(0, n // 64, n).astype(np.int32)).to(DEV)
+    keys = kw.pair_keys(bvh, parent, core)
+    for cap in (1, 2, 8):
+        got = kw.wavefront_edge(bvh, centers, r2, keys, cap, start=starts)
+        want = kw.wavefront_edge_plain(bvh, centers, r2, keys, cap, starts)
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                f"wavefront_edge capacity {cap}")
+        log(f"[2] wavefront_edge capacity {cap}: buffer and counts bit-equal "
+            f"over {n} pair queries, {int(got[1].sum())} edges, "
+            f"{int((got[1] == cap).sum())} full buffers")
+    r2h = torch.full((n,), 2 * eps, dtype=torch.float32, device=DEV) ** 2
+    got = kw.wavefront_histogram(bvh, centers, r2h, 2 * eps, 16, start=starts)
+    want = kw.wavefront_histogram_plain(bvh, centers, r2h, 2 * eps, 16, starts)
+    require(torch.equal(got, want), "wavefront_histogram 16 bins")
+    log(f"[2] wavefront_histogram 16 bins at 2 eps: exact, {int(got.sum())} "
+        f"pairs, bins {got.tolist()}")
+    # Past SHARED_HISTOGRAM_BINS the hits go to the global bins: every 16th
+    # query, so that the plain version stays short.
+    wide = kw.SHARED_HISTOGRAM_BINS + 2048
+    sub = slice(None, None, 16)
+    sc, sr, ss = centers[sub].contiguous(), r2h[sub].contiguous(), starts[sub].contiguous()
+    got = kw.wavefront_histogram(bvh, sc, sr, 2 * eps, wide, start=ss)
+    want = kw.wavefront_histogram_plain(bvh, sc, sr, 2 * eps, wide, ss)
+    require(torch.equal(got, want), f"wavefront_histogram {wide} bins (global)")
+    wide_ms = cuda_ms(torch, lambda: kw.wavefront_histogram(bvh, sc, sr, 2 * eps, wide,
+                                                            start=ss), 3)
+    shared_ms = cuda_ms(torch, lambda: kw.wavefront_histogram(bvh, sc, sr, 2 * eps, 16,
+                                                              start=ss), 3)
+    log(f"[2] wavefront_histogram {wide} bins in global memory at 2 eps: exact "
+        f"over {sc.shape[0]} queries, {int(got.sum())} pairs; {wide_ms:.4f} ms "
+        f"beside {shared_ms:.4f} ms for 16 bins in shared memory on the same "
+        f"queries ({card_identity()})")
+    d = torch.from_numpy(rng.random(1 << 24).astype(np.float32)).to(DEV) * (2 * eps)
+    edges = (torch.arange(17, dtype=torch.float32, device=DEV) * (2 * eps / 16)) ** 2
+    d2 = torch.cat([d * d, edges, torch.nextafter(edges, edges + 1),
+                    torch.nextafter(edges, edges - 1),
+                    torch.tensor([1e-40, 0.0, 1e-31], device=DEV)])
+    require(torch.equal(kw.histogram_bins_rn(d2, 2 * eps, 16),
+                        kw.histogram_bins(d2, 2 * eps, 16)),
+            "HISTOGRAM's bin sequence against histogram_bins")
+    log(f"[2] HISTOGRAM's bin sequence: {d2.numel()} squared distances (bin "
+        f"edges, their neighbours and subnormals included) bit-equal to "
+        f"histogram_bins")
+    del got, want, d, d2, keys
+
+    for min_pts in (2, 5):
+        t = densebox_tree(pts, eps, min_pts)
+        kinds = {k: int((t.kind == v).sum()) for k, v in (
+            ("cell", kw.DENSE_CELL), ("skip", kw.DENSE_SKIP), ("point", kw.DENSE_POINT))}
+        require(all(kinds.values()), f"DenseBox leaves of every kind {kinds}")
+        lab = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(DEV)
+        words = t.words(lab)
+        order = t.bvh.leaf_perm
+        for stop in (None, min_pts):
+            tally = {}
+            got = kw.wavefront_dense_count(t.bvh, t.pts_sorted, t.r2, words, t.pts_sorted,
+                                           t.half, stop_at=stop, qmask=~t.dense,
+                                           order=order)
+            want = kw.wavefront_dense_count_plain(t.bvh, t.pts_sorted, t.r2, words,
+                                                  t.pts_sorted, t.half, stop, ~t.dense,
+                                                  tally)
+            require(torch.equal(got, want), f"wavefront_dense_count min_pts "
+                    f"{min_pts} stop_at {stop}")
+            log(f"[2] wavefront_dense_count min_pts={min_pts} stop_at={stop}: exact; "
+                f"leaves {kinds}, cell hits {tally}")
+        qmask = torch.from_numpy(rng.random(n) < 0.7).to(DEV)
+        tally = {}
+        got = kw.wavefront_dense_min_label(t.bvh, t.pts_sorted, t.r2, words,
+                                           t.pts_sorted, lab, t.half, qmask, n,
+                                           order=order)
+        want = kw.wavefront_dense_min_label_plain(t.bvh, t.pts_sorted, t.r2, words,
+                                                  t.pts_sorted, lab, t.half, qmask, n,
+                                                  tally)
+        require(torch.equal(got, want), f"wavefront_dense_min_label min_pts {min_pts}")
+        require(tally.get("whole", 0) > 0 and tally.get("scanned", 0) > 0,
+                f"whole and partial cells {tally}")
+        log(f"[2] wavefront_dense_min_label min_pts={min_pts}: exact over "
+            f"{int(qmask.sum())} queries, cell hits {tally}")
+
+
+def subnormal_rows(torch, rng, m, d, scale=1.0):
+    """Rows mixing subnormal, tiny and ordinary coordinates and zeros."""
+    x = rng.random((m, d)).astype(np.float32) * np.float32(scale)
+    pick = rng.random((m, d))
+    tiny = np.array([1e-20, -1e-20, 3e-39, -5e-40, 1e-45, 2e-19], np.float32)
+    x[pick < 0.3] = rng.choice(tiny, int((pick < 0.3).sum()))
+    x[pick > 0.9] = 0.0
+    return torch.from_numpy(x).to(DEV)
+
+
+def c7_kernel_checks(seed):
+    """Phase 2's B5-B8 against their plain versions on inputs whose
+    products and differences fall below FLT_MIN (ROADMAP C7)."""
+    import torch
+    from repro_torch.kernels import pairwise as kp
+    rng = np.random.default_rng(seed + 41)
+    for m, n, d in ((3001, 5003, 3), (3001, 5003, 64), (129, 257, 1)):
+        x, y = subnormal_rows(torch, rng, m, d), subnormal_rows(torch, rng, n, d)
+        lab = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(DEV)
+        core = torch.from_numpy(rng.random(n) < 0.5).to(DEV)
+        for eps2 in (0.0, float(np.float32(0.3 * d ** 0.5) ** 2)):
+            require(torch.equal(kp.pairwise_count(x, y, eps2),
+                                kp.pairwise_count_plain(x, y, eps2)) and
+                    torch.equal(kp.pairwise_min_label(x, y, lab, core, eps2),
+                                kp.pairwise_min_label_plain(x, y, lab, core, eps2)),
+                    f"all pairs with subnormals at {m}x{n}x{d}, eps2 {eps2}")
+    a = torch.tensor([[1e-20, 0.0, 0.0]], device=DEV)
+    require(int(kp.pairwise_count(a, torch.zeros((1, 3), device=DEV), 0.0)[0]) == 1,
+            "C7: (1e-20, 0, 0) against the origin at eps = 0")
+    ncells, cap = 4096, 16
+    cell_pts = torch.full((ncells + 1, cap, 3), kp.BIG, device=DEV)
+    occ = torch.from_numpy(rng.random((ncells, cap)) < 0.6).to(DEV)
+    cell_pts[:-1][occ] = subnormal_rows(torch, rng, int(occ.sum()), 3, 1e-3)
+    nbr = torch.from_numpy(rng.integers(-3, ncells + 4, (ncells, 27)).astype(np.int32)).to(DEV)
+    labels = torch.from_numpy(rng.permutation((ncells + 1) * cap).astype(np.int32)
+                              .reshape(ncells + 1, cap)).to(DEV)
+    core = torch.from_numpy(rng.random((ncells + 1, cap)) < 0.5).to(DEV)
+    for eps2 in (0.0, 1e-6):
+        require(torch.equal(kp.stencil_count(cell_pts, nbr, eps2),
+                            kp.stencil_count_plain(cell_pts, nbr, eps2)) and
+                torch.equal(kp.stencil_min_label(cell_pts, labels, core, nbr, eps2),
+                            kp.stencil_min_label_plain(cell_pts, labels, core, nbr,
+                                                       eps2)),
+                f"stencil kernels with subnormals, eps2 {eps2}")
+    log("[2] B5-B8 with subnormal inputs, products and differences (all pairs at "
+        "3001x5003 for d = 3, 64 and 129x257x1; stencil at 4096 cells x 16): "
+        "bit-equal to their plain versions at eps2 = 0 and above; C7's case "
+        "counts 1")
+
+
+def phase3_pair_and_densebox(seed: int, n: int = 1 << 16):
+    """The card against the CPU path, exactly: fdbscan_pair, fdbscan_densebox
+    and pair_count_histogram at ``n`` Plummer particles, and the C9 case."""
+    import torch
+    from repro_torch.core import correlation as tc
+    from repro_torch.core import dbscan as td
+    from repro_torch.data.pipeline import hacc_benchmark_epsilon
+
+    pos, _, _ = plummer_cloud(seed + 42, n)
+    eps = hacc_benchmark_epsilon(1.0, n)
+    kernels = kernel_wrappers()
+    for name, fn, kw_args in (("fdbscan_pair", td.fdbscan_pair, {"edge_capacity": 8}),
+                              ("fdbscan_densebox", td.fdbscan_densebox, {})):
+        reset_counts(kernels)
+        a = fn(pos, eps, 2, device=DEV, **kw_args)
+        launched = instance_counts(kernels)
+        b = fn(pos, eps, 2, device="cpu", **kw_args)
+        require(all(torch.equal(getattr(a, f).cpu(), getattr(b, f)) for f in a._fields),
+                f"{name}: card == CPU")
+        log(f"[3] {name} at {n}: labels, core mask and {int(a.num_rounds)} rounds "
+            f"card == CPU; launches {launched}")
+    reset_counts(kernels)
+    a = tc.pair_count_histogram(pos, 2 * eps, 16, device=DEV)
+    require(kernels["wavefront_histogram"].launches == 1, "one HISTOGRAM launch")
+    require(torch.equal(a.cpu(), tc.pair_count_histogram(pos, 2 * eps, 16, device="cpu")),
+            "pair_count_histogram: card == CPU")
+    log(f"[3] pair_count_histogram at {n}, 2 eps, 16 bins: card == CPU, "
+        f"{int(a.sum())} pairs")
+    pts = c9_points(torch)
+    got = td.fdbscan_densebox(pts, 1e-3, 2, device=DEV)
+    want = td.fdbscan(pts, 1e-3, 2, device=DEV)
+    require(torch.equal(got.labels, want.labels) and torch.equal(got.core_mask, want.core_mask),
+            "C9: DenseBox == fdbscan on the four points")
+    log(f"[3] C9: fdbscan_densebox labels {got.labels.tolist()} == fdbscan's "
+        f"(the reference's int32 ids wrap and give [-1, -1, 2, 2])")
+
+
+PAIR_KERNELS = ("wavefront_edge", "wavefront_histogram", "wavefront_dense_count",
+                "wavefront_dense_min_label")
+
+
+def phase12_pair_and_densebox(seed: int, n: int, card: str, wave: dict):
+    """Phase 12: fdbscan_pair, fdbscan_densebox and pair_count_histogram at
+    phase 4's cloud and eps, each step timed with its peak memory and
+    launches by instance; then a phase 9 row for each new epilogue at the
+    step's own inputs."""
+    import torch
+    tq = importlib.import_module("repro_torch.core.query")
+    from repro_torch.core import correlation as tc
+    from repro_torch.core import dbscan as td
+    from repro_torch.core.bvh import build_bvh
+    from repro_torch.core.cell_grid import build_cell_grid
+    from repro_torch.core.geometry import scene_bounds
+    from repro_torch.data.pipeline import hacc_benchmark_epsilon
+    from repro_torch.kernels import wavefront as kw
+
+    t_all = time.perf_counter()
+    pos, _, _ = plummer_cloud(seed, n)
+    pts = torch.from_numpy(pos).to(DEV)
+    del pos
+    eps = hacc_benchmark_epsilon(1.0, n)
+    kernels = kernel_wrappers()
+    steps, calls = [], {k: [] for k in PAIR_KERNELS}
+
+    with counted_step(torch, "fdbscan", kernels, "[12]") as rec:
+        ref = td.fdbscan(pts, eps, 2, device=DEV)
+    steps.append(rec)
+    with contextlib.ExitStack() as stack:
+        for k in ("wavefront_edge", "wavefront_dense_count", "wavefront_dense_min_label"):
+            stack.enter_context(tap(td, k, calls[k]))
+        with counted_step(torch, "fdbscan_pair(edge_capacity=8)", kernels, "[12]") as rec:
+            pr = td.fdbscan_pair(pts, eps, 2, edge_capacity=8, device=DEV)
+        steps.append(rec)
+        with counted_step(torch, "fdbscan_densebox", kernels, "[12]") as rec:
+            db = td.fdbscan_densebox(pts, eps, 2, device=DEV)
+        steps.append(rec)
+    for rec, names in ((steps[1], ("wavefront_edge", "wavefront_min_label")),
+                       (steps[2], ("wavefront_dense_count", "wavefront_dense_min_label"))):
+        for k in names:
+            require(rec["launches"].get(f"{k} sphere/{'box' if 'dense' in k else 'point'}", 0) > 0,
+                    f"{k} was not launched in {rec['step']}")
+    for name, res in (("fdbscan_pair", pr), ("fdbscan_densebox", db)):
+        require(torch.equal(res.labels, ref.labels) and
+                torch.equal(res.core_mask, ref.core_mask),
+                f"{name}: labels and core mask == fdbscan's")
+    lo, hi = scene_bounds(pts)
+    grid = build_cell_grid(pts, lo, hi, float(torch.tensor(eps) / torch.tensor(3 ** 0.5)))
+    cells = int(torch.prod(grid.dims.long()))
+    largest = int(grid.run_length.max())
+    log(f"[12] fdbscan_pair and fdbscan_densebox: labels and core mask == "
+        f"fdbscan's; rounds pair {int(pr.num_rounds)}, densebox "
+        f"{int(db.num_rounds)}, fdbscan {int(ref.num_rounds)}; DenseBox's grid "
+        f"{grid.dims.tolist()} = {cells} cells ({cells / 2**31:.2f} x 2^31), "
+        f"largest run {largest}, dense points (min_pts 2) "
+        f"{int((grid.run_length >= 2).sum())}")
+    del ref, pr, db, grid
+
+    r_max = 4 * eps
+    with tap(tc, "wavefront_histogram", calls["wavefront_histogram"]):
+        with counted_step(torch, "pair_count_histogram(r_max=4 eps, 16 bins)", kernels,
+                          "[12]") as rec:
+            hist = tc.pair_count_histogram(pts, r_max, 16, device=DEV)
+        steps.append(rec)
+    require(rec["launches"].get("wavefront_histogram sphere/point", 0) == 1,
+            "wavefront_histogram was not launched once in pair_count_histogram")
+    bvh = build_bvh(pts, lo, hi)
+    within4 = int(tq.query_count(bvh, tq.within(pts, r_max), order=bvh.leaf_perm)
+                  .sum(dtype=torch.int64))
+    require(int(hist.sum()) * 2 == within4 - n,
+            "histogram total == (sum of 4 eps counts - n) / 2")
+    log(f"[12] pair_count_histogram: {int(hist.sum())} pairs == ({within4} - {n}) / 2; "
+        f"bins {hist.tolist()}")
+    del bvh, hist
+    log(f"[12] phase 12 steps: {json.dumps(steps)}; {time.perf_counter() - t_all:.1f} s")
+    return pair_rows(torch, kw, calls, steps, n, card, wave)
+
+
+def pair_rows(torch, kw, calls, steps, n, card, wave):
+    """Phase 9's rows of EDGE, HISTOGRAM, DENSE_COUNT and DENSE_MIN_LABEL,
+    each at its first launch's inputs in phase 12: the kernel timed as the
+    path runs it, its plain version and the hops (EDGE and the DenseBox
+    pair: the plain version over every query, bit-equal to the kernel;
+    HISTOGRAM: the plain version over 2^12 of the queries, the hops of all
+    from the counter instance)."""
+    src = "src/repro_torch/kernels/csrc/wavefront.cu"
+    ref = "src/repro/kernels/wavefront.py:97"
+    launches = {}
+    for rec in steps:
+        for key, v in rec["launches"].items():
+            name = key.split(" ")[0]
+            if name in PAIR_KERNELS:
+                launches.setdefault(name, (v, rec["step"]))
+    rows = []
+
+    def row(name, bvh, shared, ms, plain_ms, nbytes, ops, hops, plain_input, extra):
+        b_ms, b_by = bound(nbytes, ops)
+        v, path = launches.get(name, (0, None))
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": ref,
+                     "launches": v, "path": path, "card": card, "max_abs_err": 0.0,
+                     "ms": ms, "plain_ms": plain_ms, "plain_input": plain_input,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                     **traversal_fields(torch, kw, bvh, hops, ms, wave, name, shared),
+                     **extra})
+
+    (bvh, centers, r2, keys, cap), kwa, got = calls["wavefront_edge"][0]
+    with kw.shared_pack(bvh):
+        ms = cuda_ms(torch, lambda: kw.wavefront_edge(bvh, centers, r2, keys, cap, **kwa), 3)
+    start = kwa["start"]
+    lanes = torch.nonzero(keys[:, 1] >= 0).flatten()
+    buf = torch.full((n, cap), -1, dtype=torch.int32, device=DEV)
+    carry0 = torch.stack([torch.zeros_like(lanes), lanes], 1)
+    (carry, hops), plain_ms = timed_once(torch, lambda: kw.lockstep_traverse(
+        bvh, centers, r2, lanes, carry0, kw.edge_epilogue(bvh, keys, buf), start=start))
+    require(torch.equal(buf, got[0]) and torch.equal(
+        carry[:, 0].int(), got[1][lanes]), "wavefront_edge on phase 12's input")
+    nb = tree_bytes(bvh) + n * (12 + 4 + 4 + 8 + 4) + buf.numel() * 4
+    row("wavefront_edge", bvh, True, ms, plain_ms, nb, hops * FLOPS_PER_HOP, hops,
+        "every query", {"capacity": cap, "edges": int(got[1].sum())})
+    del buf, carry, got
+
+    (bvh, centers, r2, r_max, n_bins), kwa, got = calls["wavefront_histogram"][0]
+    ms = cuda_ms(torch, lambda: kw.wavefront_histogram(bvh, centers, r2, r_max, n_bins,
+                                                        **kwa), 3)
+    start = kwa["start"]
+    _, stats = kw.wavefront_count(bvh, centers, r2, start=start,
+                                  depths=importlib.import_module(
+                                      "repro_torch.core.query").node_depths(bvh))
+    hops = int(stats[0].sum(dtype=torch.int64))
+    sub = torch.from_numpy(np.random.default_rng(7).choice(n, min(n, 1 << 12),
+                                                           replace=False)).to(DEV)
+    sc, sr, ss = centers[sub].contiguous(), r2[sub].contiguous(), start[sub].contiguous()
+    sub_ms = cuda_ms(torch, lambda: kw.wavefront_histogram(bvh, sc, sr, r_max, n_bins,
+                                                            start=ss), 3)
+    want, plain_ms = timed_once(torch, lambda: kw.wavefront_histogram_plain(
+        bvh, sc, sr, r_max, n_bins, ss))
+    require(torch.equal(kw.wavefront_histogram(bvh, sc, sr, r_max, n_bins, start=ss), want),
+            "wavefront_histogram on a part of phase 12's input")
+    pairs = int(got.sum())
+    nb = tree_bytes(bvh) + n * (12 + 4 + 4) + n_bins * 8
+    row("wavefront_histogram", bvh, False, ms, plain_ms, nb,
+        hops * FLOPS_PER_HOP + pairs * OPS_PER_BIN, hops,
+        "2^12 sampled queries", {"ms_at_plain_input": sub_ms, "pairs": pairs,
+                                 "n_bins": n_bins, "ops_per_pair": OPS_PER_BIN})
+    del stats, got, want
+
+    for name in ("wavefront_dense_count", "wavefront_dense_min_label"):
+        args, kwa, got = calls[name][0]
+        wrapper = getattr(kw, name)
+        bvh = args[0]
+        with kw.shared_pack(bvh):
+            ms = cuda_ms(torch, lambda: wrapper(*args, **kwa), 3)
+        tally = {}
+        if name == "wavefront_dense_count":
+            _, centers, r2, words, pts, half = args
+            qmask, extra = kwa["qmask"], {"stop_at": kwa["stop_at"]}
+            epi = kw.dense_epilogue(bvh, words, pts, centers, r2, half,
+                                    stop_at=kwa["stop_at"], tally=tally)
+            init = 0
+        else:
+            _, centers, r2, words, pts, scan_lab, half, qmask, init = args
+            extra = {}
+            epi = kw.dense_epilogue(bvh, words, pts, centers, r2, half,
+                                    scan_lab=scan_lab, tally=tally)
+        lanes = torch.nonzero(qmask).flatten()
+        carry0 = torch.stack([torch.full_like(lanes, int(init)), lanes], 1)
+        (carry, hops), plain_ms = timed_once(torch, lambda: kw.lockstep_traverse(
+            bvh, centers, r2, lanes, carry0, epi))
+        require(torch.equal(carry[:, 0].int(), got[lanes]), f"{name} on phase 12's input")
+        ops = (hops * FLOPS_PER_HOP + tally["scan_tests"] * OPS_PER_SCAN_TEST
+               + (tally["whole"] + tally["scanned"]) * OPS_PER_CELL_TEST)
+        nb = tree_bytes(bvh) + n * (12 + 4 + 1 + 4 + 16 + 12 + (4 if init else 0))
+        row(name, bvh, True, ms, plain_ms, nb, ops, hops, "every query in the launch's mask",
+            {**extra, "queries": int(lanes.numel()), **tally})
+    for r in rows:
+        log(f"[12] {r['name']}: {r['ms']:.4f} ms a launch x {r['launches']} in "
+            f"{r['path']}, plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), {r['hops']} hops, {r['ghops_per_s']:.1f} Ghops/s, "
+            f"pack {r['pack_ms']:.4f} ms, {r['registers']} registers; {card}")
+    return rows
+
+
 def phase9_kernel_line(launches_by_step, records, more_rows, card, wave, seg_rep):
     import torch
     from repro_torch.kernels import segment as ks
@@ -2673,6 +3106,10 @@ def kernel_wrappers(names=None) -> dict:
              "wavefront_fill": kw.wavefront_fill,
              "wavefront_fixed": kw.wavefront_fixed,
              "wavefront_potential": kw.wavefront_potential,
+             "wavefront_edge": kw.wavefront_edge,
+             "wavefront_histogram": kw.wavefront_histogram,
+             "wavefront_dense_count": kw.wavefront_dense_count,
+             "wavefront_dense_min_label": kw.wavefront_dense_min_label,
              "segment_sum_sorted": ks.segment_sum_sorted,
              "segment_max_sorted": ks.segment_max_sorted,
              "stencil_count": kp.stencil_count,
@@ -2709,10 +3146,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     small = phase2_kernels(args.seed)
     phase2_pairwise_kernels(args.seed)
+    c7_kernel_checks(args.seed)
     log(f"[2] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase3_whole_path(args.seed, cfg)
     phase3_grid_and_pairwise(args.seed)
+    phase3_pair_and_densebox(args.seed)
     log(f"[3] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches_by_step, records = phase4_main_path(args.seed, 1 << args.n_log2, cfg)
@@ -2737,8 +3176,12 @@ def main(argv=None) -> int:
     pred_rows = phase11_predicates(args.seed, 1 << args.n_log2, card, wave)
     log(f"[11] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    dbscan_rows = phase12_pair_and_densebox(args.seed, 1 << args.n_log2, card, wave)
+    log(f"[12] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     phase9_kernel_line(launches_by_step, records,
-                       nl_rows + grid_rows + pair_rows + halo_rows + pred_rows,
+                       nl_rows + grid_rows + pair_rows + halo_rows + pred_rows
+                       + dbscan_rows,
                        card, wave,
                        seg)
     log(f"[9] done in {time.perf_counter() - t0:.1f} s; "

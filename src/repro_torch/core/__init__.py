@@ -1,17 +1,22 @@
 """Spatial core of the port (``repro/core/__init__.py``): geometry, Morton
-codes, the LBVH, the query engine and its protocols, the traversal shims,
-union-find and DBSCAN. Re-exports the ported names of the reference's
-list; ``cell_grid``, ``knn``, ``emst``, ``correlation``, ``interpolate``,
-``raycast``, ``fdbscan_pair`` and ``fdbscan_densebox`` are not ported yet
-(ROADMAP A9, A10)."""
+codes, the LBVH, the cell grid, the query engine and its protocols (the
+pair backend included), the traversal shims, union-find, the DBSCAN
+variants and the pair correlation. Re-exports the ported names of the
+reference's list; ``knn``, ``emst``, ``interpolate`` and ``raycast`` are
+not ported yet (ROADMAP A10)."""
 from repro_torch.core.bvh import SENTINEL, Bvh, build_bvh, build_bvh_objects
+from repro_torch.core.cell_grid import CellGrid, build_cell_grid, cell_box
+from repro_torch.core.correlation import pair_count_histogram, two_point_correlation
 from repro_torch.core.dbscan import (
     NOISE,
     DbscanResult,
     count_neighbors,
     dbscan_graph_cc,
     fdbscan,
+    fdbscan_densebox,
+    fdbscan_pair,
     min_core_label_on,
+    seg_min_per_point,
     union_rounds,
 )
 from repro_torch.core.geometry import Aabb, aabb_of_points
@@ -46,7 +51,10 @@ __all__ = [
     "Bvh", "build_bvh", "build_bvh_objects", "SENTINEL",
     "NOISE", "DbscanResult", "count_neighbors",
     "min_core_label_on", "union_rounds",
-    "dbscan_graph_cc", "fdbscan",
+    "dbscan_graph_cc", "fdbscan", "fdbscan_pair", "fdbscan_densebox",
+    "seg_min_per_point",
+    "CellGrid", "build_cell_grid", "cell_box",
+    "pair_count_histogram", "two_point_correlation",
     "Aabb", "aabb_of_points",
     "morton32", "morton64", "normalize_points",
     "Within", "IntersectsBox", "Nearest", "Ray",

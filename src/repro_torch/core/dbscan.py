@@ -1,5 +1,6 @@
-"""DBSCAN; port of ``repro/core/dbscan.py`` (``fdbscan`` and its passes,
-and ``dbscan_graph_cc``), over 63-bit or 30-bit Morton codes.
+"""DBSCAN; port of ``repro/core/dbscan.py``: ``fdbscan`` and its passes,
+``dbscan_graph_cc``, ``fdbscan_pair`` and ``fdbscan_densebox``, over
+63-bit or 30-bit Morton codes.
 
 Phase 1 counts ε-neighbours with early exit at ``min_pts``; phase 2 runs
 min-label hooking plus pointer jumping to a fixpoint, each round's labels
@@ -17,24 +18,43 @@ are the reference's exactly.
 components over the core-core edges. It needs O(n·capacity) memory, and
 its result is right only where no neighborhood exceeds the capacity; the
 port keeps both drawbacks, as the reference documents them.
+
+``fdbscan_pair`` runs its union phase on the pair traversal: each core
+query captures up to ``edge_capacity`` core neighbours after it in Morton
+order whose root differs from its own (the traversal kernel's EDGE
+epilogue), then hooks them; rounds repeat while a buffer filled or a label
+changed. ``fdbscan_densebox`` builds one tree over the cells of an ε/√d
+grid that hold at least ``min_pts`` points (as boxes) and the other
+points; dense points are core and pre-unioned, and the two passes are the
+kernel's DENSE_COUNT and DENSE_MIN_LABEL epilogues, which take a cell
+within ε wholesale and scan it point by point otherwise. Labels, core mask
+and rounds are the reference's exactly.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.core import union_find
-from repro_torch.core.bvh import Bvh, build_bvh
+from repro_torch.core.bvh import Bvh, build_bvh, build_bvh_objects
+from repro_torch.core.cell_grid import CellGrid, build_cell_grid, cell_box
 from repro_torch.core.geometry import scene_bounds
 from repro_torch.core.query import query_count, query_fixed, squared_radii, within
 from repro_torch.device import as_tensor_on, resolve_device
-from repro_torch.kernels.wavefront import shared_pack, wavefront_min_label
+from repro_torch.kernels.wavefront import (DENSE_CELL, DENSE_POINT, DENSE_SKIP,
+                                           dense_leaves, pair_keys, pair_starts,
+                                           shared_pack, wavefront_dense_count,
+                                           wavefront_dense_min_label,
+                                           wavefront_edge, wavefront_min_label)
 
 NOISE = -1
 
 __all__ = ["NOISE", "DbscanResult", "count_neighbors", "min_core_label_on",
-           "union_rounds", "fdbscan", "dbscan_graph_cc"]
+           "union_rounds", "fdbscan", "dbscan_graph_cc", "fdbscan_pair",
+           "seg_min_per_point", "DenseBoxTree", "densebox_tree",
+           "fdbscan_densebox"]
 
 
 class DbscanResult(NamedTuple):
@@ -97,23 +117,27 @@ def _finish_labels(parent, border_candidate, core, n):
     return torch.where(labels >= 0, resolved, noise)
 
 
+def _hook(parent: torch.Tensor, m: torch.Tensor, core: torch.Tensor):
+    """One union round: parent[parent[i]] <- min(., m_i) for core i (a
+    scatter-min; other points write their own root onto itself), then
+    pointer jumping."""
+    tgt = torch.where(core, parent, parent.shape[0] - 1).long()
+    upd = torch.where(core, torch.minimum(m, parent), parent[tgt])
+    return union_find.compress(parent.scatter_reduce(0, tgt, upd, "amin",
+                                                     include_self=True))
+
+
 def union_rounds(bvh: Bvh, points: torch.Tensor, eps, core: torch.Tensor,
                  n: int, max_rounds: int = 64):
     """Fixpoint: hook each core point's root under the min core-neighbour
     label, then pointer-jump. Returns ``(parent, rounds)``."""
     dev = points.device
     parent = torch.arange(n, dtype=torch.int32, device=dev)
-    last = torch.full_like(parent, n - 1)
     rounds = 0
     while rounds < max_rounds:
         m = min_core_label_on(bvh, points, eps, parent, core, core, n,
                               order=bvh.leaf_perm)
-        # hook: parent[parent[i]] <- min(., m_i) for core i (scatter-min)
-        tgt = torch.where(core, parent, last)
-        upd = torch.where(core, torch.minimum(m, parent), parent[tgt.long()])
-        parent2 = parent.scatter_reduce(0, tgt.long(), upd, "amin",
-                                        include_self=True)
-        parent2 = union_find.compress(parent2)
+        parent2 = _hook(parent, m, core)
         rounds += 1
         changed = bool((parent2 != parent).any())
         parent = parent2
@@ -192,4 +216,178 @@ def dbscan_graph_cc(points, eps, min_pts: int, neighbor_capacity: int = 64,
     labels = _finish_labels(parent, border, core, n)
     return DbscanResult(labels=labels, core_mask=core,
                         num_rounds=torch.tensor(1, dtype=torch.int32,
+                                                device=dev))
+
+
+def fdbscan_pair(points, eps, min_pts: int, edge_capacity: int = 8,
+                 use_64bit: bool = True, *, device=None) -> DbscanResult:
+    """FDBSCAN whose union phase visits each unordered pair once (§4.2.3).
+
+    Each core query i captures up to ``edge_capacity`` cross-root core
+    neighbours j after it in Morton order and stops when its buffer fills;
+    the captured edges are hooked (``union_find.hook_min``) and the labels
+    compressed. Rounds repeat while a buffer filled or a label changed, at
+    most 64. Runs on ``device`` (``None``: the CUDA card)."""
+    if edge_capacity < 1:
+        raise ValueError("edge_capacity must be >= 1")
+    dev = resolve_device(device)
+    points = as_tensor_on(points, torch.float32, dev)
+    n = points.shape[0]
+    lo, hi = scene_bounds(points)
+    bvh = build_bvh(points, lo, hi, use_64bit=use_64bit)
+    perm = bvh.leaf_perm
+    pred = within(points, eps)
+    centers = pred.centers[perm.long()].contiguous()
+    r2 = squared_radii(pred)[perm.long()].contiguous()
+    starts = pair_starts(bvh)
+    src = perm.long()[:, None].expand(n, edge_capacity)
+
+    with shared_pack(bvh):
+        core = count_neighbors(bvh, points, points, eps, min_pts,
+                               order=perm) >= min_pts
+        parent = torch.arange(n, dtype=torch.int32, device=dev)
+        rounds, go = 0, True
+        while go and rounds < 64:
+            buf, cnt = wavefront_edge(bvh, centers, r2,
+                                      pair_keys(bvh, parent, core),
+                                      edge_capacity, start=starts)
+            overflow = bool((cnt >= edge_capacity).any())
+            # Buffer row k belongs to sorted query k, original leaf_perm[k].
+            mask = buf >= 0
+            dst = buf[mask]
+            parent2 = union_find.compress(union_find.hook_min(
+                parent, src[mask], dst, torch.ones_like(dst, dtype=torch.bool)))
+            changed = bool((parent2 != parent).any())
+            parent, rounds = parent2, rounds + 1
+            go = changed or overflow
+        ids = torch.arange(n, dtype=torch.int32, device=dev)
+        parent = torch.where(core, parent, ids)
+        border = min_core_label_on(bvh, points, eps, parent, core, ~core, n,
+                                   order=perm)
+    labels = _finish_labels(parent, border, core, n)
+    return DbscanResult(labels=labels, core_mask=core,
+                        num_rounds=torch.tensor(rounds, dtype=torch.int32,
+                                                device=dev))
+
+
+def seg_min_per_point(values_sorted: torch.Tensor, run_start: torch.Tensor,
+                      run_length: torch.Tensor) -> torch.Tensor:
+    """Per sorted point, the min of ``values_sorted`` over its cell run
+    (runs given by ``run_start``, one per head ``run_start[t] == t``), in
+    ``values_sorted``'s dtype: a scatter-min over run ids, then a gather.
+    ``run_length`` is taken for the reference's signature."""
+    del run_length
+    n = values_sorted.shape[0]
+    idx = torch.arange(n, dtype=run_start.dtype, device=run_start.device)
+    run = torch.cumsum((idx == run_start).long(), 0) - 1
+    big = torch.iinfo(values_sorted.dtype).max
+    mins = torch.full((n,), big, dtype=values_sorted.dtype,
+                      device=values_sorted.device)
+    mins = mins.scatter_reduce(0, run, values_sorted, "amin")
+    return mins[run]
+
+
+class DenseBoxTree(NamedTuple):
+    """DenseBox's mixed tree and what its epilogues read, in grid-sorted
+    order (``grid.perm``): one leaf per sorted point, a dense cell's box at
+    its run's head, a leaf to skip at its other points, a loose point as
+    itself."""
+    grid: CellGrid
+    bvh: Bvh
+    pts_sorted: torch.Tensor  # (n, 3) float32
+    r2: torch.Tensor          # (n,) float32 eps² per sorted query
+    dense: torch.Tensor       # (n,) bool: in a cell of >= min_pts points
+    kind: torch.Tensor        # (n,) DENSE_POINT / DENSE_CELL / DENSE_SKIP
+    half: float               # half the cell size
+
+    def words(self, label: torch.Tensor) -> torch.Tensor:
+        """The (n, 4) leaf words with ``label`` per sorted point."""
+        g = self.grid
+        return dense_leaves(self.bvh, g.run_start, g.run_length, label,
+                            self.kind)
+
+
+def densebox_tree(points: torch.Tensor, eps, min_pts: int,
+                  use_64bit: bool = True) -> DenseBoxTree:
+    """The grid of cell ε/√d over ``points`` ((n, 3) float32, on their
+    device) and the tree over its dense cells and other points
+    (``repro/core/dbscan.py:314-333``)."""
+    _, d = points.shape
+    lo, hi = scene_bounds(points)
+    eps_f = torch.tensor(float(eps), dtype=torch.float32)
+    cell = float(eps_f / torch.tensor(math.sqrt(d), dtype=torch.float32))
+    grid = build_cell_grid(points, lo, hi, cell)
+    dense = grid.dense_mask_sorted(min_pts)
+    is_cell = dense & grid.is_run_head()
+    kind = torch.where(is_cell, DENSE_CELL,
+                       torch.where(dense, DENSE_SKIP, DENSE_POINT))
+    pts_sorted = points[grid.perm.long()].contiguous()
+    cell_lo, cell_hi = cell_box(grid, grid.cell_coord_sorted)
+    bvh = build_bvh_objects(torch.where(is_cell[:, None], cell_lo, pts_sorted),
+                            torch.where(is_cell[:, None], cell_hi, pts_sorted),
+                            lo, hi, use_64bit=use_64bit)
+    return DenseBoxTree(grid=grid, bvh=bvh, pts_sorted=pts_sorted,
+                        r2=squared_radii(within(pts_sorted, eps)), dense=dense,
+                        kind=kind, half=float(grid.cell_size * 0.5))
+
+
+def fdbscan_densebox(points, eps, min_pts: int, use_64bit: bool = True, *,
+                     device=None) -> DbscanResult:
+    """FDBSCAN-DenseBox (§4.3.4) on :func:`densebox_tree`: dense points
+    are core and pre-unioned to their cell's least index; the count pass
+    (DENSE_COUNT) runs for the other points, the union rounds
+    (DENSE_MIN_LABEL) from every core point and the border pass from the
+    rest. Runs on ``device`` (``None``: the CUDA card)."""
+    dev = resolve_device(device)
+    points = as_tensor_on(points, torch.float32, dev)
+    n = points.shape[0]
+    t = densebox_tree(points, eps, min_pts, use_64bit)
+    grid, bvh, pts, dense_s = t.grid, t.bvh, t.pts_sorted, t.dense
+    perm = grid.perm.long()
+    is_cell = t.kind == DENSE_CELL
+    order = bvh.leaf_perm
+
+    with shared_pack(bvh):
+        # Phase 1: core points. Dense points are core for free.
+        counts_s = wavefront_dense_count(
+            bvh, pts, t.r2, t.words(torch.zeros_like(grid.perm)), pts, t.half,
+            stop_at=min_pts, qmask=~dense_s, order=order)
+        core_s = dense_s | (counts_s >= min_pts)
+        core = torch.zeros(n, dtype=torch.bool, device=dev)
+        core[perm] = core_s
+
+        def min_label_pass(parent, queries_mask_s):
+            scan_lab = parent[perm]
+            cell_lab = seg_min_per_point(scan_lab, grid.run_start,
+                                         grid.run_length)
+            label = torch.where(is_cell, cell_lab,
+                                torch.where(core_s, scan_lab, n))
+            m_s = wavefront_dense_min_label(
+                bvh, pts, t.r2, t.words(label), pts, scan_lab, t.half,
+                queries_mask_s, n, order=order)
+            out = torch.empty(n, dtype=torch.int32, device=dev)
+            out[perm] = m_s
+            return out
+
+        # Phase 2: union rounds from every core point, dense cells
+        # pre-unioned to their least original index.
+        seg_min_orig = seg_min_per_point(grid.perm, grid.run_start,
+                                         grid.run_length)
+        parent = torch.empty(n, dtype=torch.int32, device=dev)
+        parent[perm] = torch.where(dense_s, seg_min_orig, grid.perm)
+        parent = union_find.compress(parent)
+        rounds = 0
+        while rounds < 64:
+            parent2 = _hook(parent, min_label_pass(parent, core_s), core)
+            rounds += 1
+            changed = bool((parent2 != parent).any())
+            parent = parent2
+            if not changed:
+                break
+
+        # Phase 3: the border pass for the other points.
+        border = min_label_pass(parent, ~core_s)
+    labels = _finish_labels(parent, border, core, n)
+    return DbscanResult(labels=labels, core_mask=core,
+                        num_rounds=torch.tensor(rounds, dtype=torch.int32,
                                                 device=dev))

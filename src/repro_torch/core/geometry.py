@@ -20,7 +20,7 @@ import torch
 
 __all__ = ["Aabb", "aabb_of_points", "aabb_union", "scene_bounds",
            "point_aabb_dist2", "aabb_aabb_dist2", "safe_inv", "ray_box",
-           "flush", "ieee_minimum", "ieee_maximum"]
+           "flush", "sum_sq", "ieee_minimum", "ieee_maximum"]
 
 _TINY = torch.finfo(torch.float32).tiny
 
@@ -68,7 +68,7 @@ def aabb_union(a: Aabb, b: Aabb) -> Aabb:
     return Aabb(ieee_minimum(a.lo, b.lo), ieee_maximum(a.hi, b.hi))
 
 
-def _sum_sq(d: torch.Tensor) -> torch.Tensor:
+def sum_sq(d: torch.Tensor) -> torch.Tensor:
     """``(dx*dx + dy*dy) + dz*dz`` of (m, 3) gaps, each product flushed."""
     dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
     return (flush(dx * dx) + flush(dy * dy)) + flush(dz * dz)
@@ -83,7 +83,7 @@ def point_aabb_dist2(p: torch.Tensor, lo: torch.Tensor,
     axis: no fused multiply-add, so the ε test rounds identically on the
     CPU, on the card and in the CUDA kernel. Subnormal products flush to
     0, as XLA:CPU's do."""
-    return _sum_sq(torch.clamp(torch.maximum(lo - p, p - hi), min=0.0))
+    return sum_sq(torch.clamp(torch.maximum(lo - p, p - hi), min=0.0))
 
 
 def aabb_aabb_dist2(lo_a: torch.Tensor, hi_a: torch.Tensor,
@@ -93,7 +93,7 @@ def aabb_aabb_dist2(lo_a: torch.Tensor, hi_a: torch.Tensor,
     squared (flushed) and summed as :func:`point_aabb_dist2` sums them.
     ``IntersectsBox`` tests it ``<= 0``; a per-axis overlap test would
     differ where a gap's square flushes to 0."""
-    return _sum_sq(torch.clamp(torch.maximum(lo_b - hi_a, lo_a - hi_b),
+    return sum_sq(torch.clamp(torch.maximum(lo_b - hi_a, lo_a - hi_b),
                                min=0.0))
 
 

@@ -19,7 +19,14 @@ Backends (``backend=``), as the reference names them:
   whatever device the tensors lie (the reference's stack backend is no
   Pallas kernel either). It visits leaves in rope order, so every protocol
   gives the stackless results;
-* ``"pair"``: not ported (ROADMAP A9).
+* ``"pair"`` (``query`` only): the self-join of ``_pair_query``
+  (``repro/core/query.py:733-765``). Query k is the tree's sorted point k,
+  starting at ``rope[leaf k]``, so it visits only the leaves after k in
+  rope order and each unordered pair once; its ``query_idx`` is
+  ``leaf_perm[k]`` and carries (and stats rows) come back in sorted order.
+  A generic callback runs in torch ops; ``fdbscan_pair`` and
+  ``pair_count_histogram`` run the same walk as the kernel's EDGE and
+  HISTOGRAM epilogues.
 
 The protocols never route a CUDA tensor through the generic engine or
 through a plain version: on the card, stackless and pallas launch the
@@ -53,9 +60,9 @@ from repro_torch.core.geometry import safe_inv
 from repro_torch.core.morton import morton32, normalize_points, sort_by_morton32
 from repro_torch.kernels.wavefront import (count_epilogue, fill_epilogue,
                                            fill_lanes, fixed_carry,
-                                           fixed_epilogue, pred_test,
-                                           wavefront_count, wavefront_fill,
-                                           wavefront_fixed)
+                                           fixed_epilogue, pair_starts,
+                                           pred_test, wavefront_count,
+                                           wavefront_fill, wavefront_fixed)
 from repro_torch.obs.stats import TraversalStats
 
 __all__ = ["Within", "IntersectsBox", "Nearest", "Ray", "within",
@@ -645,10 +652,16 @@ def node_reduce(bvh: Bvh, leaf_values, combine: Callable, identity):
 
 
 def _spatial_query(bvh, pred, callback, carry_init, backend, with_stats,
-                   start_nodes):
+                   start_nodes, pair: bool = False):
     qa, qb, kind = query_geometry(pred)
     q = qa.shape[0]
-    qdata = (torch.arange(q, dtype=torch.int32, device=qa.device), qa, qb)
+    if pair:
+        # Query k = sorted point k; its query_idx is the original leaf_perm[k].
+        perm = bvh.leaf_perm
+        qdata = (perm, qa[perm.long()], qb[perm.long()])
+        start_nodes = pair_starts(bvh)
+    else:
+        qdata = (torch.arange(q, dtype=torch.int32, device=qa.device), qa, qb)
     n = bvh.num_leaves
 
     def node_fn(qd, _carry, node):
@@ -679,6 +692,25 @@ def _spatial_query(bvh, pred, callback, carry_init, backend, with_stats,
     return out, stats._replace(callback_hits=hits)
 
 
+def _pair_query(bvh, pred, callback, carry_init, with_stats=False):
+    """Pair traversal (§4.2.3): ``pred`` must be ``within`` over the very
+    points the tree indexes. Query k starts at ``rope[leaf k]`` and visits
+    exactly the leaves after k in Morton order, each unordered pair once.
+    Carries (and, with ``with_stats``, stats rows) come back in sorted
+    order; row k belongs to original point ``bvh.leaf_perm[k]``, the
+    ``query_idx`` the callback gets."""
+    if not isinstance(pred, Within):
+        raise TypeError("backend='pair' requires a within(...) predicate over "
+                        "the indexed points")
+    n = bvh.num_leaves
+    if pred.centers.shape[0] != n:
+        raise ValueError(
+            f"backend='pair' is a self-join: the predicate must cover exactly "
+            f"the {n} indexed points, got {pred.centers.shape[0]} queries")
+    return _spatial_query(bvh, pred, callback, carry_init, "stackless",
+                          with_stats, None, pair=True)
+
+
 def query(bvh: Bvh, predicates, callback: Callable | None = None,
           carry_init=None, *, backend: str = "stackless",
           sort_queries: bool = False, with_stats: bool = False,
@@ -694,26 +726,35 @@ def query(bvh: Bvh, predicates, callback: Callable | None = None,
       fires per leaf volume the ray pierces, with the entry parameter
       ``t`` in the last argument.
     * ``Nearest``, and ``Ray`` without a callback, are not ported
-      (ROADMAP A10); ``backend="pair"`` is not either (A9).
+      (ROADMAP A10).
 
-    ``backend``: ``stackless`` (``pallas`` is the same walk) or ``stack``.
-    ``sort_queries`` changes no result here and is accepted for the
-    reference's callers. ``with_stats=True`` returns ``(result,
+    ``backend``: ``stackless`` (``pallas`` is the same walk), ``stack`` or
+    ``pair`` (a ``within`` self-join; carries in sorted leaf order, see
+    :func:`_pair_query`). ``sort_queries`` changes no result here and is
+    accepted for the reference's callers (the pair backend refuses it, as
+    the reference's does). ``with_stats=True`` returns ``(result,
     TraversalStats)``. ``start_nodes`` (stackless) replaces the root."""
-    del sort_queries
+    if start_nodes is not None and backend == "pair":
+        raise ValueError(
+            "start_nodes applies to the spatial stackless/pallas traversals; "
+            "the pair backend derives its own start nodes")
     if isinstance(predicates, Nearest) or (isinstance(predicates, Ray)
                                            and callback is None):
         raise NotImplementedError(
             "the nearest and nearest-hit ray protocols are not ported yet "
             "(ROADMAP A10)")
-    if backend == "pair":
-        raise NotImplementedError("backend='pair' is not ported yet "
-                                  "(ROADMAP A9)")
+    if isinstance(predicates, Ray) and backend == "pair":
+        raise ValueError("backend='pair' is a within() self-join")
     if not isinstance(predicates, (Within, IntersectsBox, Ray)):
         raise TypeError(f"unknown predicate type {type(predicates).__name__}")
     if callback is None:
         raise ValueError("spatial predicates need a callback; use "
                          "query_count/query_csr for built-in output protocols")
+    if backend == "pair":
+        if sort_queries:
+            raise ValueError("backend='pair' queries are inherently "
+                             "Morton-sorted; sort_queries does not apply")
+        return _pair_query(bvh, predicates, callback, carry_init, with_stats)
     if backend == "pallas":
         backend = "stackless"
     return _spatial_query(bvh, predicates, callback, carry_init, backend,

@@ -1,9 +1,9 @@
 """Carry the JAX package's state into the port's tensors.
 
 This system has no model weights: its state is the particles and the BVH
-over them. These helpers take that state as numpy arrays, as the JAX
-package hands it out, so that a test can run the port's traversal on the
-very tree the reference built.
+(or cell grid) over them. These helpers take that state as numpy arrays,
+as the JAX package hands it out, so that a test can run the port's
+traversal on the very tree the reference built.
 """
 from __future__ import annotations
 
@@ -11,8 +11,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.bvh import Bvh
+from repro_torch.core.cell_grid import CellGrid
 
-__all__ = ["bvh_from_numpy", "morton64_to_int64"]
+__all__ = ["bvh_from_numpy", "cell_grid_from_numpy", "morton64_to_int64"]
 
 
 def _t(a, dtype, device) -> torch.Tensor:
@@ -39,6 +40,23 @@ def bvh_from_numpy(leaf_perm, left_child, right_child, rope, node_lo, node_hi,
                range_left=_t(range_left, i32, device),
                range_right=_t(range_right, i32, device),
                box_leaves=box_leaves)
+
+
+def cell_grid_from_numpy(cell_size, origin, dims, perm, inv_perm,
+                         cell_id_sorted, cell_coord_sorted, run_start,
+                         run_length, device="cpu") -> CellGrid:
+    """A port ``CellGrid`` from the reference's nine fields as numpy
+    arrays; the linear cell ids become int64 (the port's dtype)."""
+    i32, f32 = torch.int32, torch.float32
+    return CellGrid(cell_size=_t(cell_size, f32, device),
+                    origin=_t(origin, f32, device),
+                    dims=_t(dims, i32, device),
+                    perm=_t(perm, i32, device),
+                    inv_perm=_t(inv_perm, i32, device),
+                    cell_id_sorted=_t(cell_id_sorted, torch.int64, device),
+                    cell_coord_sorted=_t(cell_coord_sorted, i32, device),
+                    run_start=_t(run_start, i32, device),
+                    run_length=_t(run_length, i32, device))
 
 
 def morton64_to_int64(hi, lo) -> torch.Tensor:

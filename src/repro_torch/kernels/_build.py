@@ -6,6 +6,8 @@ Each ``csrc/<name>.cu`` compiles on first use into its own shared library
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/<name>.so <name>.cu
 
+(``pairwise.cu`` adds ``--ftz=true``: it flushes subnormals, as XLA:CPU).
+
 The compiler's output (the ``-Xptxas -v`` summary: registers, shared
 memory and spills per kernel) is kept beside the library as
 ``build/repro_torch/<name>.log`` (:func:`build_log`).
@@ -32,6 +34,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Flags of one source only. pairwise.cu flushes subnormal float inputs and
+# results to zero, as XLA:CPU does (ROADMAP C7).
+_SOURCE_FLAGS = {"pairwise": ("--ftz=true",)}
 
 
 def _nvcc() -> str:
@@ -59,7 +64,8 @@ def build_all(names=SOURCES) -> dict[str, str]:
         if not _stale(name):
             continue
         tmp = BUILD_DIR / f"{name}.{os.getpid()}.tmp.so"
-        cmd = [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *_NVCC_FLAGS, *_SOURCE_FLAGS.get(name, ()), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs, failed = {}, []

@@ -7,9 +7,16 @@
 // kernels/pairwise.py: xx = ((x0*x0 + x1*x1) + x2*x2) + ..., yy and xy
 // summed the same way from zero, d2 = (xx + yy) - (2*xy), hit = d2 <= eps2,
 // every step rounded alone with __fmul_rn/__fadd_rn/__fsub_rn, so that
-// nvcc contracts nothing into a fused multiply-add. Counts and labels are
-// then the plain versions' bit for bit. No tensor cores: a TF32 or BF16
-// product would move pairs across eps.
+// nvcc contracts nothing into a fused multiply-add. XLA:CPU, where the
+// reference runs, flushes subnormal inputs and results to zero (ROADMAP
+// C7), so this file is built with `--ftz=true` (kernels/_build.py): every
+// float operation here, the _rn intrinsics and the compare included, takes
+// the .FTZ form, which reads a subnormal operand as a zero of its sign and
+// writes a subnormal result as one (`chip_smoke.py` phase 1 requires every
+// FMUL and FADD of this file's SASS to carry .FTZ). The plain versions
+// flush the inputs, each product, each partial sum of x.y and d2. Counts
+// and labels are then the plain versions' bit for bit. No tensor cores: a
+// TF32 or BF16 product would move pairs across eps.
 //
 // 1. The stencil kernel, `eps_kernel` (`stencil_count`,
 //    `stencil_min_label`). Replaces the Pallas TPU kernels `stencil_count`
@@ -597,22 +604,23 @@ __device__ __forceinline__ void tile_epilogue(const Stage& st, const float* xn,
                                               int ty, int tx, int lim, float eps2,
                                               float (&acc)[8][8]) {
   float yv[8];
-  int lv[8];
   load8(st.yn, tx, yv);
-  if (EPI == MIN_LABEL) load8(st.yl, tx, lv);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const float xi = xn[i < 4 ? ty * 4 + i : kHalf + ty * 4 + i - 4];
     int best = part[i][tid];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
+      const int col = j < 4 ? tx * 4 + j : kHalf + tx * 4 + j - 4;
       const float d2 = __fsub_rn(__fadd_rn(xi, yv[j]), __fmul_rn(2.0f, acc[i][j]));
-      const bool hit = (j < 4 ? tx * 4 + j : kHalf + tx * 4 + j - 4) < lim &&
-                       d2 <= eps2;
+      const bool hit = col < lim && d2 <= eps2;
       if (EPI == COUNT) {
         best += hit;
       } else if (hit) {
-        best = min(best, lv[j]);
+        // The label is read from shared memory at a hit, not held in
+        // registers beside the accumulators: held, the 8 labels made
+        // ptxas spill once the file took --ftz=true.
+        best = min(best, st.yl[col]);
       }
       acc[i][j] = 0.0f;
     }

@@ -7,7 +7,10 @@
 //     epilogue MIN_LABEL), on the fixed-buffer protocol `query_fixed`
 //     (epilogue FIXED), on the halo products' SO counts (`sphere_counts`,
 //     COUNT with a radius per query) and most-bound potentials
-//     (`halo_potentials`, epilogue POTENTIAL), with its start node per
+//     (`halo_potentials`, epilogue POTENTIAL), on the pair traversal of
+//     `fdbscan_pair`'s capture (epilogue EDGE) and `pair_count_histogram`
+//     (epilogue HISTOGRAM), on DenseBox's mixed tree (`fdbscan_densebox`,
+//     epilogues DENSE_COUNT and DENSE_MIN_LABEL), with its start node per
 //     query (`start_nodes`, every instance) and its per-lane counters
 //     (`with_stats`, the STATS instance of COUNT);
 //   * `wavefront_fill_round` (:245), the fill pass of the count-then-fill
@@ -26,7 +29,8 @@
 //   * POINT leaves (`build_bvh`, a leaf's box is its point) or BOX leaves
 //     (`build_bvh_objects`, a leaf's lo and hi).
 // COUNT (and its STATS instance), FILL and FIXED take every combination;
-// MIN_LABEL and POTENTIAL take SPHERE on POINT leaves only.
+// MIN_LABEL, POTENTIAL, EDGE and HISTOGRAM take SPHERE on POINT leaves
+// only, DENSE_COUNT and DENSE_MIN_LABEL SPHERE on BOX leaves only.
 //
 // The TPU kernels advance a block of 128 queries in lockstep, one rope hop
 // per iteration, because a TPU core runs one wide instruction stream. On
@@ -129,6 +133,39 @@
 // self-join's rate. Spreading one query's walk over a warp is the remedy;
 // this kernel keeps one thread per query.
 //
+// The pair traversal (`_pair_query`, src/repro/core/query.py:733-765):
+// query k is leaf k's point and starts at rope[leaf k], so it meets only
+// the leaves after k in rope order, each unordered pair once. EDGE reads
+// an int2 per leaf with its record, {object, root where core else -1}; a
+// hit whose root is set and differs from the query's own goes to the
+// next slot of the query's row, and the walk stops when the row is full,
+// as the reference's callback does (src/repro/core/dbscan.py:239-252):
+// the walk's order decides which edges a full row holds, so the kernel
+// keeps the rope order exactly. A query that is not core walks nothing.
+// HISTOGRAM bins each hit by floor(sqrt(max(d2, 1e-30)) / r_max * n_bins)
+// (src/repro/core/correlation.py:146-149) with a correctly rounded square
+// root and division, as `histogram_bins` computes it, and adds it to the
+// block's 64-bit bins in shared memory; the bins go to global memory with
+// one integer atomic each a block, so the totals do not depend on the
+// order of the additions. Past kSharedBins bins (48 KiB) each hit adds
+// straight to its global bin, an integer atomic too. Its FFMAs are those
+// of the IEEE sequences (`chip_smoke.py` phase 1 holds them to
+// `bin_probe_kernel`'s).
+//
+// DenseBox (src/repro/core/dbscan.py:355-425): the tree's leaves are the
+// boxes of the dense cells (at a run's head), the points of a dense cell's
+// other members (skipped) and the loose points. A leaf reads an int4 word
+// with its record, {run start, run length, label, kind}. A cell within r
+// wholesale (its farthest corner, |centre - mid| + half a cell a side,
+// within r) adds its run's length or takes its least label; a cell that is
+// not is scanned point by point by the thread itself over the grid-sorted
+// points. On an H100 80GB HBM3 at 700 W with 2^24 particles (HACC's
+// linking length, min_pts 2): runs hold at most 21 points, and a union
+// launch of DENSE_MIN_LABEL scans 9.5e8 points in 2.5e8 partial cells
+// beside 3.7e9 hops, 34 ms; EDGE 2.7 ms a round; HISTOGRAM at 4 eps
+// 214 ms for 8.4e9 pairs, whose shared-memory atomics on 16 bins are the
+// likely limit (not measured).
+//
 // STATS (a template flag, instantiated for COUNT) counts per lane what
 // `_one_stackless_stats` counts (src/repro/core/query.py:274-309): every
 // iteration, internal and leaf iterations, leaf hits, whether the epilogue
@@ -167,14 +204,26 @@ constexpr int kSentinel = -1;
 constexpr int kThreads = 512;
 constexpr int kMinBlocks = 3;
 constexpr int kPackThreads = 256;
+// HISTOGRAM's bins a block holds in shared memory: 48 KiB of 64-bit bins.
+constexpr int kSharedBins = 6144;
 
-enum Epilogue { COUNT = 0, MIN_LABEL = 1, FILL = 2, FIXED = 3, POTENTIAL = 4 };
+enum Epilogue {
+  COUNT = 0, MIN_LABEL = 1, FILL = 2, FIXED = 3, POTENTIAL = 4,
+  EDGE = 5, HISTOGRAM = 6, DENSE_COUNT = 7, DENSE_MIN_LABEL = 8
+};
 enum Predicate { SPHERE = 0, BOX = 1, RAY = 2 };
+// What a leaf of DenseBox's mixed tree is (`Epi::dense`'s w).
+enum DenseLeaf { DENSE_POINT = 0, DENSE_CELL = 1, DENSE_SKIP = 2 };
 
 // Resident blocks an SM must hold: 3 caps a thread at 42 registers; the
-// slab test's six t values and a ray's six floats take more, so RAY
+// slab test's six t values and a ray's six floats take more, and so do
+// DenseBox's leaf words and cell scan and the histogram's bin, so those
 // instances ask for 2 (64 registers).
-constexpr int min_blocks(int pred) { return pred == RAY ? 2 : kMinBlocks; }
+constexpr int min_blocks(int epi, int pred) {
+  return (pred == RAY || epi == HISTOGRAM || epi == DENSE_COUNT || epi == DENSE_MIN_LABEL)
+             ? 2
+             : kMinBlocks;
+}
 
 // max and min that propagate NaN (either operand), as XLA's and torch's:
 // one instruction each on the card (PTX max.NaN/min.NaN, sm_80 and up),
@@ -255,6 +304,15 @@ __device__ __forceinline__ float inv_sqrt_rn(float x) {
   return __frcp_rn(__fsqrt_rn(x));
 }
 
+// The histogram's bin of a squared distance: floor(sqrt(max(d2, 1e-30)) /
+// r_max * n_bins) clipped to [0, n_bins - 1], each step correctly rounded
+// and flushed as XLA:CPU flushes (the plain version `histogram_bins`).
+__device__ __forceinline__ int distance_bin(float d2, float r_max, int n_bins) {
+  const float dist = __fsqrt_rn(max_nan(d2, 1e-30f));
+  const float x = flush(__fmul_rn(flush(__fdiv_rn(dist, r_max)), static_cast<float>(n_bins)));
+  return min(max(static_cast<int>(floorf(x)), 0), n_bins - 1);
+}
+
 struct Tree {
   const float4* inner;   // (n-1) x 2 records of the internal nodes
   const float4* leaves;  // (n,) records of the leaves, in leaf order
@@ -276,6 +334,16 @@ struct Epi {
   float* potential;         // POTENTIAL: (q,) output
   const int* depths;        // STATS: (2n-1,) depth of each node
   int* stats;               // STATS: (6, q) counters
+  const int2* pair_key;     // EDGE: (n,) in leaf order {object, its root where
+                            // core, else -1}
+  float r_max;              // HISTOGRAM: the largest distance binned
+  int n_bins;               // HISTOGRAM: bins over [0, r_max]
+  unsigned long long* hist; // HISTOGRAM: (n_bins,) pair counts, added to
+  const int4* dense;        // DENSE_*: (n,) in leaf order {run start, run
+                            // length, label, DenseLeaf}
+  const float* pts;         // DENSE_*: (n, 3) points in grid-sorted order
+  const int* scan_lab;      // DENSE_MIN_LABEL: (n,) label of each sorted point
+  float half;               // DENSE_*: half the cell size
 };
 
 // COUNT: carry = hits so far; done when it reaches stop_at.
@@ -283,26 +351,35 @@ struct Epi {
 // FILL: writes hits at offsets[qi] + k below capacity; done at capacity.
 // FIXED: carry = hits so far; hit k goes to slot min(k, capacity - 1).
 // POTENTIAL: acc -= 1/sqrt(d2 + soft2) per hit; never done.
-// `out[qi]` receives the int carry (FILL has none and writes no `out`;
-// POTENTIAL writes `e.potential[qi]` instead).
+// EDGE: carry = edges taken; a hit object j is taken where it is core and
+//   its root differs from the query's, into slot min(carry, capacity - 1)
+//   of row qi; done when carry reaches capacity. Queries are the tree's
+//   leaves in order (query qi is leaf qi's point, from the start node
+//   rope[leaf qi]: the pair backend); one that is not core walks nothing.
+// HISTOGRAM: each hit's distance bin, added to the block's bins (past
+//   kSharedBins, to the global bins); no carry.
+// DENSE_COUNT: on DenseBox's mixed tree, carry = points within r; a cell
+//   leaf adds its run's length where its farthest corner is within r, else
+//   scans the run; a point leaf adds 1; a skip leaf nothing; done at
+//   stop_at. DENSE_MIN_LABEL: the same leaves, carry = min label: a whole
+//   cell's label, its run's points' labels within r, a point's key.
+// `out[qi]` receives the int carry (FILL and HISTOGRAM have none and write
+// no `out`; POTENTIAL writes `e.potential[qi]` instead).
 // Per query: SPHERE reads its centre qa[qi] and r2 = qb[qi]; BOX its box
 // qa[qi] (lo), qb[qi] (hi); RAY its origin qa[qi] and inv qb[qi]; each row
 // of qa and of a 3-wide qb is 3 floats.
 template <int EPI, int PRED, bool BOX_LEAF, typename Off, bool STATS>
-__global__ void __launch_bounds__(kThreads, min_blocks(PRED))
-wavefront_kernel(Tree t, const int* __restrict__ order,
-                 const float* __restrict__ qa, const float* __restrict__ qb,
-                 int q, const int* __restrict__ start, Epi<Off> e,
-                 int* __restrict__ out) {
-  static_assert((EPI != MIN_LABEL && EPI != POTENTIAL) || (PRED == SPHERE && !BOX_LEAF),
-                "MIN_LABEL and POTENTIAL take spheres on point leaves");
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= q) return;
+__device__ __forceinline__ void walk(const Tree& t, int lane, const int* __restrict__ order,
+                                     const float* __restrict__ qa,
+                                     const float* __restrict__ qb, int q,
+                                     const int* __restrict__ start, const Epi<Off>& e,
+                                     int* __restrict__ out, unsigned long long* bins) {
   const int qi = order ? __ldg(order + lane) : lane;
-  int carry = (EPI == MIN_LABEL) ? e.sentinel : 0;
+  int carry = (EPI == MIN_LABEL || EPI == DENSE_MIN_LABEL) ? e.sentinel : 0;
   float acc = 0.0f;
   long long pos = 0;
-  if constexpr (EPI == MIN_LABEL || EPI == POTENTIAL) {
+  if constexpr (EPI == MIN_LABEL || EPI == POTENTIAL || EPI == DENSE_COUNT ||
+                EPI == DENSE_MIN_LABEL) {
     if (e.qmask && !e.qmask[qi]) {
       if constexpr (EPI == POTENTIAL) e.potential[qi] = acc;
       else out[qi] = carry;
@@ -312,6 +389,14 @@ wavefront_kernel(Tree t, const int* __restrict__ order,
   if constexpr (EPI == FILL) {
     pos = static_cast<long long>(e.offsets[qi]);
     if (pos >= e.capacity) return;
+  }
+  int own = 0;
+  if constexpr (EPI == EDGE) {
+    own = __ldg(e.pair_key + qi).y;
+    if (own < 0) {
+      out[qi] = 0;
+      return;
+    }
   }
   float ax = qa[3 * qi], ay = qa[3 * qi + 1], az = qa[3 * qi + 2];
   float bx, by = 0.0f, bz = 0.0f;
@@ -333,7 +418,15 @@ wavefront_kernel(Tree t, const int* __restrict__ order,
     const float4 hi = (leaf && !BOX_LEAF) ? lo : __ldg(rec + 1);
     // A leaf's key is fetched with its record, not after the test.
     int key = 0;
-    if constexpr (EPI != COUNT && EPI != POTENTIAL) key = leaf ? __ldg(t.key + k) : 0;
+    if constexpr (EPI == MIN_LABEL || EPI == FILL || EPI == FIXED) {
+      key = leaf ? __ldg(t.key + k) : 0;
+    }
+    int2 pkey = make_int2(0, -1);
+    if constexpr (EPI == EDGE) pkey = leaf ? __ldg(e.pair_key + k) : pkey;
+    int4 dkey = make_int4(0, 0, 0, DENSE_SKIP);
+    if constexpr (EPI == DENSE_COUNT || EPI == DENSE_MIN_LABEL) {
+      dkey = leaf ? __ldg(e.dense + k) : dkey;
+    }
     float d2 = 0.0f;
     bool hit;
     if constexpr (PRED == SPHERE) {
@@ -369,8 +462,50 @@ wavefront_kernel(Tree t, const int* __restrict__ order,
           e.indices[static_cast<long long>(qi) * e.capacity + slot] = key;
         }
         ++carry;
-      } else {
+      } else if constexpr (EPI == POTENTIAL) {
         acc = __fsub_rn(acc, inv_sqrt_rn(__fadd_rn(d2, e.soft2)));
+      } else if constexpr (EPI == EDGE) {
+        if (pkey.y >= 0 && pkey.y != own) {
+          const long long slot = min(static_cast<long long>(carry), e.capacity - 1);
+          e.indices[static_cast<long long>(qi) * e.capacity + slot] = pkey.x;
+          if (++carry >= e.capacity) break;
+        }
+      } else if constexpr (EPI == HISTOGRAM) {
+        const int b = distance_bin(d2, e.r_max, e.n_bins);
+        if (e.n_bins <= kSharedBins) atomicAdd(bins + b, 1ULL);
+        else atomicAdd(e.hist + b, 1ULL);
+      } else if (dkey.w == DENSE_CELL) {
+        // The cell's farthest corner: |centre - mid| + half the cell a side.
+        const float fx = __fadd_rn(fabsf(__fsub_rn(ax, __fmul_rn(__fadd_rn(lo.x, hi.x), 0.5f))),
+                                   e.half);
+        const float fy = __fadd_rn(fabsf(__fsub_rn(ay, __fmul_rn(__fadd_rn(lo.y, hi.y), 0.5f))),
+                                   e.half);
+        const float fz = __fadd_rn(fabsf(__fsub_rn(az, __fmul_rn(__fadd_rn(lo.z, hi.z), 0.5f))),
+                                   e.half);
+        if (sum_sq(fx, fy, fz) <= bx) {
+          if constexpr (EPI == DENSE_COUNT) carry += dkey.y;
+          else carry = min(carry, dkey.z);
+        } else {
+          // One thread walks the cell's run, point by point.
+          for (int u = dkey.x; u < dkey.x + dkey.y; ++u) {
+            const float* p = e.pts + 3LL * u;
+            const float du = sum_sq(__fsub_rn(__ldg(p), ax), __fsub_rn(__ldg(p + 1), ay),
+                                    __fsub_rn(__ldg(p + 2), az));
+            if (du <= bx) {
+              if constexpr (EPI == DENSE_COUNT) ++carry;
+              else carry = min(carry, __ldg(e.scan_lab + u));
+            }
+          }
+        }
+        if constexpr (EPI == DENSE_COUNT) {
+          if (carry >= e.stop_at) break;
+        }
+      } else if (dkey.w == DENSE_POINT) {
+        if constexpr (EPI == DENSE_COUNT) {
+          if (++carry >= e.stop_at) break;
+        } else {
+          carry = min(carry, dkey.z);
+        }
       }
     }
     // At a leaf both w lanes hold the rope.
@@ -387,8 +522,47 @@ wavefront_kernel(Tree t, const int* __restrict__ order,
   }
   if constexpr (EPI == POTENTIAL) {
     e.potential[qi] = acc;
-  } else if constexpr (EPI != FILL) {
+  } else if constexpr (EPI != FILL && EPI != HISTOGRAM) {
     out[qi] = carry;
+  }
+}
+
+// One thread per query. HISTOGRAM adds its hits to the block's bins in
+// shared memory (n_bins 64-bit integers), which go to the global bins once
+// a block: integer sums, so the order of the additions changes nothing.
+// Past kSharedBins bins the block holds none and the hits go to the global
+// bins themselves.
+template <int EPI, int PRED, bool BOX_LEAF, typename Off, bool STATS>
+__global__ void __launch_bounds__(kThreads, min_blocks(EPI, PRED))
+wavefront_kernel(Tree t, const int* __restrict__ order,
+                 const float* __restrict__ qa, const float* __restrict__ qb,
+                 int q, const int* __restrict__ start, Epi<Off> e,
+                 int* __restrict__ out) {
+  static_assert((EPI != MIN_LABEL && EPI != POTENTIAL && EPI != EDGE && EPI != HISTOGRAM) ||
+                    (PRED == SPHERE && !BOX_LEAF),
+                "MIN_LABEL, POTENTIAL, EDGE and HISTOGRAM take spheres on point leaves");
+  static_assert((EPI != DENSE_COUNT && EPI != DENSE_MIN_LABEL) || (PRED == SPHERE && BOX_LEAF),
+                "DENSE_COUNT and DENSE_MIN_LABEL take spheres on box leaves");
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if constexpr (EPI == HISTOGRAM) {
+    extern __shared__ unsigned long long bins[];
+    // Uniform over the block, so every thread reaches both barriers or none.
+    const bool shared = e.n_bins <= kSharedBins;
+    if (shared) {
+      for (int b = threadIdx.x; b < e.n_bins; b += blockDim.x) bins[b] = 0;
+      __syncthreads();
+    }
+    if (lane < q) walk<EPI, PRED, BOX_LEAF, Off, STATS>(t, lane, order, qa, qb, q, start, e, out,
+                                                       bins);
+    if (shared) {
+      __syncthreads();
+      for (int b = threadIdx.x; b < e.n_bins; b += blockDim.x) {
+        if (bins[b]) atomicAdd(e.hist + b, bins[b]);
+      }
+    }
+  } else {
+    if (lane >= q) return;
+    walk<EPI, PRED, BOX_LEAF, Off, STATS>(t, lane, order, qa, qb, q, start, e, out, nullptr);
   }
 }
 
@@ -399,6 +573,16 @@ __global__ void __launch_bounds__(kPackThreads)
 rsqrt_probe_kernel(const float* __restrict__ x, float* __restrict__ y, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) y[i] = inv_sqrt_rn(x[i]);
+}
+
+// Nothing but HISTOGRAM's bin sequence, as `rsqrt_probe_kernel` is for
+// POTENTIAL: its FFMA count (the IEEE square root's and division's) is set
+// beside HISTOGRAM's, and its bins beside `histogram_bins`.
+__global__ void __launch_bounds__(kPackThreads)
+bin_probe_kernel(const float* __restrict__ d2, int* __restrict__ bin, int n, float r_max,
+                 int n_bins) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) bin[i] = distance_bin(d2[i], r_max, n_bins);
 }
 
 // One thread per node: node i's box and links into its record; a leaf's
@@ -426,9 +610,10 @@ pack_kernel(const float* __restrict__ node_lo, const float* __restrict__ node_hi
 
 template <int EPI, int PRED, bool BOX_LEAF, bool STATS, typename Off>
 int launch(const Tree& t, const int* order, const float* qa, const float* qb, int q,
-           const int* start, const Epi<Off>& e, int* out, cudaStream_t stream) {
+           const int* start, const Epi<Off>& e, int* out, cudaStream_t stream,
+           size_t smem = 0) {
   const int blocks = (q + kThreads - 1) / kThreads;
-  wavefront_kernel<EPI, PRED, BOX_LEAF, Off, STATS><<<blocks, kThreads, 0, stream>>>(
+  wavefront_kernel<EPI, PRED, BOX_LEAF, Off, STATS><<<blocks, kThreads, smem, stream>>>(
       t, order, qa, qb, q, start, e, out);
   return static_cast<int>(cudaGetLastError());
 }
@@ -571,6 +756,82 @@ int wavefront_potential(const float* inner, const float* leaves, const int* key,
   e.potential = out;
   return launch<POTENTIAL, SPHERE, false, false>(tree(inner, leaves, key, n), order, qa,
                                                  qb, q, start, e, nullptr, stream);
+}
+
+// EDGE (fdbscan_pair's capture). pair_key: (n,) int2 in leaf order, the
+// object index and its root where it is core, else -1; query qi is leaf
+// qi's point (qa: the points in leaf order, qb: r2) from start[qi] =
+// rope[leaf qi]. buf: (q, capacity) int32, set to -1 by the caller;
+// counts: (q,) int32. SPHERE on point leaves only; capacity >= 1.
+int wavefront_edge(const float* inner, const float* leaves, const int* key, int n,
+                   int box_leaves, const int* order, const float* qa, const float* qb,
+                   int pred, int q, const int* start, const int* pair_key,
+                   long long capacity, int* buf, int* counts, cudaStream_t stream) {
+  if (pred != SPHERE || box_leaves || capacity < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Epi<int> e{};
+  e.pair_key = reinterpret_cast<const int2*>(pair_key);
+  e.capacity = capacity;
+  e.indices = buf;
+  return launch<EDGE, SPHERE, false, false>(tree(inner, leaves, key, n), order, qa, qb, q,
+                                            start, e, counts, stream);
+}
+
+// HISTOGRAM (pair_count_histogram). hist: (n_bins,) uint64, set to 0 by the
+// caller, gets each hit's bin. SPHERE on point leaves only; n_bins >= 1,
+// summed in shared memory up to kSharedBins and in global memory past it.
+int wavefront_histogram(const float* inner, const float* leaves, const int* key, int n,
+                        int box_leaves, const int* order, const float* qa,
+                        const float* qb, int pred, int q, const int* start, float r_max,
+                        int n_bins, unsigned long long* hist, cudaStream_t stream) {
+  if (pred != SPHERE || box_leaves || n_bins < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Epi<int> e{};
+  e.r_max = r_max;
+  e.n_bins = n_bins;
+  e.hist = hist;
+  return launch<HISTOGRAM, SPHERE, false, false>(tree(inner, leaves, key, n), order, qa, qb,
+                                                 q, start, e, nullptr, stream,
+                                                 n_bins <= kSharedBins
+                                                     ? n_bins * sizeof(unsigned long long)
+                                                     : 0);
+}
+
+// DENSE_COUNT (min_label == 0) or DENSE_MIN_LABEL on DenseBox's mixed tree.
+// dense: (n,) int4 in leaf order {run start, run length, label, DenseLeaf};
+// pts: (n, 3) float32 grid-sorted points; scan_lab: (n,) int32 (MIN_LABEL);
+// qmask: (q,) bool queries to run (null: all); out: (q,) int32, 0 (COUNT)
+// or sentinel (MIN_LABEL) outside the mask. SPHERE on box leaves only.
+int wavefront_dense(const float* inner, const float* leaves, const int* key, int n,
+                    int box_leaves, const int* order, const float* qa, const float* qb,
+                    int pred, int q, const int* start, int min_label, const int* dense,
+                    const float* pts, const int* scan_lab, float half, int stop_at,
+                    const bool* qmask, int sentinel, int* out, cudaStream_t stream) {
+  if (pred != SPHERE || !box_leaves) return static_cast<int>(cudaErrorInvalidValue);
+  Epi<int> e{};
+  e.dense = reinterpret_cast<const int4*>(dense);
+  e.pts = pts;
+  e.scan_lab = scan_lab;
+  e.half = half;
+  e.stop_at = stop_at < 0 ? INT_MAX : stop_at;
+  e.qmask = qmask;
+  e.sentinel = sentinel;
+  const Tree t = tree(inner, leaves, key, n);
+  if (min_label) {
+    return launch<DENSE_MIN_LABEL, SPHERE, true, false>(t, order, qa, qb, q, start, e, out,
+                                                        stream);
+  }
+  return launch<DENSE_COUNT, SPHERE, true, false>(t, order, qa, qb, q, start, e, out, stream);
+}
+
+// bin[i] = HISTOGRAM's bin of the squared distance d2[i], for n values.
+int wavefront_bin_probe(const float* d2, int* bin, int n, float r_max, int n_bins,
+                        cudaStream_t stream) {
+  bin_probe_kernel<<<(n + kPackThreads - 1) / kPackThreads, kPackThreads, 0, stream>>>(
+      d2, bin, n, r_max, n_bins);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // y[i] = 1/sqrt(x[i]) by POTENTIAL's sequence, for n float32 values.

@@ -42,10 +42,17 @@ formula, not the exact Σ(x−y)² of the rest of the port (ROADMAP C2)::
 all in float32, summed left to right over D. The plain versions use
 separate torch ``*``, ``+`` and ``-`` (no matmul, no ``sum``, no
 ``addcmul``), so nothing fuses or reorders; the kernels round each step
-with ``__fmul_rn``/``__fadd_rn``/``__fsub_rn``. Kernel and plain version
-are then equal bit for bit at every slot, the padded ones included.
-Against JAX they agree away from ties at ε only: XLA's ``dot_general``
-may sum in another order.
+with ``__fmul_rn``/``__fadd_rn``/``__fsub_rn``. XLA:CPU flushes subnormal
+inputs and results to zero (ROADMAP C7), so the kernels are built with
+``--ftz=true`` and the plain versions flush the inputs, each product, each
+partial sum of x·y and d2 (``core.geometry.flush``); the norms' sums of
+flushed squares and 2·x·y cannot be subnormal. Where every nonzero input
+is at least 2^-50 in magnitude nothing can be: each product is 0 or at
+least 2^-100, so every value the formula computes is a multiple of
+2^-123, and the plain versions skip the flushes (:func:`_flush_needed`).
+Kernel and plain version are then equal bit for bit at every slot, the
+padded ones included. Against JAX they agree away from ties at ε only:
+XLA's ``dot_general`` may sum in another order.
 
 What the all-pairs wrappers allocate on the card (``torch.empty``, freed
 when the call returns; the caching allocator hands the memory out again
@@ -77,6 +84,7 @@ import threading
 
 import torch
 
+from repro_torch.core.geometry import flush
 from repro_torch.kernels import _build
 
 BIG = 1e15                  # padding coordinate; BIG**2 is finite in float32
@@ -118,28 +126,49 @@ def _lib() -> ctypes.CDLL:
 # Plain PyTorch versions
 # ---------------------------------------------------------------------------
 
-def _sq_norms(p: torch.Tensor) -> torch.Tensor:
-    """(..., D) -> (...): Σ p_k·p_k left to right, from zero."""
+# Inputs at least this large (or 0) make no subnormal anywhere in d2.
+_NO_FLUSH_BELOW = 2.0 ** -50
+
+
+def _flush_needed(*ts: torch.Tensor) -> bool:
+    """Whether some nonzero input lies below 2^-50 in magnitude, so that
+    a product or a sum of the contract could be subnormal (one host
+    sync)."""
+    return any(bool(((t != 0) & (t.abs() < _NO_FLUSH_BELOW)).any())
+               for t in ts if t.numel())
+
+
+def _keep(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def _sq_norms(p: torch.Tensor, ftz: bool = False) -> torch.Tensor:
+    """(..., D) -> (...): Σ p_k·p_k left to right, from zero; with
+    ``ftz`` (``p`` already flushed) each square flushed."""
+    f = flush if ftz else _keep
     acc = torch.zeros(p.shape[:-1], dtype=torch.float32, device=p.device)
     for k in range(p.shape[-1]):
         v = p[..., k]
-        acc = acc + v * v
+        acc = acc + f(v * v)
     return acc
 
 
-def _d2(q, qn, c, cn) -> torch.Tensor:
+def _d2(q, qn, c, cn, ftz: bool = False) -> torch.Tensor:
     """(..., A, D) queries and (..., B, D) candidates with their squared
-    norms -> (..., A, B) float32 d2 in the contract's order."""
+    norms -> (..., A, B) float32 d2 in the contract's order; with ``ftz``
+    (inputs already flushed) each product, each partial sum of x·y and d2
+    flushed."""
+    f = flush if ftz else _keep
     xy = torch.zeros(q.shape[:-1] + (c.shape[-2],), dtype=torch.float32,
                      device=q.device)
     for k in range(q.shape[-1]):
-        xy = xy + q[..., :, None, k] * c[..., None, :, k]
-    return (qn[..., :, None] + cn[..., None, :]) - 2.0 * xy
+        xy = f(xy + f(q[..., :, None, k] * c[..., None, :, k]))
+    return f((qn[..., :, None] + cn[..., None, :]) - 2.0 * xy)
 
 
-def _hits(q, qn, c, cn, eps2: float) -> torch.Tensor:
+def _hits(q, qn, c, cn, eps2: float, ftz: bool = False) -> torch.Tensor:
     """d2 <= eps2, (..., A, B) bool."""
-    return _d2(q, qn, c, cn) <= torch.tensor(eps2, dtype=torch.float32)
+    return _d2(q, qn, c, cn, ftz) <= torch.tensor(eps2, dtype=torch.float32)
 
 
 def _epilogue(hit, labels, core):
@@ -161,7 +190,10 @@ def _stencil_plain(cell_pts, nbr_map, eps2, cell_labels=None, cell_core=None):
     cap = cell_pts.shape[1]
     out = torch.empty((ncells, cap), dtype=torch.int32, device=cell_pts.device)
     d = cell_pts.shape[2]
-    norms = _sq_norms(cell_pts)                       # (ncells+1, C)
+    ftz = _flush_needed(cell_pts)
+    if ftz:
+        cell_pts = flush(cell_pts)
+    norms = _sq_norms(cell_pts, ftz)                  # (ncells+1, C)
     step = max(1, _PLAIN_TILE // max(1, s * cap * cap))
     for lo in range(0, ncells, step):
         hi = min(ncells, lo + step)
@@ -169,7 +201,7 @@ def _stencil_plain(cell_pts, nbr_map, eps2, cell_labels=None, cell_core=None):
         cand = _sink_safe(nbr_map[lo:hi], ncells).reshape(-1)
         c = cell_pts[cand].reshape(hi - lo, s * cap, d)
         cn = norms[cand].reshape(hi - lo, s * cap)
-        hit = _hits(cell_pts[lo:hi], norms[lo:hi], c, cn, eps2)
+        hit = _hits(cell_pts[lo:hi], norms[lo:hi], c, cn, eps2, ftz)
         if cell_labels is None:
             out[lo:hi] = _epilogue(hit, None, None)
         else:
@@ -185,11 +217,14 @@ def _pairwise_plain(x, y, eps2, labels=None, core=None):
     out = torch.full((m,), fill, dtype=torch.int32, device=x.device)
     if n == 0:
         return out
-    xn, yn = _sq_norms(x), _sq_norms(y)
+    ftz = _flush_needed(x, y)
+    if ftz:
+        x, y = flush(x), flush(y)
+    xn, yn = _sq_norms(x, ftz), _sq_norms(y, ftz)
     step = max(1, _PLAIN_TILE // n)
     for lo in range(0, m, step):
         hi = min(m, lo + step)
-        hit = _hits(x[lo:hi], xn[lo:hi], y, yn, eps2)
+        hit = _hits(x[lo:hi], xn[lo:hi], y, yn, eps2, ftz)
         out[lo:hi] = _epilogue(hit, labels, core)
     return out
 

@@ -4,8 +4,8 @@
 
 The reference kernel takes arbitrary Python callbacks through a
 ``make_fns`` factory. A CUDA kernel cannot, so the port has a closed set
-of five epilogues, one wrapper each, all instantiations of one template in
-``csrc/wavefront.cu``:
+of nine epilogues, one wrapper each (the two of DenseBox share one C
+entry), all instantiations of one template in ``csrc/wavefront.cu``:
 
 * :func:`wavefront_count` — ε-hit counts with optional early exit at
   ``stop_at`` (``query_count``, ``repro/core/query.py:990-993``); with a
@@ -24,7 +24,19 @@ of five epilogues, one wrapper each, all instantiations of one template in
   ``repro/core/query.py:1000``);
 * :func:`wavefront_potential` — the softened, ε-truncated potential
   ``-Σ 1/sqrt(d² + soft²)`` over the hits, in rope order, for queries in
-  ``active`` (``halo_potentials``, ``repro/halos/centers.py:64-65``).
+  ``active`` (``halo_potentials``, ``repro/halos/centers.py:64-65``);
+* :func:`wavefront_edge` — ``fdbscan_pair``'s capture
+  (``repro/core/dbscan.py:239-252``): per query up to ``capacity`` hit
+  objects that are core and have another root than the query, done when
+  the buffer is full; the queries are the tree's leaves in order, each
+  from ``rope[leaf]`` (the pair backend, :func:`pair_starts`);
+* :func:`wavefront_histogram` — ``pair_count_histogram``'s DD bins
+  (``repro/core/correlation.py:146-149``): each hit's distance bin, summed
+  over the queries (integer counts, so in any order);
+* :func:`wavefront_dense_count` and :func:`wavefront_dense_min_label` —
+  DenseBox's two callbacks on its mixed tree of cell boxes and points
+  (``repro/core/dbscan.py:355-425``): a dense cell within r wholesale or
+  point by point, a point by its test, a dense non-head point skipped.
 
 Every wrapper takes a start node per query (``start``, the reference's
 ``start_nodes``, ``repro/kernels/wavefront.py:135-139``); a query that
@@ -41,8 +53,9 @@ per-query geometry ``(qa, qb)``:
   (q, 3), ``core.geometry.safe_inv`` of the directions;
 
 on trees whose leaves are points (``build_bvh``) or boxes
-(``build_bvh_objects``). MIN_LABEL and POTENTIAL take spheres on point
-trees only; anything else raises ``ValueError`` (ROADMAP B1 (d)).
+(``build_bvh_objects``). MIN_LABEL, POTENTIAL, EDGE and HISTOGRAM take
+spheres on point trees only, DenseBox's two spheres on box-leaf trees
+only; anything else raises ``ValueError``.
 
 A wrapper launches the kernel for CUDA tensors and runs the plain PyTorch
 version for CPU tensors; ``<wrapper>.launches`` counts kernel launches,
@@ -74,21 +87,29 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.bvh import SENTINEL, Bvh
-from repro_torch.core.geometry import (aabb_aabb_dist2, point_aabb_dist2,
-                                       ray_box)
+from repro_torch.core.geometry import (aabb_aabb_dist2, flush,
+                                       point_aabb_dist2, ray_box, sum_sq)
 from repro_torch.kernels import _build
 from repro_torch.obs.stats import TraversalStats
 
 __all__ = ["PREDICATES", "pred_test", "leaf_boxes", "wavefront_count",
            "wavefront_min_label", "wavefront_fill", "wavefront_fixed",
-           "wavefront_potential", "PackedTree", "pack_tree", "pack_tree_plain",
-           "shared_pack", "min_label_keys",
+           "wavefront_potential", "wavefront_edge", "wavefront_histogram",
+           "wavefront_dense_count", "wavefront_dense_min_label",
+           "PackedTree", "pack_tree", "pack_tree_plain",
+           "shared_pack", "min_label_keys", "pair_starts", "pair_keys",
+           "dense_leaves", "DENSE_POINT", "DENSE_CELL", "DENSE_SKIP",
+           "SHARED_HISTOGRAM_BINS",
            "wavefront_count_plain", "wavefront_min_label_plain",
            "wavefront_fill_plain", "wavefront_fixed_plain",
-           "wavefront_potential_plain", "lockstep_traverse",
+           "wavefront_potential_plain", "wavefront_edge_plain",
+           "wavefront_histogram_plain", "wavefront_dense_count_plain",
+           "wavefront_dense_min_label_plain", "lockstep_traverse",
            "count_epilogue", "min_label_epilogue", "fill_epilogue",
-           "fixed_epilogue", "potential_epilogue", "fill_lanes",
-           "fixed_carry", "inv_sqrt_rn", "inv_sqrt_plain"]
+           "fixed_epilogue", "potential_epilogue", "edge_epilogue",
+           "histogram_epilogue", "dense_epilogue", "histogram_bins",
+           "fill_lanes", "fixed_carry", "inv_sqrt_rn", "inv_sqrt_plain",
+           "histogram_bins_rn"]
 
 _INT32_MAX = 2**31 - 1
 # The per-lane counters, one row each in the order of ``TraversalStats``'s
@@ -97,6 +118,11 @@ _INT32_MAX = 2**31 - 1
 _N_STATS = len(TraversalStats._fields)
 # The predicates of the kernel's template, by their enum value there.
 PREDICATES = {"sphere": 0, "box": 1, "ray": 2}
+# What a leaf of DenseBox's mixed tree is, by the kernel's enum value.
+DENSE_POINT, DENSE_CELL, DENSE_SKIP = 0, 1, 2
+# Up to this many histogram bins sit in a block's shared memory, 8 bytes
+# each (48 KiB); more go straight to the global bins.
+SHARED_HISTOGRAM_BINS = 6144
 
 
 def _check_inputs(bvh: Bvh, qa, qb, order, pred: str = "sphere"):
@@ -120,8 +146,15 @@ def _check_inputs(bvh: Bvh, qa, qb, order, pred: str = "sphere"):
 
 def _spheres_on_points(bvh: Bvh, what: str):
     if leaf_boxes(bvh):
-        raise ValueError(f"{what} takes trees whose leaves are points; box "
-                         "leaves are not ported for it (ROADMAP B1 (d))")
+        raise ValueError(f"{what} takes trees whose leaves are points; on "
+                         "box leaves the traversal runs DenseBox's epilogues "
+                         "(ROADMAP B1 (d))")
+
+
+def _spheres_on_boxes(bvh: Bvh, what: str):
+    if not leaf_boxes(bvh):
+        raise ValueError(f"{what} takes DenseBox's mixed tree, whose leaves "
+                         "are boxes (build_bvh_objects)")
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -175,11 +208,18 @@ def _lib() -> ctypes.CDLL:
     lib.wavefront_fill.argtypes = query + [_P, _I, _L, _P, _P]
     lib.wavefront_fixed.argtypes = query + [_L, _P, _P, _P]
     lib.wavefront_potential.argtypes = query + [_P, ctypes.c_float, _P, _P]
+    lib.wavefront_edge.argtypes = query + [_P, _L, _P, _P, _P]
+    lib.wavefront_histogram.argtypes = query + [ctypes.c_float, _I, _P, _P]
+    lib.wavefront_dense.argtypes = query + [_I, _P, _P, _P, ctypes.c_float,
+                                            _I, _P, _I, _P, _P]
     lib.wavefront_rsqrt_probe.argtypes = [_P, _P, _I, _P]
+    lib.wavefront_bin_probe.argtypes = [_P, _P, _I, ctypes.c_float, _I, _P]
     for fn in (lib.wavefront_pack, lib.wavefront_count,
                lib.wavefront_min_label, lib.wavefront_fill,
                lib.wavefront_fixed, lib.wavefront_potential,
-               lib.wavefront_rsqrt_probe):
+               lib.wavefront_edge, lib.wavefront_histogram,
+               lib.wavefront_dense, lib.wavefront_rsqrt_probe,
+               lib.wavefront_bin_probe):
         fn.restype = _I
     lib.cuda_error_string.argtypes = [_I]
     lib.cuda_error_string.restype = ctypes.c_char_p
@@ -285,6 +325,34 @@ def min_label_keys(bvh: Bvh, obj_labels, obj_core, sentinel: int):
     perm = bvh.leaf_perm
     return torch.where(obj_core.index_select(0, perm),
                        obj_labels.index_select(0, perm), int(sentinel))
+
+
+def pair_starts(bvh: Bvh) -> torch.Tensor:
+    """(n,) int32 start nodes of the pair backend: leaf k's rope, so that
+    query k (leaf k's point) visits only the leaves after k in rope
+    order, and each unordered pair once."""
+    return bvh.rope[bvh.num_leaves - 1:].contiguous()
+
+
+def pair_keys(bvh: Bvh, parent, core) -> torch.Tensor:
+    """EDGE's key per leaf, (n, 2) int32 in leaf order: the object index
+    and its root ``parent[j]`` where it is core, -1 elsewhere. Query k's
+    own root is row k's, since query k is leaf k's point."""
+    perm = bvh.leaf_perm
+    root = torch.where(core.index_select(0, perm),
+                       parent.to(torch.int32).index_select(0, perm), -1)
+    return torch.stack([perm, root], 1).contiguous()
+
+
+def dense_leaves(bvh: Bvh, run_start, run_length, label, kind) -> torch.Tensor:
+    """DenseBox's word per leaf, (n, 4) int32 in leaf order, from per
+    object (grid-sorted) values: the start and length of the object's
+    cell run, its label (the cell's least label for a cell leaf, the
+    point's key for a point leaf) and its kind (``DENSE_POINT``,
+    ``DENSE_CELL`` or ``DENSE_SKIP``)."""
+    words = torch.stack([run_start.to(torch.int32), run_length.to(torch.int32),
+                         label.to(torch.int32), kind.to(torch.int32)], 1)
+    return words.index_select(0, bvh.leaf_perm.long()).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -436,6 +504,119 @@ def potential_epilogue(soft2: torch.Tensor):
     return epilogue
 
 
+def edge_epilogue(bvh: Bvh, keys, buf):
+    """EDGE: the carry is ``(m, 2)`` int64, the edges taken and the query
+    (leaf) index. A hit object that is core with another root than the
+    query's (:func:`pair_keys`) goes to ``buf[query, min(taken, capacity
+    - 1)]``; done once ``capacity`` are taken."""
+    n, capacity = bvh.num_leaves, buf.shape[1]
+    flat = buf.view(-1)
+
+    def epilogue(carry, node, leaf_hit, _d2):
+        count, qi = carry[:, 0], carry[:, 1]
+        row = keys[(node - (n - 1)).clamp(0, n - 1)]
+        take = leaf_hit & (row[:, 1] >= 0) & (row[:, 1] != keys[qi, 1])
+        w = torch.nonzero(take).flatten()
+        slot = count[w].clamp(max=capacity - 1)
+        flat[qi[w] * capacity + slot] = row[w, 0]
+        count = count + take.to(count.dtype)
+        return torch.stack([count, qi], 1), take & (count >= capacity)
+    return epilogue
+
+
+def histogram_bins(d2: torch.Tensor, r_max: float, n_bins: int) -> torch.Tensor:
+    """int64 bin of each squared distance: ``floor(sqrt(max(d2, 1e-30)) /
+    r_max * n_bins)`` clipped to ``[0, n_bins - 1]``, each step a float32
+    operation rounded correctly (the square root and the quotient taken
+    in float64 and rounded, as :func:`inv_sqrt_plain` does) and flushed
+    as XLA:CPU flushes subnormals."""
+    f32 = torch.float32
+    floor = torch.tensor(1e-30, dtype=f32, device=d2.device)
+    dist = torch.maximum(d2, floor).double().sqrt().float()
+    r = float(torch.tensor(r_max, dtype=f32))
+    x = flush(flush((dist.double() / r).float()) * float(n_bins))
+    return torch.floor(x).long().clamp(0, n_bins - 1)
+
+
+def histogram_epilogue(hist, r_max: float):
+    """HISTOGRAM: each hit's bin (:func:`histogram_bins`) added to
+    ``hist`` (n_bins,) int64; the carry is unused; never done."""
+    n_bins = hist.numel()
+
+    def epilogue(carry, _node, leaf_hit, d2):
+        b = histogram_bins(d2[leaf_hit], r_max, n_bins)
+        hist.index_add_(0, b, torch.ones_like(b))
+        return carry, torch.zeros_like(leaf_hit)
+    return epilogue
+
+
+def dense_epilogue(bvh: Bvh, words, pts, centers, r2, half: float, *,
+                   scan_lab=None, stop_at: int | None = None,
+                   tally: dict | None = None):
+    """DENSE_COUNT (``scan_lab`` None) or DENSE_MIN_LABEL on DenseBox's
+    mixed tree. The carry is ``(m, 2)`` int64, the count or label and the
+    query index. On a leaf hit, by the leaf's word (:func:`dense_leaves`):
+    a cell whose farthest corner, ``sum((|centre - (lo + hi) * 0.5| +
+    half)^2)``, is within r² adds its run's length (COUNT) or takes its
+    label (MIN_LABEL); a cell that is not scans its run of ``pts``
+    (grid-sorted), each point within r counting 1 or giving its
+    ``scan_lab``; a point counts 1 or gives its label; a skip leaf
+    nothing. COUNT is done once the count reaches ``stop_at``; MIN_LABEL
+    never. ``tally``, where given, adds up the cell hits taken whole
+    (``"whole"``), those scanned (``"scanned"``) and the points scanned
+    (``"scan_tests"``)."""
+    n = bvh.num_leaves
+    stop = _INT32_MAX if stop_at is None else int(stop_at)
+    h = torch.tensor(half, dtype=torch.float32, device=pts.device)
+    count = scan_lab is None
+
+    def epilogue(carry, node, leaf_hit, _d2):
+        val, qi = carry[:, 0].clone(), carry[:, 1]
+        w = words[(node - (n - 1)).clamp(0, n - 1)].long()
+        point = leaf_hit & (w[:, 3] == DENSE_POINT)
+        if count:
+            val += point.long()
+        else:
+            val = torch.where(point, torch.minimum(val, w[:, 2]), val)
+        c = torch.nonzero(leaf_hit & (w[:, 3] == DENSE_CELL)).flatten()
+        if c.numel():
+            mid = (bvh.node_lo[node[c]] + bvh.node_hi[node[c]]) * 0.5
+            ctr, rr = centers[qi[c]], r2[qi[c]]
+            whole = sum_sq((ctr - mid).abs() + h) <= rr
+            cw = c[whole]
+            if count:
+                val[cw] += w[cw, 1]
+            else:
+                val[cw] = torch.minimum(val[cw], w[cw, 2])
+            part = c[~whole]
+            if tally is not None:
+                tally["whole"] = tally.get("whole", 0) + int(cw.numel())
+                tally["scanned"] = tally.get("scanned", 0) + int(part.numel())
+                tally["scan_tests"] = tally.get("scan_tests", 0) + int(
+                    w[part, 1].sum())
+            if part.numel():
+                lens = w[part, 1]
+                owner = torch.repeat_interleave(
+                    torch.arange(part.numel(), device=part.device), lens)
+                first = torch.cumsum(lens, 0) - lens
+                u = w[part, 0][owner] + (torch.arange(owner.numel(),
+                                                      device=part.device)
+                                         - first[owner])
+                q = qi[part][owner]
+                inside = sum_sq(pts[u] - centers[q]) <= r2[q]
+                if count:
+                    val[part] += torch.zeros_like(lens).index_add_(
+                        0, owner, inside.long())
+                else:
+                    cand = torch.where(inside, scan_lab[u].long(), _INT32_MAX)
+                    least = torch.full_like(lens, _INT32_MAX).scatter_reduce(
+                        0, owner, cand, "amin")
+                    val[part] = torch.minimum(val[part], least)
+        done = (leaf_hit & (val >= stop)) if count else torch.zeros_like(leaf_hit)
+        return torch.stack([val, qi], 1), done
+    return epilogue
+
+
 def wavefront_count_plain(bvh: Bvh, qa, qb, stop_at=None, start=None,
                           depths=None, *, pred: str = "sphere"):
     """Hit counts per query of ``pred`` (ε-counts for spheres), saturating
@@ -517,6 +698,67 @@ def wavefront_potential_plain(bvh: Bvh, centers, r2, soft2: float,
     out[lanes] = lockstep_traverse(bvh, centers, r2, lanes, out[lanes],
                                    potential_epilogue(s2), start=start)[0]
     return out
+
+
+def wavefront_edge_plain(bvh: Bvh, centers, r2, keys, capacity: int,
+                         start=None):
+    """``(buf (q, capacity) int32, counts (q,) int32)``: the edges
+    :func:`edge_epilogue` takes for each query whose own key is core, -1
+    in unused slots; queries that are not core walk nothing."""
+    q = centers.shape[0]
+    buf = torch.full((q, capacity), -1, dtype=torch.int32,
+                     device=centers.device)
+    counts = torch.zeros(q, dtype=torch.int32, device=centers.device)
+    lanes = torch.nonzero(keys[:q, 1] >= 0).flatten()
+    carry0 = torch.stack([torch.zeros_like(lanes), lanes], 1)
+    carry = lockstep_traverse(bvh, centers, r2, lanes, carry0,
+                              edge_epilogue(bvh, keys, buf), start=start)[0]
+    counts[lanes] = carry[:, 0].to(torch.int32)
+    return buf, counts
+
+
+def wavefront_histogram_plain(bvh: Bvh, centers, r2, r_max: float,
+                              n_bins: int, start=None):
+    """(n_bins,) int64: the hits of every query, binned by distance."""
+    hist = torch.zeros(n_bins, dtype=torch.int64, device=centers.device)
+    q = centers.shape[0]
+    lanes = torch.arange(q, device=centers.device)
+    lockstep_traverse(bvh, centers, r2, lanes, torch.zeros_like(lanes),
+                      histogram_epilogue(hist, r_max), start=start)
+    return hist
+
+
+def _dense_plain(bvh, centers, r2, words, pts, half, qmask, init, **kw):
+    q = centers.shape[0]
+    out = torch.full((q,), int(init), dtype=torch.int32, device=centers.device)
+    lanes = (torch.arange(q, device=centers.device) if qmask is None
+             else torch.nonzero(qmask).flatten())
+    carry0 = torch.stack([torch.full_like(lanes, int(init)), lanes], 1)
+    carry = lockstep_traverse(bvh, centers, r2, lanes, carry0,
+                              dense_epilogue(bvh, words, pts, centers, r2,
+                                             half, **kw))[0]
+    out[lanes] = carry[:, 0].to(torch.int32)
+    return out
+
+
+def wavefront_dense_count_plain(bvh: Bvh, centers, r2, words, pts,
+                                half: float, stop_at=None, qmask=None,
+                                tally=None):
+    """(q,) int32 DENSE_COUNT counts, 0 outside ``qmask`` (``tally``: see
+    :func:`dense_epilogue`)."""
+    _spheres_on_boxes(bvh, "DENSE_COUNT")
+    return _dense_plain(bvh, centers, r2, words, pts, half, qmask, 0,
+                        stop_at=stop_at, tally=tally)
+
+
+def wavefront_dense_min_label_plain(bvh: Bvh, centers, r2, words, pts,
+                                    scan_lab, half: float, qmask,
+                                    sentinel: int, tally=None):
+    """(q,) int32 DENSE_MIN_LABEL labels, ``sentinel`` outside ``qmask``
+    and where nothing is hit (``tally``: see :func:`dense_epilogue`)."""
+    _spheres_on_boxes(bvh, "DENSE_MIN_LABEL")
+    return _dense_plain(bvh, centers, r2, words, pts, half, qmask, sentinel,
+                        scan_lab=scan_lab, tally=tally)
 
 
 # ---------------------------------------------------------------------------
@@ -703,6 +945,147 @@ def wavefront_potential(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
     return out
 
 
+def wavefront_edge(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
+                   keys: torch.Tensor, capacity: int, *,
+                   start: torch.Tensor | None = None):
+    """``(buf, counts)`` of ``fdbscan_pair``'s capture: query k is leaf
+    k's point (``centers`` (n, 3) and ``r2`` (n,) in leaf order) walking
+    from ``start[k]`` (:func:`pair_starts` for the pair backend); it takes
+    hit objects whose key (:func:`pair_keys`) is core with another root
+    than its own into ``buf[k, min(taken, capacity - 1)]`` ((n, capacity)
+    int32, -1 in unused slots) and stops once ``capacity`` are taken;
+    ``counts`` (n,) int32 the edges taken. A query that is not core walks
+    nothing. Spheres on a point tree only."""
+    _check_inputs(bvh, centers, r2, None)
+    _spheres_on_points(bvh, "EDGE")
+    q, capacity = centers.shape[0], int(capacity)
+    _check_start(start, q, centers.device)
+    if q != bvh.num_leaves or keys.dtype != torch.int32 \
+            or keys.shape != (q, 2) or keys.device != centers.device \
+            or capacity < 1:
+        raise ValueError("EDGE's queries are the tree's n leaves, with (n, 2) "
+                         "int32 keys on their device, and capacity >= 1")
+    if not centers.is_cuda:
+        return wavefront_edge_plain(bvh, centers, r2, keys, capacity, start)
+    buf = torch.full((q, capacity), -1, dtype=torch.int32, device=centers.device)
+    counts = torch.empty(q, dtype=torch.int32, device=centers.device)
+    packed = _packed(bvh)
+    lib = _lib()
+    code = lib.wavefront_edge(
+        *_tree_args(packed, None), *_query_args(None, centers, r2, "sphere", start),
+        _ptr(keys.contiguous()), capacity, _ptr(buf), _ptr(counts), _stream())
+    _build.check(lib, code, "wavefront_edge")
+    _launched(wavefront_edge, "sphere", packed)
+    return buf, counts
+
+
+def wavefront_histogram(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
+                        r_max: float, n_bins: int, *,
+                        start: torch.Tensor | None = None) -> torch.Tensor:
+    """(n_bins,) int64: every hit of the queries binned by distance,
+    :func:`histogram_bins` with ``r_max`` taken as float32 (for the pair
+    correlation: ``centers`` the tree's points in leaf order, ``start``
+    :func:`pair_starts`). On the card up to ``SHARED_HISTOGRAM_BINS`` bins
+    are summed in a block's shared memory, more straight into the global
+    bins; integer sums, so both give the same counts. Spheres on a point
+    tree only."""
+    _check_inputs(bvh, centers, r2, None)
+    _spheres_on_points(bvh, "HISTOGRAM")
+    q, n_bins = centers.shape[0], int(n_bins)
+    _check_start(start, q, centers.device)
+    if n_bins < 1:
+        raise ValueError("n_bins must be >= 1")
+    if not centers.is_cuda:
+        return wavefront_histogram_plain(bvh, centers, r2, r_max, n_bins, start)
+    hist = torch.zeros(n_bins, dtype=torch.int64, device=centers.device)
+    if q == 0:
+        return hist
+    packed = _packed(bvh)
+    lib = _lib()
+    code = lib.wavefront_histogram(
+        *_tree_args(packed, None), *_query_args(None, centers, r2, "sphere", start),
+        float(r_max), n_bins, _ptr(hist), _stream())
+    _build.check(lib, code, "wavefront_histogram")
+    _launched(wavefront_histogram, "sphere", packed)
+    return hist
+
+
+def _check_dense(bvh, centers, words, pts, scan_lab, qmask):
+    q, n, dev = centers.shape[0], bvh.num_leaves, centers.device
+    if words.dtype != torch.int32 or words.shape != (n, 4):
+        raise ValueError("words must be the (n, 4) int32 leaf words")
+    if pts.dtype != torch.float32 or pts.shape != (n, 3):
+        raise ValueError("pts must be the (n, 3) float32 grid-sorted points")
+    if scan_lab is not None and (scan_lab.dtype != torch.int32
+                                 or scan_lab.shape != (n,)):
+        raise ValueError("scan_lab must be (n,) int32")
+    if qmask is not None and (qmask.dtype != torch.bool or qmask.shape != (q,)):
+        raise ValueError("qmask must be a (q,) bool mask")
+    if any(t is not None and t.device != dev for t in (words, pts, scan_lab, qmask)):
+        raise ValueError("words, pts, scan_lab and qmask must be on the "
+                         "queries' device")
+
+
+def _dense_launch(wrapper, bvh, centers, r2, words, pts, scan_lab, half,
+                  stop_at, qmask, sentinel, order):
+    q = centers.shape[0]
+    out = torch.empty(q, dtype=torch.int32, device=centers.device)
+    if q == 0:
+        return out
+    packed = _packed(bvh)
+    lib = _lib()
+    code = lib.wavefront_dense(
+        *_tree_args(packed, None), *_query_args(order, centers, r2, "sphere", None),
+        int(scan_lab is not None), _ptr(words.contiguous()), _ptr(pts.contiguous()),
+        _ptr(scan_lab), float(half), -1 if stop_at is None else int(stop_at),
+        _ptr(qmask), int(sentinel), _ptr(out), _stream())
+    _build.check(lib, code, "wavefront_dense")
+    _launched(wrapper, "sphere", packed)
+    return out
+
+
+def wavefront_dense_count(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
+                          words: torch.Tensor, pts: torch.Tensor, half: float,
+                          *, stop_at: int | None = None,
+                          qmask: torch.Tensor | None = None,
+                          order: torch.Tensor | None = None) -> torch.Tensor:
+    """(q,) int32: DenseBox's neighbour counts (:func:`dense_epilogue`) on
+    its mixed tree, for queries in ``qmask`` (None: all), 0 elsewhere;
+    done at ``stop_at``. ``words`` (:func:`dense_leaves`), ``pts`` the
+    (n, 3) grid-sorted points, ``half`` half the cell size (float32).
+    ``order`` changes no result. Spheres on a box-leaf tree only."""
+    _check_inputs(bvh, centers, r2, order)
+    _spheres_on_boxes(bvh, "DENSE_COUNT")
+    _check_dense(bvh, centers, words, pts, None, qmask)
+    if not centers.is_cuda:
+        return wavefront_dense_count_plain(bvh, centers, r2, words, pts, half,
+                                           stop_at, qmask)
+    return _dense_launch(wavefront_dense_count, bvh, centers, r2, words, pts,
+                         None, half, stop_at, qmask, 0, order)
+
+
+def wavefront_dense_min_label(bvh: Bvh, centers: torch.Tensor,
+                              r2: torch.Tensor, words: torch.Tensor,
+                              pts: torch.Tensor, scan_lab: torch.Tensor,
+                              half: float, qmask: torch.Tensor,
+                              sentinel: int, *,
+                              order: torch.Tensor | None = None) -> torch.Tensor:
+    """(q,) int32: DenseBox's min labels (:func:`dense_epilogue`) on its
+    mixed tree for queries in ``qmask``, ``sentinel`` elsewhere and where
+    nothing is hit; ``scan_lab`` (n,) int32 the label of each grid-sorted
+    point. ``order`` changes no result. Spheres on a box-leaf tree
+    only."""
+    _check_inputs(bvh, centers, r2, order)
+    _spheres_on_boxes(bvh, "DENSE_MIN_LABEL")
+    _check_dense(bvh, centers, words, pts, scan_lab, qmask)
+    if not centers.is_cuda:
+        return wavefront_dense_min_label_plain(bvh, centers, r2, words, pts,
+                                               scan_lab, half, qmask, sentinel)
+    return _dense_launch(wavefront_dense_min_label, bvh, centers, r2, words,
+                         pts, scan_lab.contiguous(), half, None, qmask,
+                         sentinel, order)
+
+
 def inv_sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """1/sqrt(x) of float32 values by POTENTIAL's sequence: on the card the
     kernel's own (``rsqrt_probe_kernel``), on the CPU its plain version,
@@ -720,8 +1103,28 @@ def inv_sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def histogram_bins_rn(d2: torch.Tensor, r_max: float, n_bins: int) -> torch.Tensor:
+    """int64 bins of float32 squared distances by HISTOGRAM's sequence: on
+    the card the kernel's own (``bin_probe_kernel``), on the CPU
+    :func:`histogram_bins`, which the kernel must equal."""
+    if d2.dtype != torch.float32:
+        raise ValueError("d2 must be float32")
+    if not d2.is_cuda:
+        return histogram_bins(d2, r_max, n_bins)
+    d2 = d2.contiguous()
+    out = torch.empty(d2.shape, dtype=torch.int32, device=d2.device)
+    if d2.numel():
+        lib = _lib()
+        code = lib.wavefront_bin_probe(_ptr(d2), _ptr(out), d2.numel(),
+                                       float(r_max), int(n_bins), _stream())
+        _build.check(lib, code, "wavefront_bin_probe")
+    return out.long()
+
+
 for _wrapper in (wavefront_count, wavefront_min_label, wavefront_fill,
-                 wavefront_fixed, wavefront_potential):
+                 wavefront_fixed, wavefront_potential, wavefront_edge,
+                 wavefront_histogram, wavefront_dense_count,
+                 wavefront_dense_min_label):
     _wrapper.launches = 0
     _wrapper.instances = collections.Counter()
 del _wrapper

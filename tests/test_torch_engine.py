@@ -157,9 +157,6 @@ def test_query_raises_what_is_not_ported():
         tq.query(tb, tq.nearest(tp, 3))
     with pytest.raises(NotImplementedError, match="A10"):
         tq.query(tb, tq.ray(tp, tp))
-    with pytest.raises(NotImplementedError, match="A9"):
-        tq.query(tb, tq.within(tp, EPS), lambda c, *a: (c, False), 0,
-                 backend="pair")
     with pytest.raises(ValueError, match="per-query"):
         tq.query_count(tb, tq.within(tp, EPS), backend="pair")
     with pytest.raises(ValueError, match="start_nodes"):

@@ -900,3 +900,172 @@ def test_fdbscan_stack_and_32bit_card_equal_cpu(cuda):
         for f in want._fields:
             torch.testing.assert_close(getattr(got, f).cpu(), getattr(want, f),
                                        rtol=0, atol=0)
+
+
+# --- The pair and DenseBox epilogues (EDGE, HISTOGRAM, DENSE_*) ------------
+
+def _pair_inputs(cuda, n, seed, eps):
+    pts, bvh = _tree(cuda, n, seed)
+    perm = bvh.leaf_perm.long()
+    r2 = torch.full((n,), eps, dtype=torch.float32, device=cuda) ** 2
+    return bvh, pts[perm].contiguous(), r2, kw.pair_starts(bvh)
+
+
+@pytest.mark.parametrize("capacity", [1, 2, 8])
+def test_wavefront_edge_matches_plain(cuda, capacity):
+    n = 6000
+    bvh, centers, r2, starts = _pair_inputs(cuda, n, 81, 0.03)
+    rng = np.random.default_rng(capacity)
+    core = torch.from_numpy(rng.random(n) < 0.7).to(cuda)
+    parent = torch.from_numpy(rng.integers(0, 40, n).astype(np.int32)).to(cuda)
+    keys = kw.pair_keys(bvh, parent, core)
+    before = kw.wavefront_edge.launches
+    got = kw.wavefront_edge(bvh, centers, r2, keys, capacity, start=starts)
+    assert kw.wavefront_edge.launches == before + 1
+    want = kw.wavefront_edge_plain(bvh, centers, r2, keys, capacity, starts)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    assert int(want[1].max()) == capacity
+
+
+@pytest.mark.parametrize("n_bins", [1, 16, 1000, kw.SHARED_HISTOGRAM_BINS,
+                                    kw.SHARED_HISTOGRAM_BINS + 1, 10000])
+def test_wavefront_histogram_matches_plain(cuda, n_bins):
+    """Bins in a block's shared memory and, past SHARED_HISTOGRAM_BINS,
+    in global memory, against the plain version."""
+    n = 6000
+    bvh, centers, r2, starts = _pair_inputs(cuda, n, 82, 0.1)
+    got = kw.wavefront_histogram(bvh, centers, r2, 0.1, n_bins, start=starts)
+    want = kw.wavefront_histogram_plain(bvh, centers, r2, 0.1, n_bins, starts)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    # Every query from the root: each ordered pair and each point itself.
+    all_pairs = kw.wavefront_histogram(bvh, centers, r2, 0.1, n_bins)
+    assert int(all_pairs.sum()) == 2 * int(got.sum()) + n
+
+
+@pytest.mark.parametrize("side", ["keys", "words", "pts", "scan_lab", "qmask"])
+def test_side_tensors_on_the_host_raise(cuda, side):
+    """A side tensor left on the host next to queries on the card raises
+    ValueError, before any host pointer reaches the kernel."""
+    from repro_torch.core.dbscan import densebox_tree
+    n = 500
+    pts = torch.from_numpy(make_clustered_points(np.random.default_rng(85), n)).to(cuda)
+    t = densebox_tree(pts, 0.05, 3)
+    args = {"keys": torch.zeros((n, 2), dtype=torch.int32, device=cuda),
+            "words": t.words(torch.zeros(n, dtype=torch.int32, device=cuda)),
+            "pts": t.pts_sorted, "scan_lab": torch.zeros(n, dtype=torch.int32, device=cuda),
+            "qmask": torch.ones(n, dtype=torch.bool, device=cuda)}
+    args[side] = args[side].cpu()
+    before = kw.wavefront_edge.launches + kw.wavefront_dense_min_label.launches
+    with pytest.raises(ValueError, match="device"):
+        if side == "keys":
+            bvh, centers, r2, starts = _pair_inputs(cuda, n, 86, 0.05)
+            kw.wavefront_edge(bvh, centers, r2, args["keys"], 2, start=starts)
+        else:
+            kw.wavefront_dense_min_label(t.bvh, t.pts_sorted, t.r2, args["words"],
+                                         args["pts"], args["scan_lab"], t.half,
+                                         args["qmask"], n)
+    assert kw.wavefront_edge.launches + kw.wavefront_dense_min_label.launches == before
+
+
+def test_histogram_bin_sequence_matches_plain(cuda):
+    """HISTOGRAM's bin sequence on 2^22 squared distances, subnormal ones
+    and ones at bin edges included."""
+    rng = np.random.default_rng(3)
+    d = rng.random(1 << 22).astype(np.float32) * 0.2
+    edges = (np.arange(17, dtype=np.float32) * np.float32(0.2 / 16)) ** 2
+    d2 = np.concatenate([d * d, edges, np.nextafter(edges, 1), np.nextafter(edges, 0),
+                         np.array([1e-40, 0.0, 1e-31], np.float32)])
+    x = torch.from_numpy(d2).to(cuda)
+    torch.testing.assert_close(kw.histogram_bins_rn(x, 0.2, 16).cpu(),
+                               kw.histogram_bins(x.cpu(), 0.2, 16), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("eps,min_pts", [(0.02, 2), (0.05, 5), (0.1, 20)])
+def test_wavefront_dense_matches_plain(cuda, eps, min_pts):
+    """Both DenseBox epilogues on a mixed tree of cells, skipped points and
+    loose points, with whole and partial cells."""
+    from repro_torch.core.dbscan import densebox_tree
+    n = 6000
+    pts = torch.from_numpy(make_clustered_points(np.random.default_rng(83), n)).to(cuda)
+    t = densebox_tree(pts, eps, min_pts)
+    assert bool((t.kind == kw.DENSE_CELL).any()) and bool((t.kind == kw.DENSE_POINT).any())
+    rng = np.random.default_rng(min_pts)
+    lab = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(cuda)
+    words = t.words(lab)
+    for stop in (None, min_pts):
+        got = kw.wavefront_dense_count(t.bvh, t.pts_sorted, t.r2, words, t.pts_sorted,
+                                       t.half, stop_at=stop, qmask=~t.dense,
+                                       order=t.bvh.leaf_perm)
+        want = kw.wavefront_dense_count_plain(t.bvh, t.pts_sorted, t.r2, words,
+                                              t.pts_sorted, t.half, stop, ~t.dense)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    qmask = torch.from_numpy(rng.random(n) < 0.6).to(cuda)
+    got = kw.wavefront_dense_min_label(t.bvh, t.pts_sorted, t.r2, words, t.pts_sorted,
+                                       lab, t.half, qmask, n, order=t.bvh.leaf_perm)
+    want = kw.wavefront_dense_min_label_plain(t.bvh, t.pts_sorted, t.r2, words,
+                                              t.pts_sorted, lab, t.half, qmask, n)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_pair_and_densebox_card_equal_cpu(cuda):
+    """fdbscan_pair, fdbscan_densebox and pair_count_histogram on the card
+    against the CPU path, exactly, each launching its kernels."""
+    from repro_torch.core import correlation as tc
+    from repro_torch.core import dbscan as td
+    pts = make_clustered_points(np.random.default_rng(84), 1 << 14)
+    for fn, kwargs in ((td.fdbscan_pair, {"edge_capacity": 2}),
+                       (td.fdbscan_densebox, {})):
+        a = fn(pts, 0.02, 5, device="cuda", **kwargs)
+        b = fn(pts, 0.02, 5, device="cpu", **kwargs)
+        for f in a._fields:
+            torch.testing.assert_close(getattr(a, f).cpu(), getattr(b, f), rtol=0, atol=0)
+    before = kw.wavefront_histogram.launches
+    got = tc.pair_count_histogram(pts, 0.05, 16, device="cuda")
+    assert kw.wavefront_histogram.launches == before + 1
+    torch.testing.assert_close(got.cpu(), tc.pair_count_histogram(pts, 0.05, 16,
+                                                                  device="cpu"),
+                               rtol=0, atol=0)
+
+
+# --- C7: the stencil and all-pairs kernels flush subnormals ----------------
+
+def _subnormal_rows(rng, m, d):
+    """Rows mixing subnormal, tiny normal and ordinary coordinates, so that
+    products and differences fall below FLT_MIN."""
+    x = rng.random((m, d)).astype(np.float32)
+    pick = rng.random((m, d))
+    x[pick < 0.3] = rng.choice(np.array([1e-20, -1e-20, 3e-39, -5e-40, 1e-45, 2e-19],
+                                        np.float32), int((pick < 0.3).sum()))
+    x[pick > 0.9] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("d", [1, 3, 64])
+def test_pairwise_kernels_flush_subnormals(cuda, d):
+    rng = np.random.default_rng(d + 100)
+    x = torch.from_numpy(_subnormal_rows(rng, 300, d)).to(cuda)
+    y = torch.from_numpy(_subnormal_rows(rng, 500, d)).to(cuda)
+    labels = torch.from_numpy(rng.permutation(500).astype(np.int32)).to(cuda)
+    core = torch.from_numpy(rng.random(500) < 0.5).to(cuda)
+    for eps2 in (0.0, float(np.float32(0.3 * d ** 0.5) ** 2)):
+        torch.testing.assert_close(kp.pairwise_count(x, y, eps2),
+                                   kp.pairwise_count_plain(x, y, eps2), rtol=0, atol=0)
+        torch.testing.assert_close(kp.pairwise_min_label(x, y, labels, core, eps2),
+                                   kp.pairwise_min_label_plain(x, y, labels, core, eps2),
+                                   rtol=0, atol=0)
+    # The C7 case: (1e-20, 0, 0) against the origin at eps = 0 is a hit.
+    a = torch.tensor([[1e-20, 0.0, 0.0]], device=cuda)
+    o = torch.zeros((1, 3), device=cuda)
+    assert int(kp.pairwise_count(a, o, 0.0)[0]) == 1
+
+
+@pytest.mark.parametrize("cap", [4, 16])
+def test_stencil_kernels_flush_subnormals(cuda, cap):
+    cell_pts, nbr, labels, core = stencil_cells(cuda, 300, cap, 3, cap + 50)
+    rng = np.random.default_rng(cap)
+    real = (cell_pts != kp.BIG).all(-1)
+    tiny = torch.from_numpy(_subnormal_rows(rng, int(real.sum()), 3) * 1e-3).to(cuda)
+    cell_pts[real] = tiny
+    for eps2 in (0.0, 1e-6):
+        _stencil_matches_plain(cell_pts, nbr, labels, core, eps2)

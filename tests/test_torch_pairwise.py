@@ -326,3 +326,71 @@ def test_plain_d2_is_the_hit_test():
     assert bool(kp._hits(x, xn, y, yn, eps2)[5, 9])
     want = (d2 <= d2[5, 9]).sum(1, dtype=torch.int32)
     assert torch.equal(kp.pairwise_count(x, y, eps2), want)
+
+
+# --- XLA:CPU's flush of subnormals (ROADMAP C7) ------------------------------
+
+_TINY = np.array([[1e-20, 0.0, 0.0]], np.float32)
+_ORIGIN = np.zeros((1, 3), np.float32)
+
+
+def test_subnormal_norm_flushes_at_eps_zero():
+    """At eps = 0, (1e-20, 0, 0) against the origin: ‖x‖² = 1e-40 is
+    subnormal, 0 in XLA, so d² = 0 and the pair is a hit (count 1, the
+    origin's label), as the reference counts it; unflushed it missed."""
+    x, y = jnp.asarray(_TINY), jnp.asarray(_ORIGIN)
+    lab, core = np.array([7], np.int32), np.array([True])
+    want = np.asarray(jops.eps_neighbor_counts(x, y, 0.0))
+    got = tops.eps_neighbor_counts(torch.from_numpy(_TINY), torch.from_numpy(_ORIGIN), 0.0)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert int(got[0]) == 1
+    want = np.asarray(jops.eps_min_label(x, y, jnp.asarray(lab), jnp.asarray(core), 0.0))
+    got = tops.eps_min_label(torch.from_numpy(_TINY), torch.from_numpy(_ORIGIN),
+                             torch.from_numpy(lab), torch.from_numpy(core), 0.0)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert int(got[0]) == 7
+
+
+def _two_point_cell():
+    """One cell holding (1e-20, 0, 0) and the origin, then the sink; the
+    stencil is the cell itself and the sink."""
+    cell_pts = np.full((2, 2, 3), kp.BIG, np.float32)
+    cell_pts[0, 0], cell_pts[0, 1] = _TINY[0], _ORIGIN[0]
+    nbr = np.array([[0] + [1] * 26], np.int32)
+    labels = np.array([[5, 3], [kp.SENTINEL_LABEL] * 2], np.int32)
+    core = np.array([[True, True], [False, False]])
+    return cell_pts, nbr, labels, core
+
+
+def test_subnormal_stencil_flushes_at_eps_zero():
+    """The same pair in one ε-cell: the tiny point counts itself and the
+    origin, 2 as in the reference (1 unflushed), and takes the origin's
+    label."""
+    cell_pts, nbr, labels, core = _two_point_cell()
+    want = np.asarray(jops.cell_stencil_counts(jnp.asarray(cell_pts), jnp.asarray(nbr), 0.0))
+    got = tops.cell_stencil_counts(torch.from_numpy(cell_pts), torch.from_numpy(nbr), 0.0)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert int(got[0, 0]) == 2
+    want = np.asarray(jops.cell_stencil_min_label(
+        jnp.asarray(cell_pts), jnp.asarray(labels), jnp.asarray(core), jnp.asarray(nbr), 0.0))
+    got = tops.cell_stencil_min_label(
+        torch.from_numpy(cell_pts), torch.from_numpy(labels), torch.from_numpy(core),
+        torch.from_numpy(nbr), 0.0)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert int(got[0, 0]) == 3
+
+
+@pytest.mark.parametrize("d", [1, 3, 8])
+def test_flush_path_equals_plain_path_on_normal_inputs(d):
+    """Where every nonzero input is at least 2^-50, nothing in d² can be
+    subnormal, so the plain versions skip the flushes: flushing anyway
+    changes no bit of d²."""
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.uniform(-1, 1, (50, d)).astype(np.float32))
+    y = torch.from_numpy(rng.uniform(-1, 1, (70, d)).astype(np.float32))
+    y[::7] = 0.0
+    assert not kp._flush_needed(x, y)
+    plain = kp._d2(x, kp._sq_norms(x), y, kp._sq_norms(y))
+    flushed = kp._d2(x, kp._sq_norms(x, True), y, kp._sq_norms(y, True), True)
+    assert torch.equal(plain.view(torch.int32), flushed.view(torch.int32))
+    assert kp._flush_needed(x, torch.tensor([[2.0 ** -51] * d]))
