@@ -8,7 +8,9 @@ centers and SO masses), ArborX's neighbor lists, the adjacency-graph
 DBSCAN, the grid DBSCAN, the eps-pairwise ops, the query engine's
 other predicates (IntersectsBox, all-hits rays) and trees (box leaves,
 30-bit codes) with its stack backend and generic callbacks, and the pair
-traversal's DBSCAN and correlation and DenseBox.
+traversal's DBSCAN and correlation and DenseBox, and the sharded halo
+pipeline (distributed FDBSCAN, the catalog merge, the span tracer) on an
+in-process mesh of shards of the card.
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. Phases, each of which must pass:
@@ -24,8 +26,8 @@ CUDA toolkit. Phases, each of which must pass:
    probe holding only its bin sequence (an IEEE square root and
    division); each traversal instance,
    POTENTIAL, the counter instance of COUNT, the box and ray
-   instances on point and box leaves, EDGE, HISTOGRAM and DenseBox's two
-   included, must read its node and
+   instances on point and box leaves, EDGE, HISTOGRAM, DenseBox's two and
+   MIN_LABEL's int64 instance included, must read its node and
    box-leaf records with 128-bit loads (``LDG.E.128``); their registers
    and counts of 128-bit and narrower ``LDG`` are printed. No instance of the stencil kernel (and neither of
    its two prologues) may hold an ``FFMA``; their registers and spills
@@ -39,7 +41,9 @@ CUDA toolkit. Phases, each of which must pass:
    traversal's node records (``pack_tree``, bit for bit) and its
    epilogues (COUNT, MIN_LABEL, FILL at an exact capacity, at
    half of it and with int64 offsets, FIXED with overflowing and ample
-   buffers) on a tree of 2^20 clustered points (exact), POTENTIAL (bit
+   buffers) on a tree of 2^20 clustered points (exact), MIN_LABEL over
+   int64 labels offset by 2^32 (bit-equal to its plain version and to the
+   int32 instance's result plus 2^32), POTENTIAL (bit
    for bit, with an active mask), the counter instance of COUNT (all six
    rows, counts equal to COUNT's) and every instance from random start
    nodes, a quarter of them ``SENTINEL``, on the same tree, COUNT with a
@@ -83,7 +87,13 @@ CUDA toolkit. Phases, each of which must pass:
    exact (the generic query launches no kernel); ``fdbscan_pair``
    (capacity 8), ``fdbscan_densebox`` and ``pair_count_histogram`` (2 eps)
    at 2^16 Plummer particles, exact, and ROADMAP C9's four points, where
-   the reference's DenseBox wraps, equal to ``fdbscan``.
+   the reference's DenseBox wraps, equal to ``fdbscan``; on 4 shards of
+   the card against 4 shards of the CPU at 2^16 slab-sorted Plummer
+   particles, ``halo_pipeline_sharded`` (int64 ids): labels, core mask,
+   rounds, overflow and catalog integers exact (floats to a stated
+   tolerance), and ``dbscan_distributed`` at int32 and int64 ids on the
+   card equal to the CPU pipeline's labels, core mask, rounds and
+   overflow.
 4. The main path: ``InsituAnalyzer`` in simulation mode over two analysis
    steps of 2^24 particles (4096 Plummer spheres plus 20% background).
    The launch counters are set to 0 before each step and read after it;
@@ -184,7 +194,28 @@ CUDA toolkit. Phases, each of which must pass:
    ``wavefront_dense_min_label`` at their first launch's inputs there,
    with hops and, for DenseBox, the cells taken whole, the cells scanned
    and the points scanned (the bound's operations), the plain version
-   over every query (HISTOGRAM: over 2^12 of them).
+   over every query (HISTOGRAM: over 2^12 of them). Phase 13 adds
+   ``wavefront_min_label_int64`` at the inputs of its first launch there,
+   with the int32 instance's time on the same inputs and the plain
+   version over every query of the launch.
+13. The sharded halo pipeline at full width (run before phase 9's line):
+   phase 4's cloud and eps, sorted by x and cut into 4 slabs, on 4 shards
+   of the card (``ShardMesh(4, "cuda")``), the ghost buffer (``halo_cap``)
+   set from the points within eps of each slab face; each step with its
+   seconds, peak memory and launches by instance (counters set to 0
+   before it): ``fdbscan``; ``dbscan_distributed`` at int32 and int64 ids,
+   whose labels and core mask must equal ``fdbscan``'s with no halo
+   overflow (rounds and ghost rows per shard printed; MIN_LABEL's int64
+   instance must have launched); ``halo_pipeline_sharded`` without SO,
+   whose catalog integers must equal the single-device ``halo_catalog``'s
+   (floats within rtol 1e-4); ``halo_pipeline_traced`` under a
+   ``SpanTracer`` (equal to it), then one in-situ step of phase 4's cloud
+   stage by stage under the same tracer (labels == ``fdbscan``'s); each
+   span's seconds printed and the Chrome trace written to
+   ``build/phase13_trace.json``; ``sharded_neighbor_csr``, whose total
+   must equal ``query_csr``'s on the whole cloud; and at 2^20,
+   ``halo_pipeline_sharded`` with SO masses (Delta = 200, r_max = 0.1),
+   equal to ``so_masses`` on one tree around its centers.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the port beside this file, it exits nonzero and prints no
@@ -443,6 +474,7 @@ def wave_tag(epi: int, pred: str = "sphere", leaf: str = "point",
 WAVEFRONT_KERNELS = {"wavefront_count": wave_tag(0),
                      "wavefront_count_stats": wave_tag(0, stats=True),
                      "wavefront_min_label": wave_tag(1),
+                     "wavefront_min_label64": wave_tag(9),
                      "wavefront_fill": wave_tag(2),
                      "wavefront_fill_int64": wave_tag(2, off="x"),
                      "wavefront_fixed": wave_tag(3),
@@ -602,6 +634,18 @@ def phase2_kernels(seed: int, n_tree: int = 1 << 20, n_rows: int = 1 << 24):
     want = kw.wavefront_min_label_plain(bvh, pts, r2, labels, core, core, n)
     require(torch.equal(got, want), "wavefront_min_label")
     log(f"[2] wavefront_min_label: exact over {int(core.sum())} core queries")
+    # B1 (e): int64 labels whose high word matters.
+    wide = labels.long() + (1 << 32)
+    got64 = kw.wavefront_min_label(bvh, pts, r2, wide, core, core, n + (1 << 32),
+                                   order=order)
+    want64 = kw.wavefront_min_label_plain(bvh, pts, r2, wide, core, core,
+                                          n + (1 << 32))
+    require(got64.dtype == torch.int64 and torch.equal(got64, want64),
+            "wavefront_min_label over int64 labels")
+    require(torch.equal(got64, got.long() + (1 << 32)),
+            "the int64 instance == the int32 instance + 2^32")
+    log(f"[2] wavefront_min_label over int64 labels (+2^32): bit-equal to its "
+        f"plain version and to the int32 instance's result + 2^32")
 
     counts = kw.wavefront_count(bvh, pts, r2, order=order)
     for dtype, cut in ((torch.int32, 1), (torch.int32, 2), (torch.int64, 1)):
@@ -3073,6 +3117,321 @@ def phase9_kernel_line(launches_by_step, records, more_rows, card, wave, seg_rep
     print(json.dumps({"kernels": rows}), flush=True)
 
 
+def face_counts(torch, pts, shards: int, eps) -> "torch.Tensor":
+    """(shards, 2): the points within eps of each slab's left and right x
+    faces, the rows ``halo_exchange`` packs for the neighbours."""
+    x = pts[:, 0].reshape(shards, -1)
+    e = torch.tensor(float(eps), dtype=torch.float32, device=pts.device)
+    lo, hi = x.amin(1, keepdim=True), x.amax(1, keepdim=True)
+    return torch.stack([(x <= lo + e).sum(1), (x >= hi - e).sum(1)], 1)
+
+
+def slab_cloud(torch, seed: int, n: int, shards: int):
+    """``plummer_cloud(seed, n)`` slab-partitioned over ``shards`` (sorted
+    by x) on the card, its eps, the largest face count (the halo buffer
+    that cannot overflow) and the permutation from the cloud's order."""
+    from repro_torch.core.distributed import slab_partition
+    from repro_torch.data.pipeline import hacc_benchmark_epsilon
+
+    pos, vel, _ = plummer_cloud(seed, n)
+    pos, order = slab_partition(pos, shards)
+    pts = torch.from_numpy(pos).to(DEV)
+    vels = torch.from_numpy(vel[order]).to(DEV)
+    eps = hacc_benchmark_epsilon(1.0, n)
+    faces = face_counts(torch, pts, shards, eps)
+    return pts, vels, eps, faces, torch.from_numpy(order).to(DEV)
+
+
+def phase3_sharded(seed: int, n: int = 1 << 16, shards: int = 4):
+    """The sharded path on ``shards`` shards of the card against as many
+    of the CPU: ``halo_pipeline_sharded`` at int64 ids (its DBSCAN runs
+    MIN_LABEL's int64 instance) on both, labels, core mask, rounds,
+    overflow and catalog integers exact, catalog floats within the
+    tolerance of two summation orders; and ``dbscan_distributed`` at int32
+    and int64 ids on the card, equal to the CPU pipeline's labels, core
+    mask, rounds and overflow. (One sharded DBSCAN takes about a minute
+    at 2^16 on the CPU, a lockstep torch walk per pass.)"""
+    import torch
+    from repro_torch.core import ShardMesh, dbscan_distributed
+    from repro_torch.halos import halo_pipeline_sharded
+
+    pts, vels, eps, faces, _ = slab_cloud(torch, seed + 6, n, shards)
+    halo_cap = int(faces.max())
+    out = {}
+    for dev in (DEV, "cpu"):
+        t0 = time.perf_counter()
+        out[dev] = halo_pipeline_sharded(
+            pts.to(dev), vels.to(dev), eps, 2, mesh=ShardMesh(shards, dev),
+            capacity=1 << 14, halo_cap=halo_cap, min_count=10,
+            index_dtype=torch.int64)
+        log(f"[3] halo_pipeline_sharded (int64 ids) on {shards} shards of "
+            f"{dev}: {time.perf_counter() - t0:.1f} s")
+    pipe, cpipe = out[DEV], out["cpu"]
+    fields = ("labels", "core_mask", "rounds", "halo_overflow")
+    for f in fields:
+        require(torch.equal(getattr(pipe, f).cpu(), getattr(cpipe, f)),
+                f"halo_pipeline_sharded {f} card vs CPU")
+    for f in pipe.catalog._fields:
+        a, b = getattr(pipe.catalog, f).cpu(), getattr(cpipe.catalog, f)
+        if a.dtype.is_floating_point:
+            require(torch.allclose(a, b, rtol=1e-4, atol=1e-6), f"catalog {f}")
+        else:
+            require(torch.equal(a, b), f"catalog {f} card vs CPU")
+    for dt in (torch.int32, torch.int64):
+        dist = dbscan_distributed(pts, eps, 2, mesh=ShardMesh(shards, DEV),
+                                  halo_cap=halo_cap, index_dtype=dt)
+        require(dist.labels.dtype == dt, "dbscan_distributed label dtype")
+        for f in fields:
+            require(torch.equal(getattr(dist, f).cpu().to(getattr(cpipe, f).dtype),
+                                getattr(cpipe, f)),
+                    f"dbscan_distributed {dt} {f} == the CPU pipeline's")
+    require(not bool(pipe.halo_overflow), "halo overflow at phase 3")
+    log(f"[3] card == CPU on {shards} shards at {n} particles (face counts "
+        f"{faces.tolist()}, halo_cap {halo_cap}): halo_pipeline_sharded exact "
+        f"({int(pipe.rounds)} rounds, {int(pipe.catalog.num_halos)} halos, "
+        f"catalog ints exact, floats within rtol 1e-4); dbscan_distributed "
+        f"at int32 and int64 ids on the card == the CPU pipeline's")
+
+
+def staged_insitu_step(torch, tracer, pts, vels, eps, cfg, run: int):
+    """One in-situ step (``fdbscan`` then ``halo_catalog``) stage by stage,
+    each stage in a fenced span of ``tracer``: the split of the step's
+    time. Returns the labels."""
+    from repro_torch.core import dbscan as td
+    from repro_torch.core.bvh import build_bvh
+    from repro_torch.core.geometry import scene_bounds
+    from repro_torch.halos.catalog import halo_catalog
+    from repro_torch.kernels.wavefront import shared_pack
+
+    n = pts.shape[0]
+    with tracer.span("insitu_staged", n=n, run=run):
+        with tracer.span("build_bvh") as sp:
+            bvh = sp.fence(build_bvh(pts, *scene_bounds(pts)))
+        with shared_pack(bvh):
+            with tracer.span("core_counts (with the pack)") as sp:
+                core = sp.fence(td.count_neighbors(
+                    bvh, pts, pts, eps, cfg.min_pts, order=bvh.leaf_perm)
+                    >= cfg.min_pts)
+            with tracer.span("union_rounds") as sp:
+                parent, _ = td.union_rounds(bvh, pts, eps, core, n)
+                sp.fence(parent)
+            with tracer.span("border") as sp:
+                border = sp.fence(td.min_core_label_on(
+                    bvh, pts, eps, parent, core, ~core, n, order=bvh.leaf_perm))
+        with tracer.span("finish_labels") as sp:
+            labels = sp.fence(td._finish_labels(parent, border, core, n))
+        with tracer.span("halo_catalog") as sp:
+            sp.fence(halo_catalog(pts, vels, labels, capacity=cfg.halo_capacity,
+                                  min_count=cfg.halo_min_count, device=DEV))
+    return labels
+
+
+def min_label64_row(torch, kw, call, launches, card, wave):
+    """Phase 9's row of MIN_LABEL's int64 instance at the inputs of its
+    first launch in phase 13, with the int32 instance timed on the same
+    inputs (the labels fit) beside it."""
+    (bvh, centers, r2, labels, core, mask, sentinel), kwa, got = call
+    with kw.shared_pack(bvh):
+        ms = cuda_ms(torch, lambda: kw.wavefront_min_label(
+            bvh, centers, r2, labels, core, mask, sentinel, **kwa), 3)
+        narrow = labels.to(torch.int32)
+        ms32 = cuda_ms(torch, lambda: kw.wavefront_min_label(
+            bvh, centers, r2, narrow, core, mask, sentinel, **kwa), 3)
+        require(torch.equal(kw.wavefront_min_label(
+            bvh, centers, r2, narrow, core, mask, sentinel, **kwa).long(), got),
+            "the int32 instance == the int64 one on phase 13's input")
+    lanes = torch.nonzero(mask).flatten()
+    init = torch.full((lanes.numel(),), sentinel, dtype=torch.int64, device=DEV)
+    (best, hops), plain_ms = timed_once(torch, lambda: kw.lockstep_traverse(
+        bvh, centers, r2, lanes, init, kw.min_label_epilogue(bvh, labels, core)))
+    want = torch.full_like(got, sentinel)
+    want[lanes] = best
+    require(torch.equal(got, want), "wavefront_min_label int64 on phase 13's input")
+    q = centers.shape[0]
+    nb = tree_bytes(bvh) + q * (4 + 12 + 4 + 1 + 8) + labels.numel() * 9
+    b_ms, b_by = bound(nb, hops * FLOPS_PER_HOP)
+    return {"name": "wavefront_min_label_int64", "wrapper": "wavefront_min_label",
+            "instance": "sphere/point/int64", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/wavefront.cu",
+            "replaces": "src/repro/kernels/wavefront.py:97",
+            "launches": launches,
+            "path": "dbscan_distributed(index_dtype=int64), 2^24 on 4 shards",
+            "card": card, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "plain_input": "every query of the launch (one shard's merge round)",
+            "queries": int(lanes.numel()), "ms_int32_same_input": ms32,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            **traversal_fields(torch, kw, bvh, hops, ms, wave,
+                               "wavefront_min_label64", shared=True)}
+
+
+def phase13_sharded(seed: int, n: int, cfg, card: str, wave: dict,
+                    shards: int = 4, n_so: int = 1 << 20):
+    """Phase 13: the sharded halo pipeline at full width, phase 4's cloud
+    and eps slab-partitioned over ``shards`` shards of the card, each step
+    with its seconds, peak memory and launches by instance; the in-situ
+    step's split by stage from the span tracer; SO at ``n_so``. Returns
+    phase 9's row of MIN_LABEL's int64 instance."""
+    import torch
+    tq = importlib.import_module("repro_torch.core.query")
+    from repro_torch.core import dbscan as td
+    from repro_torch.core import (ShardMesh, dbscan_distributed, halo_exchange,
+                                  sharded_neighbor_csr)
+    from repro_torch.core.bvh import build_bvh
+    from repro_torch.core.geometry import scene_bounds
+    from repro_torch.halos import (halo_catalog, halo_pipeline_sharded,
+                                   halo_pipeline_traced, so_masses)
+    from repro_torch.kernels import wavefront as kw
+    from repro_torch.obs import SpanTracer, load_chrome_trace
+
+    t_all = time.perf_counter()
+    pts, vels, eps, faces, order = slab_cloud(torch, seed, n, shards)
+    halo_cap = int(faces.max())
+    mesh = ShardMesh(shards, DEV)
+    kernels = kernel_wrappers()
+    steps = []
+    log(f"[13] {n} particles on {shards} shards, eps {eps:.6g}; points within "
+        f"eps of each slab's faces {faces.tolist()}: halo_cap {halo_cap}")
+
+    with counted_step(torch, "fdbscan", kernels, "[13]") as rec:
+        ref = td.fdbscan(pts, eps, 2, device=DEV)
+    steps.append(rec)
+
+    first64 = []
+    wrapper = td.wavefront_min_label
+
+    def keep_first64(*args, **kwargs):
+        res = wrapper(*args, **kwargs)
+        if args[3].dtype == torch.int64 and not first64:
+            first64.append((args, kwargs, res))
+        return res
+
+    for dt in (torch.int32, torch.int64):
+        name = f"dbscan_distributed(index_dtype={str(dt)[6:]})"
+        with swapped(td, "wavefront_min_label", keep_first64), \
+                counted_step(torch, name, kernels, "[13]") as rec:
+            res = dbscan_distributed(pts, eps, 2, mesh=mesh, halo_cap=halo_cap,
+                                     index_dtype=dt)
+        steps.append(rec)
+        key = "wavefront_min_label sphere/point" + ("/int64" if dt == torch.int64
+                                                    else "")
+        require(rec["launches"].get(key, 0) > 0, f"{key} was not launched")
+        require(not bool(res.halo_overflow), f"{name}: halo overflow")
+        require(res.labels.dtype == dt, f"{name}: label dtype")
+        require(torch.equal(res.labels.to(torch.int32), ref.labels)
+                and torch.equal(res.core_mask, ref.core_mask),
+                f"{name}: labels and core mask == fdbscan's")
+        log(f"[13] {name}: labels and core mask == fdbscan's; "
+            f"{int(res.rounds)} merge rounds (fdbscan {int(ref.num_rounds)})")
+    launches64 = steps[-1]["launches"].get("wavefront_min_label sphere/point/int64", 0)
+    del res
+    n_loc = n // shards
+
+    def ghosts(axis, p):
+        gid = axis.index * n_loc + torch.arange(n_loc, device=DEV)
+        return int(halo_exchange(p, gid, eps, halo_cap, axis).halo_valid.sum())
+
+    log(f"[13] ghost rows per shard {mesh.run(ghosts, pts)}; per-shard "
+        f"overflow {(faces > halo_cap).any(1).tolist()}")
+
+    with counted_step(torch, "halo_pipeline_sharded", kernels, "[13]") as rec:
+        pipe = halo_pipeline_sharded(pts, vels, eps, 2, mesh=mesh,
+                                     capacity=cfg.halo_capacity,
+                                     halo_cap=halo_cap,
+                                     min_count=cfg.halo_min_count)
+    steps.append(rec)
+    with counted_step(torch, "halo_catalog (one device)", kernels, "[13]") as rec:
+        single = halo_catalog(pts, vels, ref.labels, capacity=cfg.halo_capacity,
+                              min_count=cfg.halo_min_count, device=DEV)
+    steps.append(rec)
+    require(torch.equal(pipe.labels, ref.labels), "pipeline labels == fdbscan's")
+    diffs = {}
+    for f in single._fields:
+        a, b = getattr(pipe.catalog, f), getattr(single, f)
+        if a.dtype.is_floating_point:
+            # Sums of up to 3e5 float32 terms in other orders.
+            require(torch.allclose(a, b, rtol=1e-4, atol=1e-6), f"catalog {f}")
+            diffs[f] = (a - b).abs().max().item()
+        else:
+            require(torch.equal(a, b), f"catalog {f} == halo_catalog's")
+    require(not bool(pipe.catalog.overflow), "catalog overflow")
+    log(f"[13] halo_pipeline_sharded: {int(pipe.catalog.num_halos)} halos, "
+        f"catalog ints == halo_catalog's; float max abs differences {diffs}")
+
+    tracer = SpanTracer(process_name="chip_smoke phase 13")
+    with counted_step(torch, "halo_pipeline_traced", kernels, "[13]") as rec:
+        staged = halo_pipeline_traced(pts, vels, eps, 2, mesh=mesh,
+                                      capacity=cfg.halo_capacity,
+                                      halo_cap=halo_cap,
+                                      min_count=cfg.halo_min_count,
+                                      tracer=tracer)
+    steps.append(rec)
+    require(torch.equal(staged.labels, pipe.labels) and all(
+        torch.equal(getattr(staged.catalog, f), getattr(pipe.catalog, f))
+        for f in ("num_halos", "root", "count", "particle_halo")),
+        "halo_pipeline_traced == halo_pipeline_sharded")
+    del staged, pipe, single
+    unsorted = torch.empty_like(pts)
+    unsorted[order] = pts
+    uvel = torch.empty_like(vels)
+    uvel[order] = vels
+    staged_insitu_step(torch, tracer, unsorted, uvel, eps, cfg, 0)   # warm-up
+    labels = staged_insitu_step(torch, tracer, unsorted, uvel, eps, cfg, 1)
+    require(torch.equal(labels, td.fdbscan(unsorted, eps, cfg.min_pts,
+                                           device=DEV).labels),
+            "the staged in-situ step's labels == fdbscan's")
+    del unsorted, uvel, labels
+    out = Path(__file__).resolve().parent / "build" / "phase13_trace.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    spans = [(e["name"], round(e["dur"] * 1e-6, 6))
+             for e in load_chrome_trace(tracer.export(str(out)))]
+    log(f"[13] spans (name, seconds), Chrome trace in {out}: {spans}")
+
+    bvh = build_bvh(pts, *scene_bounds(pts))
+    exact = tq.query_csr(bvh, tq.within(pts, eps), order=bvh.leaf_perm)
+    per_shard = (exact.offsets[1:].long() - exact.offsets[:-1].long()) \
+        .reshape(shards, -1).sum(1)
+    del bvh
+    with counted_step(torch, "sharded_neighbor_csr", kernels, "[13]") as rec:
+        csr = sharded_neighbor_csr(pts, eps, capacity=int(per_shard.max()),
+                                   mesh=mesh, halo_cap=halo_cap)
+    steps.append(rec)
+    require(not bool(csr.overflowed), "sharded_neighbor_csr overflowed")
+    require(int(csr.total.sum()) == int(exact.total),
+            "sharded_neighbor_csr's total == query_csr's")
+    require(torch.equal(csr.total.long(), per_shard),
+            "sharded_neighbor_csr's totals per shard")
+    log(f"[13] sharded_neighbor_csr: {int(exact.total)} hits == query_csr's "
+        f"on the whole cloud, per shard {csr.total.tolist()}")
+    del csr, exact
+
+    row = min_label64_row(torch, kw, first64[0], launches64, card, wave)
+    del first64, ref, pts, vels
+
+    pts2, vels2, eps2, faces2, _ = slab_cloud(torch, seed, n_so, shards)
+    with counted_step(torch, f"halo_pipeline_sharded(SO) at {n_so}", kernels,
+                      "[13]") as rec:
+        pipe = halo_pipeline_sharded(pts2, vels2, eps2, 2, mesh=mesh,
+                                     capacity=cfg.halo_capacity,
+                                     halo_cap=int(faces2.max()),
+                                     min_count=cfg.halo_min_count,
+                                     so_delta=200.0, so_r_max=0.1)
+    steps.append(rec)
+    cat = pipe.catalog
+    with counted_step(torch, f"so_masses at {n_so} (one device)", kernels,
+                      "[13]") as rec:
+        so = so_masses(pts2, cat.center, cat.count > 0, delta=200.0, r_max=0.1,
+                       device=DEV)
+    steps.append(rec)
+    require(all(torch.equal(getattr(pipe.so, f), getattr(so, f))
+                for f in so._fields), "sharded SO == so_masses")
+    log(f"[13] SO at {n_so}: {int(cat.num_halos)} halos, the psum'd shard "
+        f"counts == so_masses on one tree ({int(so.bracketed.sum())} "
+        f"bracketed)")
+    log(f"[13] phase 13 steps: {json.dumps(steps)}; "
+        f"{time.perf_counter() - t_all:.1f} s")
+    return [row]
+
+
 HACC_KERNELS = ("wavefront_count", "wavefront_min_label", "segment_sum_sorted",
                 "segment_max_sorted")
 
@@ -3152,6 +3511,7 @@ def main(argv=None) -> int:
     phase3_whole_path(args.seed, cfg)
     phase3_grid_and_pairwise(args.seed)
     phase3_pair_and_densebox(args.seed)
+    phase3_sharded(args.seed)
     log(f"[3] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches_by_step, records = phase4_main_path(args.seed, 1 << args.n_log2, cfg)
@@ -3179,9 +3539,12 @@ def main(argv=None) -> int:
     dbscan_rows = phase12_pair_and_densebox(args.seed, 1 << args.n_log2, card, wave)
     log(f"[12] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    sharded_rows = phase13_sharded(args.seed, 1 << args.n_log2, cfg, card, wave)
+    log(f"[13] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     phase9_kernel_line(launches_by_step, records,
                        nl_rows + grid_rows + pair_rows + halo_rows + pred_rows
-                       + dbscan_rows,
+                       + dbscan_rows + sharded_rows,
                        card, wave,
                        seg)
     log(f"[9] done in {time.perf_counter() - t0:.1f} s; "

@@ -1,7 +1,8 @@
 """In-situ halo finding; port of ``repro/analysis/insitu.py`` in
 simulation mode: every ``cadence`` steps, particle phase space goes in and
 a halo-catalog summary comes out, FDBSCAN then ``halo_catalog``, on the
-card. Training mode and tracing are not ported yet."""
+card, under the reference's spans when a tracer is given. Training mode is
+not ported yet."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,6 +14,7 @@ from repro_torch.core.dbscan import fdbscan
 from repro_torch.data.pipeline import hacc_benchmark_epsilon
 from repro_torch.device import as_tensor_on, resolve_device
 from repro_torch.halos.catalog import halo_catalog
+from repro_torch.obs.trace import traced
 
 __all__ = ["InsituConfig", "simulation_halo_stats", "InsituAnalyzer"]
 
@@ -60,17 +62,20 @@ class InsituAnalyzer:
     """Runs the halo-stats step at the configured cadence and keeps the
     host-side history, as the reference's analyzer does in simulation
     mode. ``params`` holds ``positions``, ``velocities`` and optionally
-    ``eps`` (default: the paper's linking length for a unit box)."""
+    ``eps`` (default: the paper's linking length for a unit box).
+
+    ``tracer`` (a ``repro_torch.obs.SpanTracer``) puts each analysis under
+    an ``insitu`` span (args ``step``, ``mode``) with the fenced children
+    ``insitu/halo_stats`` and ``insitu/host_readback``, the reference's
+    spans."""
 
     def __init__(self, cfg: InsituConfig, tracer=None, *, device=None):
         if cfg.mode != "simulation":
             raise NotImplementedError(
                 "training mode (embedding and router clustering) is not "
                 "ported yet (ROADMAP A14)")
-        if tracer is not None:
-            raise NotImplementedError(
-                "tracer= is not ported yet (ROADMAP A13)")
         self.cfg = cfg
+        self.tracer = tracer
         self.device = resolve_device(device)
         self.history: list[tuple[int, dict]] = []
 
@@ -79,8 +84,22 @@ class InsituAnalyzer:
             return {}
         n = int(params["positions"].shape[0])
         eps = params.get("eps", hacc_benchmark_epsilon(1.0, n))
-        stats = simulation_halo_stats(params["positions"], params["velocities"],
-                                      self.cfg, eps, step, device=self.device)
-        host = {k: float(v) for k, v in stats.items()}
+
+        def analyze():
+            return traced(self.tracer, "insitu/halo_stats",
+                          simulation_halo_stats, params["positions"],
+                          params["velocities"], self.cfg, eps, step,
+                          device=self.device)
+
+        def readback(stats):
+            return {k: float(v) for k, v in stats.items()}
+
+        if self.tracer is None:
+            host = readback(analyze())
+        else:
+            with self.tracer.span("insitu", step=step, mode=self.cfg.mode):
+                stats = analyze()
+                host = traced(self.tracer, "insitu/host_readback", readback,
+                              stats)
         self.history.append((step, host))
         return host

@@ -1,9 +1,10 @@
 """Spatial core of the port (``repro/core/__init__.py``): geometry, Morton
 codes, the LBVH, the cell grid, the query engine and its protocols (the
 pair backend included), the traversal shims, union-find, the DBSCAN
-variants and the pair correlation. Re-exports the ported names of the
-reference's list; ``knn``, ``emst``, ``interpolate`` and ``raycast`` are
-not ported yet (ROADMAP A10)."""
+variants, the pair correlation, and the sharded layer (``distributed.py``
+on the in-process mesh of ``mesh.py``). Re-exports the ported names of
+the reference's list; ``knn``, ``emst``, ``interpolate`` and ``raycast``
+are not ported yet (ROADMAP A10)."""
 from repro_torch.core.bvh import SENTINEL, Bvh, build_bvh, build_bvh_objects
 from repro_torch.core.cell_grid import CellGrid, build_cell_grid, cell_box
 from repro_torch.core.correlation import pair_count_histogram, two_point_correlation
@@ -19,7 +20,22 @@ from repro_torch.core.dbscan import (
     seg_min_per_point,
     union_rounds,
 )
+from repro_torch.core.distributed import (
+    DistDbscanResult,
+    HaloExchange,
+    ShardContext,
+    ShardedCsr,
+    dbscan_distributed,
+    dbscan_local_shard,
+    exchange_payload,
+    halo_exchange,
+    shard_context,
+    sharded_neighbor_csr,
+    sharded_query_csr,
+    slab_partition,
+)
 from repro_torch.core.geometry import Aabb, aabb_of_points
+from repro_torch.core.mesh import ShardAxis, ShardMesh
 from repro_torch.core.morton import morton32, morton64, normalize_points
 from repro_torch.core.query import (
     BufferedCsr,
@@ -65,4 +81,9 @@ __all__ = [
     "node_reduce",
     "pair_traverse_sphere", "traverse_sphere_stack", "traverse_sphere_stackless",
     "union_find",
+    "ShardMesh", "ShardAxis",
+    "DistDbscanResult", "HaloExchange", "ShardContext", "ShardedCsr",
+    "slab_partition", "halo_exchange", "exchange_payload", "shard_context",
+    "sharded_query_csr", "sharded_neighbor_csr", "dbscan_local_shard",
+    "dbscan_distributed",
 ]

@@ -76,34 +76,20 @@ def count_neighbors(bvh: Bvh, points, queries: torch.Tensor, eps,
                        order=None if use_stack else order)
 
 
-_INT32 = torch.iinfo(torch.int32)
-
-
 def min_core_label_on(bvh: Bvh, query_pts: torch.Tensor, eps, obj_labels,
                       obj_core, queries_mask, sentinel: int, *,
                       order: torch.Tensor | None = None) -> torch.Tensor:
     """For each query in ``queries_mask``, the min over core ε-neighbour
     objects j of ``obj_labels[j]`` (tree object index), ``sentinel`` if
     none and outside the mask. The result has ``obj_labels``'s dtype, as
-    the reference's does. The kernel carries int32 labels (ROADMAP B1
-    (e)): int64 labels or a sentinel outside the int32 range raise
-    ``ValueError`` rather than wrap (an int64 tensor's range costs one
-    host sync)."""
-    sentinel = int(sentinel)
-    if not _INT32.min <= sentinel <= _INT32.max:
-        raise ValueError(f"sentinel {sentinel} is outside int32; int64 labels "
-                         "are not ported yet (ROADMAP B1 (e))")
-    if obj_labels.dtype != torch.int32 and obj_labels.numel() and (
-            int(obj_labels.min()) < _INT32.min
-            or int(obj_labels.max()) > _INT32.max):
-        raise ValueError("obj_labels hold values outside int32; int64 labels "
-                         "are not ported yet (ROADMAP B1 (e))")
+    the reference's does: int32 labels take the kernel's MIN_LABEL
+    instance, int64 labels (the sharded path's global ids) its int64 one.
+    A sentinel outside the labels' dtype raises ``ValueError``."""
     pred = within(query_pts, eps)
-    out = wavefront_min_label(
+    return wavefront_min_label(
         bvh, pred.centers.contiguous(), squared_radii(pred),
-        obj_labels.to(torch.int32).contiguous(), obj_core.contiguous(),
-        queries_mask.contiguous(), sentinel, order=order)
-    return out.to(obj_labels.dtype)
+        obj_labels.contiguous(), obj_core.contiguous(),
+        queries_mask.contiguous(), int(sentinel), order=order)
 
 
 def _finish_labels(parent, border_candidate, core, n):

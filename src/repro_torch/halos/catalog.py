@@ -10,12 +10,14 @@
    ``segment_max_sorted``.
 
 The device of the inputs decides the path: the CUDA segment kernels on the
-card, their plain versions on the CPU.
+card, their plain versions on the CPU. Labels keep their dtype, int32 or
+int64 (the sharded path's global ids), and so does ``root``.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.device import as_tensor_on, resolve_device
@@ -28,6 +30,12 @@ __all__ = ["NOISE", "HaloCatalog", "canonicalize_labels", "feature_sums",
            "derive_catalog", "halo_catalog"]
 
 
+def _sort_last(dtype: torch.dtype) -> int:
+    """The sort-to-the-back sentinel of a label dtype: its iinfo max, so
+    that int64 global labels keep a sentinel above every real root."""
+    return torch.iinfo(dtype).max
+
+
 class HaloCatalog(NamedTuple):
     """Fixed-capacity halo catalog. Valid halos occupy slots
     ``0..num_halos-1`` (ascending DBSCAN root label); the rest are zeroed
@@ -35,7 +43,7 @@ class HaloCatalog(NamedTuple):
 
     num_halos: torch.Tensor      # () int32, halos surviving the mass cut
     overflow: torch.Tensor       # () bool, provisional halos exceeded capacity
-    root: torch.Tensor           # (H,) int32, DBSCAN root label, -1 empty
+    root: torch.Tensor           # (H,) label dtype, DBSCAN root label, -1 empty
     count: torch.Tensor          # (H,) int32, particles in halo
     mass: torch.Tensor           # (H,) f32, count * particle_mass
     center: torch.Tensor         # (H, 3) f32, center of mass
@@ -43,6 +51,13 @@ class HaloCatalog(NamedTuple):
     vdisp: torch.Tensor          # (H,) f32, 3-D velocity dispersion
     rmax: torch.Tensor           # (H,) f32, max |x - center| over members
     particle_halo: torch.Tensor  # (n,) int32, final slot per particle, -1 none
+
+
+def label_dtype(labels) -> torch.dtype:
+    """int64 for int64 labels (a tensor or an array), int32 otherwise."""
+    dt = labels.dtype if isinstance(labels, torch.Tensor) else \
+        np.asarray(labels).dtype
+    return torch.int64 if dt in (torch.int64, np.int64) else torch.int32
 
 
 def _sum3(a: torch.Tensor) -> torch.Tensor:
@@ -59,7 +74,7 @@ def canonicalize_labels(labels: torch.Tensor, capacity: int):
     ``member_sorted`` is False for noise and for halos past capacity."""
     n = labels.shape[0]
     valid = labels >= 0
-    key = torch.where(valid, labels, torch.iinfo(labels.dtype).max)
+    key = torch.where(valid, labels, _sort_last(labels.dtype))
     perm = torch.sort(key, stable=True).indices
     lab_s = labels[perm]
     valid_s = valid[perm]
@@ -86,7 +101,7 @@ def feature_sums(points, velocities, labels, *, capacity: int):
     feats = torch.cat([w, pts_s * w, vel_s * w,
                        _sum3(vel_s * vel_s)[:, None] * w], dim=1).contiguous()
     sums = segment_sum_sorted(feats, pid_s, capacity)
-    sl = torch.iinfo(lab_s.dtype).max
+    sl = _sort_last(lab_s.dtype)
     root = torch.full((capacity,), sl, dtype=lab_s.dtype, device=labels.device)
     root = root.scatter_reduce(0, pid_s.long(),
                                torch.where(member_s, lab_s, sl), "amin",
@@ -134,13 +149,15 @@ def halo_catalog(points, velocities, labels, *, capacity: int, min_count=2,
     """DBSCAN labels + phase-space coordinates -> halo catalog, on
     ``device`` (``None``: the CUDA card; raises without one).
 
-    ``labels``: (n,) int32 cluster roots, noise = -1. ``capacity``: max
-    halos; more sets ``overflow`` and drops the largest-root surplus.
-    ``min_count``: minimum members (the mass cut)."""
+    ``labels``: (n,) int32 or int64 cluster roots (an int64 numpy array
+    stays int64; other integer types become int32), noise = -1; ``root``
+    keeps their dtype. ``capacity``: max halos; more sets ``overflow`` and
+    drops the largest-root surplus. ``min_count``: minimum members (the
+    mass cut)."""
     dev = resolve_device(device)
     points = as_tensor_on(points, torch.float32, dev)
     velocities = as_tensor_on(velocities, torch.float32, dev)
-    labels = as_tensor_on(labels, torch.int32, dev)
+    labels = as_tensor_on(labels, label_dtype(labels), dev)
     n, d = points.shape
     sums, root_p, overflow, perm, pid_s, member_s = feature_sums(
         points, velocities, labels, capacity=capacity)

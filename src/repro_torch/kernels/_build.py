@@ -16,6 +16,11 @@ The sources include no PyTorch header, so a build takes seconds. Every C
 entry point takes raw pointers and a ``cudaStream_t`` and returns
 ``cudaGetLastError()``; :func:`check` raises on a nonzero code. Nothing
 here runs at import, so ``import repro_torch`` works without ``nvcc``.
+
+Kernels may be first used from several threads at once (the shard threads
+of ``core/mesh.py``): one lock serializes the builds and loads, and
+:func:`count_launch` adds to the wrappers' launch counters under a lock of
+its own, so that no build runs twice and no launch goes uncounted.
 """
 from __future__ import annotations
 
@@ -24,9 +29,11 @@ import functools
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "build_log", "library", "check"]
+__all__ = ["SOURCES", "BUILD_DIR", "build_all", "build_log", "library", "check",
+           "count_launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("wavefront", "segment", "pairwise")
@@ -37,6 +44,8 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Flags of one source only. pairwise.cu flushes subnormal float inputs and
 # results to zero, as XLA:CPU does (ROADMAP C7).
 _SOURCE_FLAGS = {"pairwise": ("--ftz=true",)}
+_BUILD_LOCK = threading.RLock()
+_COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -57,6 +66,11 @@ def build_all(names=SOURCES) -> dict[str, str]:
     """Compile every stale source, one ``nvcc`` each, all started together.
     Returns the compiler's output (the ``-Xptxas -v`` summary) per source;
     raises if any build fails."""
+    with _BUILD_LOCK:
+        return _build_stale(names)
+
+
+def _build_stale(names) -> dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
@@ -88,10 +102,25 @@ def build_log(name: str) -> str:
 
 
 @functools.cache
-def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of ``csrc/<name>.cu``, built if stale."""
+def _load(name: str) -> ctypes.CDLL:
     build_all((name,))
     return ctypes.CDLL(str(BUILD_DIR / f"{name}.so"))
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of ``csrc/<name>.cu``, built if stale;
+    built and loaded once however many threads ask at once."""
+    with _BUILD_LOCK:
+        return _load(name)
+
+
+def count_launch(wrapper, launched: int = 1, instance: str | None = None) -> None:
+    """Add ``launched`` to ``wrapper.launches`` (and to
+    ``wrapper.instances[instance]``), safe across threads."""
+    with _COUNT_LOCK:
+        wrapper.launches += launched
+        if instance is not None:
+            wrapper.instances[instance] += launched
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -7,7 +7,9 @@
 //     epilogue MIN_LABEL), on the fixed-buffer protocol `query_fixed`
 //     (epilogue FIXED), on the halo products' SO counts (`sphere_counts`,
 //     COUNT with a radius per query) and most-bound potentials
-//     (`halo_potentials`, epilogue POTENTIAL), on the pair traversal of
+//     (`halo_potentials`, epilogue POTENTIAL), on the sharded DBSCAN's
+//     cross-shard rounds over int64 global labels (`dbscan_local_shard`,
+//     epilogue MIN_LABEL64), on the pair traversal of
 //     `fdbscan_pair`'s capture (epilogue EDGE) and `pair_count_histogram`
 //     (epilogue HISTOGRAM), on DenseBox's mixed tree (`fdbscan_densebox`,
 //     epilogues DENSE_COUNT and DENSE_MIN_LABEL), with its start node per
@@ -29,8 +31,9 @@
 //   * POINT leaves (`build_bvh`, a leaf's box is its point) or BOX leaves
 //     (`build_bvh_objects`, a leaf's lo and hi).
 // COUNT (and its STATS instance), FILL and FIXED take every combination;
-// MIN_LABEL, POTENTIAL, EDGE and HISTOGRAM take SPHERE on POINT leaves
-// only, DENSE_COUNT and DENSE_MIN_LABEL SPHERE on BOX leaves only.
+// MIN_LABEL, MIN_LABEL64, POTENTIAL, EDGE and HISTOGRAM take SPHERE on
+// POINT leaves only, DENSE_COUNT and DENSE_MIN_LABEL SPHERE on BOX leaves
+// only.
 //
 // The TPU kernels advance a block of 128 queries in lockstep, one rope hop
 // per iteration, because a TPU core runs one wide instruction stream. On
@@ -77,6 +80,11 @@
 // (built by the wrapper with one gather per launch; the carry starts at
 // `sentinel` and only decreases, so a `sentinel` key changes nothing),
 // FILL's and FIXED's the object index (`leaf_perm`); COUNT reads none.
+// MIN_LABEL64 is MIN_LABEL over int64 labels (the sharded path's global
+// ids, shard * n_local + slot, past 2^31 at scale; the Pallas kernel
+// carries whatever label type its caller gives it): its key is one 8-byte
+// load per leaf hop, fetched with the record, its carry a 64-bit integer;
+// the node records and the hop are MIN_LABEL's.
 //
 // What bounds it (tools/wavefront_variants.py on an H100 80GB HBM3 at
 // 700 W; COUNT and MIN_LABEL on the 2^24-point in-situ self-join): not
@@ -209,7 +217,7 @@ constexpr int kSharedBins = 6144;
 
 enum Epilogue {
   COUNT = 0, MIN_LABEL = 1, FILL = 2, FIXED = 3, POTENTIAL = 4,
-  EDGE = 5, HISTOGRAM = 6, DENSE_COUNT = 7, DENSE_MIN_LABEL = 8
+  EDGE = 5, HISTOGRAM = 6, DENSE_COUNT = 7, DENSE_MIN_LABEL = 8, MIN_LABEL64 = 9
 };
 enum Predicate { SPHERE = 0, BOX = 1, RAY = 2 };
 // What a leaf of DenseBox's mixed tree is (`Epi::dense`'s w).
@@ -344,10 +352,14 @@ struct Epi {
   const float* pts;         // DENSE_*: (n, 3) points in grid-sorted order
   const int* scan_lab;      // DENSE_MIN_LABEL: (n,) label of each sorted point
   float half;               // DENSE_*: half the cell size
+  const long long* key64;   // MIN_LABEL64: (n,) key in leaf order
+  long long sentinel64;     // MIN_LABEL64: result where no core object is hit
+  long long* out64;         // MIN_LABEL64: (q,) output
 };
 
 // COUNT: carry = hits so far; done when it reaches stop_at.
 // MIN_LABEL: carry = min key over objects hit; never done.
+// MIN_LABEL64: the same with int64 keys and carry, written to e.out64.
 // FILL: writes hits at offsets[qi] + k below capacity; done at capacity.
 // FIXED: carry = hits so far; hit k goes to slot min(k, capacity - 1).
 // POTENTIAL: acc -= 1/sqrt(d2 + soft2) per hit; never done.
@@ -376,12 +388,14 @@ __device__ __forceinline__ void walk(const Tree& t, int lane, const int* __restr
                                      int* __restrict__ out, unsigned long long* bins) {
   const int qi = order ? __ldg(order + lane) : lane;
   int carry = (EPI == MIN_LABEL || EPI == DENSE_MIN_LABEL) ? e.sentinel : 0;
+  long long carry64 = EPI == MIN_LABEL64 ? e.sentinel64 : 0;
   float acc = 0.0f;
   long long pos = 0;
-  if constexpr (EPI == MIN_LABEL || EPI == POTENTIAL || EPI == DENSE_COUNT ||
-                EPI == DENSE_MIN_LABEL) {
+  if constexpr (EPI == MIN_LABEL || EPI == MIN_LABEL64 || EPI == POTENTIAL ||
+                EPI == DENSE_COUNT || EPI == DENSE_MIN_LABEL) {
     if (e.qmask && !e.qmask[qi]) {
       if constexpr (EPI == POTENTIAL) e.potential[qi] = acc;
+      else if constexpr (EPI == MIN_LABEL64) e.out64[qi] = carry64;
       else out[qi] = carry;
       return;
     }
@@ -421,6 +435,8 @@ __device__ __forceinline__ void walk(const Tree& t, int lane, const int* __restr
     if constexpr (EPI == MIN_LABEL || EPI == FILL || EPI == FIXED) {
       key = leaf ? __ldg(t.key + k) : 0;
     }
+    long long key64 = 0;
+    if constexpr (EPI == MIN_LABEL64) key64 = leaf ? __ldg(e.key64 + k) : 0;
     int2 pkey = make_int2(0, -1);
     if constexpr (EPI == EDGE) pkey = leaf ? __ldg(e.pair_key + k) : pkey;
     int4 dkey = make_int4(0, 0, 0, DENSE_SKIP);
@@ -446,6 +462,8 @@ __device__ __forceinline__ void walk(const Tree& t, int lane, const int* __restr
     }
     if constexpr (EPI == MIN_LABEL) {
       carry = (leaf && hit) ? min(carry, key) : carry;
+    } else if constexpr (EPI == MIN_LABEL64) {
+      carry64 = (leaf && hit) ? min(carry64, key64) : carry64;
     } else if (leaf && hit) {
       if constexpr (EPI == COUNT) {
         ++carry;
@@ -522,6 +540,8 @@ __device__ __forceinline__ void walk(const Tree& t, int lane, const int* __restr
   }
   if constexpr (EPI == POTENTIAL) {
     e.potential[qi] = acc;
+  } else if constexpr (EPI == MIN_LABEL64) {
+    e.out64[qi] = carry64;
   } else if constexpr (EPI != FILL && EPI != HISTOGRAM) {
     out[qi] = carry;
   }
@@ -538,9 +558,10 @@ wavefront_kernel(Tree t, const int* __restrict__ order,
                  const float* __restrict__ qa, const float* __restrict__ qb,
                  int q, const int* __restrict__ start, Epi<Off> e,
                  int* __restrict__ out) {
-  static_assert((EPI != MIN_LABEL && EPI != POTENTIAL && EPI != EDGE && EPI != HISTOGRAM) ||
+  static_assert((EPI != MIN_LABEL && EPI != MIN_LABEL64 && EPI != POTENTIAL && EPI != EDGE &&
+                 EPI != HISTOGRAM) ||
                     (PRED == SPHERE && !BOX_LEAF),
-                "MIN_LABEL, POTENTIAL, EDGE and HISTOGRAM take spheres on point leaves");
+                "MIN_LABEL(64), POTENTIAL, EDGE and HISTOGRAM take spheres on point leaves");
   static_assert((EPI != DENSE_COUNT && EPI != DENSE_MIN_LABEL) || (PRED == SPHERE && BOX_LEAF),
                 "DENSE_COUNT and DENSE_MIN_LABEL take spheres on box leaves");
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -705,6 +726,24 @@ int wavefront_min_label(const float* inner, const float* leaves, const int* key,
   e.sentinel = sentinel;
   return launch<MIN_LABEL, SPHERE, false, false>(tree(inner, leaves, key, n), order, qa,
                                                  qb, q, start, e, out, stream);
+}
+
+// MIN_LABEL over int64 labels. key64[k]: the label of leaf k's object
+// where it is core, else sentinel; out: (q,) int64. SPHERE on point leaves
+// only.
+int wavefront_min_label64(const float* inner, const float* leaves, const long long* key64,
+                          int n, int box_leaves, const int* order, const float* qa,
+                          const float* qb, int pred, int q, const int* start,
+                          const bool* qmask, long long sentinel, long long* out,
+                          cudaStream_t stream) {
+  if (pred != SPHERE || box_leaves) return static_cast<int>(cudaErrorInvalidValue);
+  Epi<int> e{};
+  e.qmask = qmask;
+  e.key64 = key64;
+  e.sentinel64 = sentinel;
+  e.out64 = out;
+  return launch<MIN_LABEL64, SPHERE, false, false>(tree(inner, leaves, nullptr, n), order, qa,
+                                                   qb, q, start, e, nullptr, stream);
 }
 
 // key: leaf_perm. offsets: (q + 1,) int32 (offsets_64 == 0) or int64;

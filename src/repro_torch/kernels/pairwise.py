@@ -386,7 +386,7 @@ def stencil_count(cell_pts: torch.Tensor, nbr_map: torch.Tensor,
         real = _classes(cell_pts)
         _launch("stencil_count", out, cell_pts.data_ptr(), nbr_map.data_ptr(),
                 real.data_ptr(), ncells, cap, d, s, BIG, eps2)
-        stencil_count.launches += 1
+        _build.count_launch(stencil_count)
     return out
 
 
@@ -411,7 +411,7 @@ def stencil_min_label(cell_pts: torch.Tensor, cell_labels: torch.Tensor,
                 cell_labels.data_ptr(), cell_core.data_ptr(),
                 nbr_map.data_ptr(), real.data_ptr(), ncells, cap, d, s, BIG,
                 eps2, pad_min.data_ptr())
-        stencil_min_label.launches += 1
+        _build.count_launch(stencil_min_label)
     return out
 
 
@@ -455,7 +455,8 @@ def pairwise_count(x: torch.Tensor, y: torch.Tensor, eps2: float) -> torch.Tenso
     if not x.is_cuda:
         return pairwise_count_plain(x, y, eps2)
     out = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
-    pairwise_count.launches += _pairwise_kernel("pairwise_count", out, x, y, eps2)
+    _build.count_launch(pairwise_count,
+                        _pairwise_kernel("pairwise_count", out, x, y, eps2))
     return out
 
 
@@ -469,8 +470,8 @@ def pairwise_min_label(x: torch.Tensor, y: torch.Tensor, labels: torch.Tensor,
         return pairwise_min_label_plain(x, y, labels, core, eps2)
     out = torch.full((x.shape[0],), SENTINEL_LABEL, dtype=torch.int32,
                      device=x.device)
-    pairwise_min_label.launches += _pairwise_kernel(
-        "pairwise_min_label", out, x, y, eps2, labels, core)
+    _build.count_launch(pairwise_min_label, _pairwise_kernel(
+        "pairwise_min_label", out, x, y, eps2, labels, core))
     return out
 
 

@@ -145,7 +145,7 @@ def segment_sum_sorted(data: torch.Tensor, seg_ids: torch.Tensor,
         return segment_sum_sorted_plain(data, seg_ids, num_segments)
     out, launched = _launch("segment_sum_sorted", data, seg_ids,
                             num_segments, 0.0)
-    segment_sum_sorted.launches += launched
+    _build.count_launch(segment_sum_sorted, launched)
     return out
 
 
@@ -157,7 +157,7 @@ def segment_max_sorted(data: torch.Tensor, seg_ids: torch.Tensor,
         return segment_max_sorted_plain(data, seg_ids, num_segments)
     out, launched = _launch("segment_max_sorted", data, seg_ids,
                             num_segments, -SEG_NEG_BIG)
-    segment_max_sorted.launches += launched
+    _build.count_launch(segment_max_sorted, launched)
     return out
 
 

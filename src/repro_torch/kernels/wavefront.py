@@ -13,7 +13,9 @@ entry), all instantiations of one template in ``csrc/wavefront.cu``:
   counters (``with_stats``, ``repro/kernels/wavefront.py:203-207``);
 * :func:`wavefront_min_label` — the minimum ``obj_labels[j]`` over core
   objects ``j`` hit, ``sentinel`` if none, for queries in ``queries_mask``
-  (``min_core_label_on``, ``repro/core/dbscan.py:111-113``);
+  (``min_core_label_on``, ``repro/core/dbscan.py:111-113``), over int32
+  labels or, in an instance of its own (MIN_LABEL64), int64 ones (the
+  sharded path's global ids, ``repro/core/distributed.py:401``);
 * :func:`wavefront_fill` — the fill pass of the count-then-fill CSR
   protocol: hit ``k`` of query ``qi`` goes to ``offsets[qi] + k`` when that
   is below ``capacity`` (``_csr_fill``, ``repro/core/query.py:1039``), in
@@ -60,7 +62,8 @@ only; anything else raises ``ValueError``.
 A wrapper launches the kernel for CUDA tensors and runs the plain PyTorch
 version for CPU tensors; ``<wrapper>.launches`` counts kernel launches,
 and ``<wrapper>.instances`` counts them by ``"<pred>/<leaf kind>"``
-(``"sphere/point"``, ``"ray/box"``, ...).
+(``"sphere/point"``, ``"ray/box"``, ...; MIN_LABEL over int64 labels
+``"sphere/point/int64"``).
 The plain version is the lockstep wavefront of the reference kernel
 (``repro/kernels/wavefront.py:180-215``): every live query advances one
 rope hop per iteration, and queries drop out of the working set when they
@@ -73,7 +76,7 @@ point with its rope in 16 (a box leaf's lo and hi, each with the rope, in
 tree before it launches the traversal, once per call, or once for all the
 traversals of a tree inside :func:`shared_pack`; a leaf hop reads one
 int32 key (:func:`min_label_keys` for MIN_LABEL, ``leaf_perm`` for FILL
-and FIXED).
+and FIXED), or MIN_LABEL64's int64 key.
 """
 from __future__ import annotations
 
@@ -183,9 +186,9 @@ def _query_args(order, qa, qb, pred: str, start):
             _ptr(start)]
 
 
-def _launched(wrapper, pred: str, packed: "PackedTree") -> None:
-    wrapper.launches += 1
-    wrapper.instances[f"{pred}/{'box' if packed.box_leaves else 'point'}"] += 1
+def _launched(wrapper, pred: str, packed: "PackedTree", key: str = "") -> None:
+    leaf = "box" if packed.box_leaves else "point"
+    _build.count_launch(wrapper, 1, f"{pred}/{leaf}{key}")
 
 
 def _stream() -> int:
@@ -205,6 +208,7 @@ def _lib() -> ctypes.CDLL:
     query = _TREE + [_P, _P, _P, _I, _I, _P]
     lib.wavefront_count.argtypes = query + [_I, _P, _P, _P, _P]
     lib.wavefront_min_label.argtypes = query + [_P, _I, _P, _P]
+    lib.wavefront_min_label64.argtypes = query + [_P, _L, _P, _P]
     lib.wavefront_fill.argtypes = query + [_P, _I, _L, _P, _P]
     lib.wavefront_fixed.argtypes = query + [_L, _P, _P, _P]
     lib.wavefront_potential.argtypes = query + [_P, ctypes.c_float, _P, _P]
@@ -215,7 +219,8 @@ def _lib() -> ctypes.CDLL:
     lib.wavefront_rsqrt_probe.argtypes = [_P, _P, _I, _P]
     lib.wavefront_bin_probe.argtypes = [_P, _P, _I, ctypes.c_float, _I, _P]
     for fn in (lib.wavefront_pack, lib.wavefront_count,
-               lib.wavefront_min_label, lib.wavefront_fill,
+               lib.wavefront_min_label, lib.wavefront_min_label64,
+               lib.wavefront_fill,
                lib.wavefront_fixed, lib.wavefront_potential,
                lib.wavefront_edge, lib.wavefront_histogram,
                lib.wavefront_dense, lib.wavefront_rsqrt_probe,
@@ -318,10 +323,11 @@ def _packed(bvh: Bvh) -> PackedTree:
 
 
 def min_label_keys(bvh: Bvh, obj_labels, obj_core, sentinel: int):
-    """MIN_LABEL's key per leaf, (n,) int32 in leaf order: the label of
-    the leaf's object where it is core, ``sentinel`` elsewhere. A query's
-    carry starts at ``sentinel`` and only decreases, so the min over the
-    keys of its hits is the min over its core hits' labels."""
+    """MIN_LABEL's key per leaf, (n,) in leaf order and ``obj_labels``'s
+    dtype (int32 or int64): the label of the leaf's object where it is
+    core, ``sentinel`` elsewhere. A query's carry starts at ``sentinel``
+    and only decreases, so the min over the keys of its hits is the min
+    over its core hits' labels."""
     perm = bvh.leaf_perm
     return torch.where(obj_core.index_select(0, perm),
                        obj_labels.index_select(0, perm), int(sentinel))
@@ -634,10 +640,11 @@ def wavefront_count_plain(bvh: Bvh, qa, qb, stop_at=None, start=None,
 def wavefront_min_label_plain(bvh: Bvh, centers, r2, obj_labels, obj_core,
                               queries_mask, sentinel: int, start=None):
     """Min ``obj_labels[j]`` over core objects within r of each query in
-    ``queries_mask``; ``sentinel`` for the rest and where none is hit."""
+    ``queries_mask``; ``sentinel`` for the rest and where none is hit. In
+    ``obj_labels``'s dtype, int32 or int64."""
     _spheres_on_points(bvh, "MIN_LABEL")
-    out = torch.full((centers.shape[0],), int(sentinel), dtype=torch.int32,
-                     device=centers.device)
+    out = torch.full((centers.shape[0],), int(sentinel),
+                     dtype=obj_labels.dtype, device=centers.device)
     lanes = torch.nonzero(queries_mask).flatten()
     out[lanes] = lockstep_traverse(
         bvh, centers, r2, lanes, out[lanes],
@@ -817,33 +824,39 @@ def wavefront_min_label(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
                         queries_mask: torch.Tensor, sentinel: int, *,
                         order: torch.Tensor | None = None,
                         start: torch.Tensor | None = None) -> torch.Tensor:
-    """(q,) int32: for each query in ``queries_mask``, the min over core
-    objects within r of ``obj_labels`` (int32, tree object index);
-    ``sentinel`` where none is hit and outside the mask. Spheres on a
-    point tree only."""
+    """(q,) in ``obj_labels``'s dtype: for each query in ``queries_mask``,
+    the min over core objects within r of ``obj_labels`` (int32 or int64,
+    tree object index); ``sentinel`` where none is hit and outside the
+    mask. int64 labels take the MIN_LABEL64 instance (instance key
+    ``"sphere/point/int64"``). Spheres on a point tree only."""
     _check_inputs(bvh, centers, r2, order)
     _spheres_on_points(bvh, "MIN_LABEL")
-    if obj_labels.dtype != torch.int32 or obj_core.dtype != torch.bool \
-            or queries_mask.dtype != torch.bool:
-        raise ValueError("obj_labels must be int32, obj_core and "
+    if obj_labels.dtype not in (torch.int32, torch.int64) \
+            or obj_core.dtype != torch.bool or queries_mask.dtype != torch.bool:
+        raise ValueError("obj_labels must be int32 or int64, obj_core and "
                          "queries_mask bool")
+    wide = obj_labels.dtype == torch.int64
+    info = torch.iinfo(obj_labels.dtype)
+    if not info.min <= int(sentinel) <= info.max:
+        raise ValueError(f"sentinel {sentinel} is outside {obj_labels.dtype}")
     q = centers.shape[0]
     _check_start(start, q, centers.device)
     if not centers.is_cuda:
         return wavefront_min_label_plain(bvh, centers, r2, obj_labels,
                                          obj_core, queries_mask, sentinel,
                                          start)
-    out = torch.empty(q, dtype=torch.int32, device=centers.device)
+    out = torch.empty(q, dtype=obj_labels.dtype, device=centers.device)
     if q == 0:
         return out
     packed = _packed(bvh)
     key = min_label_keys(bvh, obj_labels, obj_core, sentinel)
     lib = _lib()
-    code = lib.wavefront_min_label(
+    entry = lib.wavefront_min_label64 if wide else lib.wavefront_min_label
+    code = entry(
         *_tree_args(packed, key), *_query_args(order, centers, r2, "sphere", start),
         _ptr(queries_mask), int(sentinel), _ptr(out), _stream())
     _build.check(lib, code, "wavefront_min_label")
-    _launched(wavefront_min_label, "sphere", packed)
+    _launched(wavefront_min_label, "sphere", packed, "/int64" if wide else "")
     return out
 
 

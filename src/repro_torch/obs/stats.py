@@ -3,8 +3,9 @@
 ``query_count(with_stats=True)`` returns them beside the counts: the
 kernel's counter instance writes them on the card, the plain lockstep
 walk on the CPU, column for column as the reference's ``stackless`` and
-``pallas`` backends count them. The cross-shard ``psum`` belongs to the
-sharded path (ROADMAP A12) and is not ported yet.
+``pallas`` backends count them. Inside a sharded body
+(``core/mesh.py``), :meth:`TraversalStats.psum` reduces them across the
+shards.
 """
 from __future__ import annotations
 
@@ -52,3 +53,16 @@ class TraversalStats(NamedTuple):
             "early_exits": self.early_exits.sum(dtype=torch.int32),
             "max_depth": torch.cat([self.max_depth, zero.view(1)]).max(),
         }
+
+    def psum(self, axis) -> "TraversalStats":
+        """Cross-shard reduction (call inside a ``ShardMesh`` body, ``axis``
+        its handle): counters sum, the depth high-water mark maxes,
+        ``early_exits`` stays the per-query local column."""
+        return TraversalStats(
+            nodes_visited=axis.psum(self.nodes_visited),
+            aabb_tests=axis.psum(self.aabb_tests),
+            leaf_tests=axis.psum(self.leaf_tests),
+            callback_hits=axis.psum(self.callback_hits),
+            early_exits=self.early_exits,
+            max_depth=axis.pmax(self.max_depth),
+        )

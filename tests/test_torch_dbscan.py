@@ -136,10 +136,11 @@ def test_count_neighbors_the_reference_way(use_stack):
 
 
 def test_min_core_label_on_int64_labels():
-    """Labels keep their dtype, as the reference's (here under x64):
-    int64 labels inside the int32 range give the reference's int64
-    result; labels or a sentinel beyond it raise instead of wrapping,
-    until the kernel carries int64 keys (ROADMAP B1 (e))."""
+    """Labels keep their dtype, as the reference's (here under x64): int64
+    labels inside the int32 range and past 2^32 (the sharded path's
+    global ids at scale) give the reference's int64 result through the
+    kernel's int64 instance; a sentinel outside int32 raises for int32
+    labels instead of wrapping."""
     pts = make_clustered_points(np.random.default_rng(14), 300)
     n = len(pts)
     rng = np.random.default_rng(15)
@@ -147,20 +148,20 @@ def test_min_core_label_on_int64_labels():
     core = rng.random(n) < 0.6
     mask = rng.random(n) < 0.8
     jp, jb, tp, tb = _both_trees(pts)
-    with jax.enable_x64(True):
-        want = np.asarray(jax_min_core_label_on(
-            jb, jp, EPS, jnp.asarray(labels), jnp.asarray(core),
-            jnp.asarray(mask), n))
-    assert want.dtype == np.int64
-    got = min_core_label_on(tb, tp, EPS, torch.from_numpy(labels),
-                            torch.from_numpy(core), torch.from_numpy(mask), n)
-    assert got.dtype == torch.int64
-    np.testing.assert_array_equal(got.numpy(), want)
-    wide = torch.from_numpy(labels + 2**32)
-    with pytest.raises(ValueError, match="B1 \\(e\\)"):
-        min_core_label_on(tb, tp, EPS, wide, torch.from_numpy(core),
-                          torch.from_numpy(mask), n)
+    for offset in (0, 2**32, 2**40 + 7):
+        with jax.enable_x64(True):
+            want = np.asarray(jax_min_core_label_on(
+                jb, jp, EPS, jnp.asarray(labels + offset), jnp.asarray(core),
+                jnp.asarray(mask), n + offset))
+        assert want.dtype == np.int64
+        got = min_core_label_on(tb, tp, EPS, torch.from_numpy(labels + offset),
+                                torch.from_numpy(core), torch.from_numpy(mask),
+                                n + offset)
+        assert got.dtype == torch.int64
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=str(offset))
+        if offset:
+            assert (want > 2**32).all()
     with pytest.raises(ValueError, match="sentinel"):
-        min_core_label_on(tb, tp, EPS, torch.from_numpy(labels),
+        min_core_label_on(tb, tp, EPS, torch.from_numpy(labels.astype(np.int32)),
                           torch.from_numpy(core), torch.from_numpy(mask),
                           2**33)

@@ -101,8 +101,33 @@ def test_entry_points_raise_without_a_card(monkeypatch, call):
 def test_unported_analyzer_modes_raise():
     with pytest.raises(NotImplementedError, match="A14"):
         InsituAnalyzer(InsituConfig(mode="training"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        InsituAnalyzer(InsituConfig(**CFG), tracer=object(), device="cpu")
+
+
+def test_analyzer_tracer_spans_match_reference(tmp_path):
+    """With a tracer, the step runs under the reference's spans (names,
+    args, nesting) and gives the untraced step's stats."""
+    from repro.obs.trace import SpanTracer as JaxTracer
+    from repro.obs.trace import load_chrome_trace as jax_load
+    from repro.obs.trace import span_tree as jax_span_tree
+    from repro_torch.obs import SpanTracer, load_chrome_trace, span_tree
+
+    pts, vel = _particles(400)
+    params = {"positions": pts, "velocities": vel, "eps": 0.03}
+    jtracer, ttracer = JaxTracer(), SpanTracer()
+    want = JaxInsituAnalyzer(JaxInsituConfig(**CFG), tracer=jtracer).maybe_run(
+        {k: jnp.asarray(v) for k, v in params.items()}, 0)
+    plain = InsituAnalyzer(InsituConfig(**CFG), device="cpu").maybe_run(params, 0)
+    got = InsituAnalyzer(InsituConfig(**CFG), tracer=ttracer,
+                         device="cpu").maybe_run(params, 0)
+    assert got == plain
+    assert got.keys() == want.keys()
+    jev = jax_load(jtracer.export(str(tmp_path / "jax.json")))
+    tev = load_chrome_trace(ttracer.export(str(tmp_path / "torch.json")))
+    assert [(e["name"], e["args"]) for e in tev] == \
+        [(e["name"], e["args"]) for e in jev]
+    assert span_tree(tev) == jax_span_tree(jev) == {
+        "insitu": ["insitu/halo_stats", "insitu/host_readback"],
+        "insitu/halo_stats": [], "insitu/host_readback": []}
 
 
 def test_cpu_path_launches_no_kernel(monkeypatch):

@@ -1069,3 +1069,102 @@ def test_stencil_kernels_flush_subnormals(cuda, cap):
     cell_pts[real] = tiny
     for eps2 in (0.0, 1e-6):
         _stencil_matches_plain(cell_pts, nbr, labels, core, eps2)
+
+
+# --- B1 (e): MIN_LABEL over int64 labels; the sharded path ------------------
+
+@pytest.mark.parametrize("offset", [0, 2**32, 2**40 + 3])
+def test_wavefront_min_label_int64_matches_plain(cuda, offset):
+    """The int64 instance against its plain version, bit for bit, with
+    labels whose high word matters; and equal to the int32 instance's
+    result plus the offset."""
+    pts, bvh = _tree(cuda, 5000, 3)
+    n = pts.shape[0]
+    rng = np.random.default_rng(11)
+    r2 = torch.full((n,), 0.012 ** 2, device=cuda)
+    labels = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(cuda)
+    core = torch.from_numpy(rng.random(n) < 0.7).to(cuda)
+    wide = labels.long() + offset
+    before = kw.wavefront_min_label.instances["sphere/point/int64"]
+    for mask in (core, ~core):
+        got = kw.wavefront_min_label(bvh, pts, r2, wide, core, mask, n + offset,
+                                     order=bvh.leaf_perm)
+        assert got.dtype == torch.int64
+        want = kw.wavefront_min_label_plain(bvh, pts, r2, wide, core, mask,
+                                            n + offset)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        narrow = kw.wavefront_min_label(bvh, pts, r2, labels, core, mask, n,
+                                        order=bvh.leaf_perm)
+        torch.testing.assert_close(got, narrow.long() + offset, rtol=0, atol=0)
+    assert kw.wavefront_min_label.instances["sphere/point/int64"] == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_dbscan_distributed_on_four_shards_equals_fdbscan(cuda, dtype):
+    """dbscan_distributed on 4 shards of the card: labels and core mask of
+    fdbscan, and the CPU mesh's rounds, launching MIN_LABEL's instance of
+    the label dtype."""
+    from repro_torch.core import ShardMesh, dbscan_distributed, slab_partition
+    pts, _ = slab_partition(make_clustered_points(np.random.default_rng(21),
+                                                  1 << 14), 4)
+    key = "sphere/point/int64" if dtype == torch.int64 else "sphere/point"
+    before = kw.wavefront_min_label.instances[key]
+    # A ghost buffer of a whole slab cannot overflow.
+    got = dbscan_distributed(pts, 0.01, 2, mesh=ShardMesh(4, cuda),
+                             halo_cap=1 << 12, index_dtype=dtype)
+    assert kw.wavefront_min_label.instances[key] > before
+    assert not bool(got.halo_overflow) and got.labels.dtype == dtype
+    single = fdbscan(pts, 0.01, 2, device=cuda)
+    torch.testing.assert_close(got.labels.int(), single.labels, rtol=0, atol=0)
+    torch.testing.assert_close(got.core_mask, single.core_mask, rtol=0, atol=0)
+    cpu = dbscan_distributed(pts, 0.01, 2, mesh=ShardMesh(4, "cpu"),
+                             halo_cap=1 << 12, index_dtype=dtype)
+    for f in got._fields:
+        torch.testing.assert_close(getattr(got, f).cpu(), getattr(cpu, f),
+                                   rtol=0, atol=0)
+
+
+def test_first_kernel_use_from_four_threads(cuda, monkeypatch):
+    """Four threads that first use a kernel at once, with its library
+    stale: one nvcc, one load, every launch counted, every result right."""
+    import os
+    import subprocess
+    import threading
+    from repro_torch.kernels import _build
+
+    _build.build_all(("segment",))
+    so = _build.BUILD_DIR / "segment.so"
+    os.utime(so, (0, 0))                       # older than its source: stale
+    started = []
+    real_popen = subprocess.Popen
+
+    def popen(cmd, *a, **k):
+        started.append(cmd)
+        return real_popen(cmd, *a, **k)
+
+    monkeypatch.setattr(_build.subprocess, "Popen", popen)
+    _build._load.cache_clear()
+    ks._lib.cache_clear()
+    rng = np.random.default_rng(5)
+    ids = torch.from_numpy(np.sort(rng.integers(0, 50, 10_000)).astype(np.int32)).to(cuda)
+    data = torch.from_numpy(rng.standard_normal((10_000, 8), np.float32)).to(cuda)
+    want = ks.segment_max_sorted_plain(data, ids, 50)
+    before = ks.segment_max_sorted.launches
+    outs, errors = [], []
+
+    def use():
+        try:
+            outs.append(ks.segment_max_sorted(data, ids, 50))
+        except Exception as exc:  # reported by the assertion below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=use) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not any(t.is_alive() for t in threads) and errors == []
+    assert len(started) == 1 and "segment.cu" in started[0][-1]
+    assert ks.segment_max_sorted.launches == before + 4
+    for out in outs:
+        torch.testing.assert_close(out, want, rtol=0, atol=0)
