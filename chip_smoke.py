@@ -8,9 +8,10 @@ centers and SO masses), ArborX's neighbor lists, the adjacency-graph
 DBSCAN, the grid DBSCAN, the eps-pairwise ops, the query engine's
 other predicates (IntersectsBox, all-hits rays) and trees (box leaves,
 30-bit codes) with its stack backend and generic callbacks, and the pair
-traversal's DBSCAN and correlation and DenseBox, and the sharded halo
+traversal's DBSCAN and correlation and DenseBox, the sharded halo
 pipeline (distributed FDBSCAN, the catalog merge, the span tracer) on an
-in-process mesh of shards of the card.
+in-process mesh of shards of the card, and the nearest family (kNN,
+EMST, MLS interpolation, nearest-hit ray casting) on the nearest kernel.
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. Phases, each of which must pass:
@@ -36,7 +37,9 @@ CUDA toolkit. Phases, each of which must pass:
    XLA:CPU does). No instance of the segment kernel may spill or hold an
    atomic (``ATOM``/``RED``: its sums are combined in a fixed order), and
    its D = 8 and D = 1 instances must read with 128-bit loads (or
-   ``LDGSTS`` copies).
+   ``LDGSTS`` copies). No instance of the nearest kernel (KNN, EMST,
+   RAY) may hold an ``FFMA``; their registers, stack frames, spills and
+   128-bit loads are printed.
 2. Each kernel against its plain PyTorch version on the card: the
    traversal's node records (``pack_tree``, bit for bit) and its
    epilogues (COUNT, MIN_LABEL, FILL at an exact capacity, at
@@ -73,7 +76,12 @@ CUDA toolkit. Phases, each of which must pass:
    the mixed trees of the 2^20 points at min_pts 2 and 5 (cell, skip and
    point leaves; cells taken whole and scanned), all bit for bit; the
    stencil and all-pairs kernels on inputs with subnormal coordinates,
-   products and differences, at eps2 = 0 and above.
+   products and differences, at eps2 = 0 and above; the nearest kernel on
+   the 2^20 tree, bit for bit with its pops: KNN at k = 1, 4, 16 and 40
+   (past the local-memory buffer) for 2^16 sampled particles and 2^12
+   uniform points, EMST from singleton components and from 64 random
+   ones for 2^16 sampled particles, RAY for 2^11 skewers on the point
+   tree and on a tree of the particles' eps-boxes.
 3. The card against the plain path on the CPU: the in-situ step at 2^18
    particles (labels, core mask, rounds and the catalog's integer fields
    exact, float fields to a stated tolerance); at 2^16, ``query_csr``
@@ -93,7 +101,11 @@ CUDA toolkit. Phases, each of which must pass:
    rounds, overflow and catalog integers exact (floats to a stated
    tolerance), and ``dbscan_distributed`` at int32 and int64 ids on the
    card equal to the CPU pipeline's labels, core mask, rounds and
-   overflow.
+   overflow; at 2^16 Plummer particles ``knn`` (k = 16, self), ``emst``
+   (edges, weights, rounds), ``raycast`` and ``raycast_all`` (2^10
+   skewers on the eps-box tree) bit for bit, and ``mls_interpolate`` (k =
+   8, 2^12 uniform targets) within 1e-5 + 8 cond 2^-24, cond each
+   target's Gram matrix's condition number.
 4. The main path: ``InsituAnalyzer`` in simulation mode over two analysis
    steps of 2^24 particles (4096 Plummer spheres plus 20% background).
    The launch counters are set to 0 before each step and read after it;
@@ -169,6 +181,21 @@ CUDA toolkit. Phases, each of which must pass:
    ``fdbscan``'s (both rounds, the grid's cell count and its largest run
    printed); ``pair_count_histogram`` at r_max = 4 eps over 16 bins, whose
    total must equal (the sum of ``query_count(within(p, 4 eps))`` - n) / 2.
+14. The nearest family at full width on phase 4's cloud and eps (run
+   before phase 9's line), each call with its seconds, peak memory and
+   launches (counters set to 0 before it): ``knn`` self-query at k = 16
+   (one launch; the sets equal a brute force (every squared distance,
+   then ``topk``) on 4,096 sampled queries wherever the 16th and 17th
+   squared distances are more than 1e-6 apart, relative); ``emst`` (n - 1 edges forming one union-find
+   component; a launch a round; one round's component intervals timed);
+   ``mls_interpolate`` (k = 8) onto 2^20 uniform targets, 1,024 of them
+   against a float64 solve within 1e-5 + 8 cond 2^-24; ``raycast`` of
+   phase 11's 2^20 skewers on its tree of eps-boxes, each hit the least
+   slab t of its ``raycast_all`` row and each miss an empty row. Phase 9
+   gets a row for each instance (``nearest_knn``, ``nearest_other_component``
+   at the third round's components, ``nearest_ray``) with its pops, the
+   bound's operations per pop, registers, stack frame and its plain time
+   on a sample named in ``plain_input``.
 9. One JSON line with each kernel's launches on its path, time per launch
    at that path's inputs, bound with the card's name and power limit
    beside it, plain version's time and library yardstick. The traversal
@@ -367,18 +394,20 @@ def require(cond: bool, what: str) -> None:
 
 
 def ptxas_report(text: str) -> dict:
-    """{mangled kernel: {"registers", "spill_stores", "spill_loads"}} from
-    an ``nvcc -Xptxas -v`` log."""
+    """{mangled kernel: {"registers", "stack_frame", "spill_stores",
+    "spill_loads"}} from an ``nvcc -Xptxas -v`` log."""
     out, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
             out[name] = {}
-        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes "
-                                      r"spill loads", line)):
-            out[name]["spill_stores"] = int(m.group(1))
-            out[name]["spill_loads"] = int(m.group(2))
+        elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes "
+                                      r"spill stores, (\d+) bytes spill loads",
+                                      line)):
+            out[name]["stack_frame"] = int(m.group(1))
+            out[name]["spill_stores"] = int(m.group(2))
+            out[name]["spill_loads"] = int(m.group(3))
         elif name and (m := re.search(r"Used (\d+) registers", line)):
             out[name]["registers"] = int(m.group(1))
     return out
@@ -593,9 +622,10 @@ def phase1_build():
     for key, rep in {**tiles, **wave, **stencil, **seg}.items():
         log(f"[1] {key}: {rep['registers']} registers, spills "
             f"{rep['spill_stores']}/{rep['spill_loads']} bytes, SASS {rep['sass']}")
+    near = nearest_report()
     card = card_identity()
     log(f"[1] card: {card}")
-    return card, tiles, wave, stencil, seg
+    return card, tiles, wave, stencil, seg, near
 
 
 def phase2_kernels(seed: int, n_tree: int = 1 << 20, n_rows: int = 1 << 24):
@@ -669,6 +699,7 @@ def phase2_kernels(seed: int, n_tree: int = 1 << 20, n_rows: int = 1 << 24):
     small = phase2_traversal_options(seed, bvh, pts, r2, eps, order, n_rows)
     phase2_predicates(seed, bvh, pts, eps)
     pair_kernel_checks(seed, bvh, pts, eps)
+    phase2_nearest(seed, bvh, pts, eps)
 
     rows, segs = n_rows, 1 << 20
     ids, tail = catalog_ids(seed + 3, rows)
@@ -3110,6 +3141,11 @@ def phase9_kernel_line(launches_by_step, records, more_rows, card, wave, seg_rep
         if "class_ms" in row:
             hops = (f", {row['tests_per_s']:.4g} tests/s, slot classes "
                     f"{row['class_ms']:.4f} ms, {row['registers']} registers")
+        if "pops" in row:
+            hops = (f", {row['pops']} pops, {row['ghops_per_s']:.1f} Gpops/s, "
+                    f"{row['registers']} registers, stack frame "
+                    f"{row['stack_frame']} bytes; plain on {row['plain_input']}"
+                    f" (kernel {row['ms_at_plain_input']:.4f} ms there)")
         log(f"[9] {row['name']}: {row['ms']:.4f} ms/launch x {row['launches']} "
             f"per run of {row['path']}, "
             f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
@@ -3432,6 +3468,446 @@ def phase13_sharded(seed: int, n: int, cfg, card: str, wave: dict,
     return [row]
 
 
+# ---------------------------------------------------------------------------
+# The nearest family (ROADMAP A10): knn, emst, mls_interpolate, raycast on
+# the nearest kernel of csrc/nearest.cu; phases 1, 2, 3 and 14.
+# ---------------------------------------------------------------------------
+
+# The nearest kernel's instances, by a tag of their mangled names.
+NEAREST_KERNELS = {"nearest_knn": "nearest_kernelILi0EE",
+                   "nearest_other_component": "nearest_kernelILi1EE",
+                   "nearest_ray": "nearest_kernelILi2EE"}
+# Float operations per popped node: the one point-box distance (KNN,
+# EMST) or slab test (RAY) the walk needs of each node it visits, as the
+# traversal's rows count a hop.
+NEAREST_OPS_PER_POP = {"nearest_knn": FLOPS_PER_HOP,
+                       "nearest_other_component": FLOPS_PER_HOP,
+                       "nearest_ray": RAY_FLOPS_PER_HOP}
+KNN_K = 16
+MLS_K = 8
+
+
+def nearest_report():
+    """Registers, stack frame, spills and SASS opcode and load counts of
+    the nearest kernel's three instances. Fails if one holds an FFMA: a
+    contracted multiply-add would round d² or a slab's t otherwise than
+    the plain version."""
+    out = kernel_report("nearest", NEAREST_KERNELS)
+    for key, rep in out.items():
+        require(rep["sass"]["FFMA"] == 0, f"{key}: SASS holds an FFMA")
+        log(f"[1] {key}: {rep['registers']} registers, stack frame "
+            f"{rep['stack_frame']} bytes, spills {rep['spill_stores']}/"
+            f"{rep['spill_loads']} bytes, 0 FFMA, {rep['sass']['LDG.128']} "
+            f"LDG.E.128")
+    return out
+
+
+def same_bits(torch, got, want) -> bool:
+    return all(bits_equal(torch, g, w) for g, w in zip(got, want))
+
+
+def mls_field(p):
+    """The scalar field MLS interpolates: sin(4x) + y^2 - z/2."""
+    return np.sin(4 * p[:, 0]) + p[:, 1] ** 2 - 0.5 * p[:, 2]
+
+
+def mls_float64(src, vals, tgt, idx, dist):
+    """The MLS solve of ``core/interpolate.py`` in float64 on the host for
+    targets ``tgt`` (m, 3) with their neighbours ``idx``/``dist`` (m, k):
+    ``(values, condition numbers of the Gram matrices)``."""
+    dist = dist.astype(np.float64)
+    radius = 1.1 * dist.max(1, keepdims=True) + 1e-12
+    t = np.clip(dist / radius, 0.0, 1.0)
+    w = (1 - t) ** 4 * (4 * t + 1)
+    basis = np.concatenate([np.ones(idx.shape + (1,)),
+                            src[idx].astype(np.float64) - tgt[:, None]], 2)
+    a = basis * w[..., None]
+    gram = np.einsum("qki,qkj->qij", a, basis) + 1e-8 * np.eye(4)
+    rhs = np.einsum("qki,qk->qi", a, vals[idx].astype(np.float64))
+    return np.linalg.solve(gram, rhs[..., None])[:, 0, 0], np.linalg.cond(gram)
+
+
+def mls_tolerance(cond):
+    """How far a float32 solve may stray: the Gram matrix's condition
+    number times float32's unit roundoff, times 8, plus 1e-5."""
+    return 1e-5 + 8 * cond * 2.0 ** -24
+
+
+def phase2_nearest(seed, bvh, pts, eps, q: int = 1 << 16, q_ray: int = 1 << 11):
+    """The nearest kernel against its plain versions on phase 2's tree, bit
+    for bit with the pops: KNN at k = 1, 4, 16 and past the local buffer
+    (``q`` sampled particles and ``q`` / 16 uniform points); EMST from
+    singleton components and from a random 64-component map; RAY with
+    ``q_ray`` skewers on the point tree and on a tree of the particles'
+    eps-boxes."""
+    import torch
+    from repro_torch.core.bvh import build_bvh_objects
+    from repro_torch.core.geometry import safe_inv, scene_bounds
+    from repro_torch.kernels import nearest as kn
+    temst = importlib.import_module("repro_torch.core.emst")
+
+    n = pts.shape[0]
+    rng = np.random.default_rng(seed + 60)
+    sub = torch.from_numpy(rng.choice(n, q, replace=False)).to(DEV)
+    queries = torch.cat([pts[sub], torch.from_numpy(
+        rng.uniform(0, 1, (q // 16, 3)).astype(np.float32)).to(DEV)])
+    walk = dict(records=kn.nearest_records(bvh), height=kn.check_height(bvh))
+    t0 = time.perf_counter()
+    for k in (1, 4, 16, kn.LOCAL_K + 8):
+        got = kn.nearest_knn(bvh, queries, k, with_pops=True, **walk)
+        want = kn.nearest_knn_plain(bvh, queries, k, True)
+        require(same_bits(torch, got, want), f"nearest_knn k={k}")
+        ties = int((got[1][:, 1:] == got[1][:, :-1]).sum())
+        log(f"[2] nearest_knn k={k} on {queries.shape[0]} queries: indices, "
+            f"distance bits and pops == the plain version's ({ties} equal "
+            f"adjacent distances, in slot order; {int(got[2].sum())} pops; "
+            f"{time.perf_counter() - t0:.1f} s so far)")
+    for n_comp in (n, 64):
+        comp = (torch.arange(n, dtype=torch.int32, device=DEV) if n_comp == n
+                else torch.from_numpy(rng.integers(0, n_comp, n).astype(np.int32))
+                .to(DEV))
+        clo, chi = temst._node_component_intervals(bvh, comp[bvh.leaf_perm.long()])
+        iv = torch.stack([clo, chi], 1)
+        got = kn.nearest_other_component(bvh, pts[sub], comp[sub], comp, iv,
+                                         with_pops=True, **walk)
+        want = kn.nearest_other_component_plain(bvh, pts[sub], comp[sub], comp,
+                                                iv, True)
+        require(same_bits(torch, got, want), f"nearest_other_component {n_comp}")
+        log(f"[2] nearest_other_component, {n_comp} components, {q} queries: "
+            f"d2 bits, indices and pops == the plain version's")
+    lo, hi = scene_bounds(pts)
+    o, d = skewers(torch, seed + 61, q_ray, lo, hi, pts)
+    inv = safe_inv(d)
+    obvh = build_bvh_objects(pts - eps, pts + eps, lo, hi)
+    for tree, leaf in ((bvh, "point"), (obvh, "box")):
+        t0 = time.perf_counter()
+        got = kn.nearest_ray(tree, o, inv, with_pops=True)
+        want = kn.nearest_ray_plain(tree, o, inv, True)
+        require(same_bits(torch, got, want), f"nearest_ray on {leaf} leaves")
+        log(f"[2] nearest_ray, {q_ray} skewers on {leaf} leaves: index, t bits "
+            f"and pops == the plain version's ({int((got[0] >= 0).sum())} hit; "
+            f"{time.perf_counter() - t0:.1f} s)")
+
+
+def phase3_nearest(seed: int, n: int = 1 << 16, m_rays: int = 1 << 10):
+    """The card against the CPU at ``n`` Plummer particles: ``knn`` (k =
+    16, self), ``emst`` (edges, weights, rounds), ``raycast`` and
+    ``raycast_all`` (``m_rays`` skewers on the eps-box tree), all exact;
+    ``mls_interpolate`` (n / 16 uniform targets) within ``mls_tolerance``
+    of each other."""
+    import torch
+    from repro_torch.core import emst, knn, mls_interpolate, raycast, raycast_all
+    from repro_torch.core.bvh import build_bvh, build_bvh_objects
+    from repro_torch.core.geometry import scene_bounds
+    from repro_torch.data.pipeline import hacc_benchmark_epsilon
+
+    pos, _, _ = plummer_cloud(seed + 62, n)
+    eps = hacc_benchmark_epsilon(1.0, n)
+    tgt = np.random.default_rng(seed + 63).uniform(0, 1, (n // 16, 3)).astype(np.float32)
+    vals = mls_field(pos).astype(np.float32)
+    dev_pts = torch.from_numpy(pos).to(DEV)
+    o, d = skewers(torch, seed + 64, m_rays, *scene_bounds(dev_pts), dev_pts)
+    out = {}
+    for dev in (DEV, "cpu"):
+        t0 = time.perf_counter()
+        pts = torch.from_numpy(pos).to(dev)
+        lo, hi = scene_bounds(pts)
+        bvh = build_bvh(pts, lo, hi)
+        obvh = build_bvh_objects(pts - eps, pts + eps, lo, hi)
+        ro, rd = o.to(dev), d.to(dev)
+        out[dev] = (knn(bvh, pts, pts, KNN_K),
+                    emst(pts, device=dev),
+                    raycast(obvh, ro, rd),
+                    raycast_all(obvh, ro, rd, sort_queries=True),
+                    mls_interpolate(pos, vals, tgt, MLS_K, device=dev))
+        log(f"[3] knn, emst, raycast, raycast_all and mls_interpolate on {dev}: "
+            f"{time.perf_counter() - t0:.1f} s")
+    for what, got, want in zip(("knn", "emst", "raycast", "raycast_all"),
+                               out[DEV][:4], out["cpu"][:4]):
+        for f in want._fields:
+            if f == "total_weight":
+                continue
+            require(bits_equal(torch, getattr(got, f).cpu(), getattr(want, f)),
+                    f"{what}.{f} card vs CPU")
+    # The total is a float32 sum of n - 1 weights, in another order on the
+    # card: within the summation bound 2 (n - 1) 2^-24 sum |w|.
+    total = float(out["cpu"][1].weights.double().sum())
+    require(abs(float(out[DEV][1].total_weight) - float(out["cpu"][1].total_weight))
+            <= 2 * (n - 1) * 2.0 ** -24 * total, "emst.total_weight card vs CPU")
+    nn = out["cpu"][0]
+    src_bvh = build_bvh(torch.from_numpy(pos), *scene_bounds(torch.from_numpy(pos)))
+    tnn = knn(src_bvh, None, torch.from_numpy(tgt), MLS_K)
+    _, cond = mls_float64(pos, vals, tgt, tnn.indices.numpy(), tnn.distances.numpy())
+    diff = np.abs(out[DEV][4].cpu().numpy() - out["cpu"][4].numpy())
+    require(bool((diff <= mls_tolerance(cond)).all()), "mls_interpolate card vs CPU")
+    tree = out[DEV][1]
+    log(f"[3] card == CPU at {n} particles: knn (k = {KNN_K}, mean distance "
+        f"{nn.distances[:, -1].mean().item():.4g}), emst's edges, weights and "
+        f"{int(tree.rounds)} rounds, raycast and raycast_all "
+        f"({int(out[DEV][3].total)} hits of {m_rays} skewers) bit for bit; "
+        f"emst's total weight ({float(tree.total_weight):.6g}) within the "
+        f"summation bound; mls_interpolate within its tolerance (largest "
+        f"difference {diff.max():.3g}, condition numbers up to {cond.max():.3g})")
+
+
+def nearest_row(torch, *, name, run, sub_run, plain, pops, nbytes,
+                launches, path, plain_input, card, near_rep, extra=None):
+    """A phase 9 row of an instance of the nearest kernel: ``run()`` the
+    path's launch at its inputs, ``sub_run()`` and ``plain()`` the kernel
+    and its plain version on a named sample, equal bit for bit."""
+    ms = cuda_ms(torch, run, 3)
+    got = sub_run()
+    sub_ms = cuda_ms(torch, sub_run, 3)
+    want, plain_ms = timed_once(torch, plain)
+    require(same_bits(torch, got, want), f"{name} on {plain_input}")
+    b_ms, b_by = bound(nbytes, pops * NEAREST_OPS_PER_POP[name])
+    rep = near_rep[name]
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/nearest.cu",
+            "replaces": "none: no Pallas kernel; the vmapped while_loop "
+                        "traverse_nearest_stack, src/repro/core/query.py:429",
+            "launches": launches, "path": path, "card": card,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "plain_input": plain_input, "ms_at_plain_input": sub_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "pops": pops, "ops_per_pop": NEAREST_OPS_PER_POP[name],
+            "ghops_per_s": pops / ms * 1e-6, "registers": rep["registers"],
+            "stack_frame": rep["stack_frame"], **(extra or {})}
+
+
+def phase14_nearest(seed: int, n: int, card: str, near_rep: dict,
+                    n_sample: int = 1 << 16, n_brute: int = 4096,
+                    n_targets: int = 1 << 20, n_check: int = 1024):
+    """Phase 14: the nearest family at full width on phase 4's cloud and
+    eps. Each call with its seconds, peak memory and launches (counters
+    set to 0 before it): ``knn`` self-query at k = 16 (against its plain
+    version on ``n_sample`` sampled queries and brute force on
+    ``n_brute``); ``emst`` (n - 1 edges that span; one round's walk
+    against its plain version on ``n_sample`` points); ``mls_interpolate``
+    (k = 8) onto ``n_targets`` uniform targets (``n_check`` of them against
+    a float64 solve); ``raycast`` of phase 11's skewers on its tree of
+    eps-boxes (each hit the least slab t of its ray's ``raycast_all``
+    row). Returns phase 9's rows of the three instances."""
+    import torch
+    from repro_torch.core import emst, knn, mls_interpolate, raycast, raycast_all
+    from repro_torch.core.bvh import build_bvh, build_bvh_objects
+    from repro_torch.core.geometry import ray_box, safe_inv, scene_bounds
+    from repro_torch.core.union_find import connected_components
+    from repro_torch.data.pipeline import hacc_benchmark_epsilon
+    from repro_torch.kernels import nearest as kn
+    temst = importlib.import_module("repro_torch.core.emst")
+
+    t_all = time.perf_counter()
+    pos, _, _ = plummer_cloud(seed, n)
+    pts = torch.from_numpy(pos).to(DEV)
+    eps = hacc_benchmark_epsilon(1.0, n)
+    kernels = kernel_wrappers(tuple(NEAREST_KERNELS) + ("wavefront_count",
+                                                        "wavefront_fill"))
+    rng = np.random.default_rng(seed + 70)
+    steps, rows = [], []
+    lo, hi = scene_bounds(pts)
+    bvh = build_bvh(pts, lo, hi)
+    height = kn.check_height(bvh)
+    rec = kn.nearest_records(bvh)
+    sample = torch.from_numpy(rng.choice(n, n_sample, replace=False)).to(DEV)
+    sample_name = f"{n_sample} sampled particles of the {n}"
+    log(f"[14] cloud, tree (height {height}) and records: "
+        f"{time.perf_counter() - t_all:.1f} s")
+
+    # 1. kNN self-query at k = 16 (threads in the Morton order of the
+    # queries, as knn takes them).
+    with counted_step(torch, f"knn self-query k={KNN_K}", kernels, "[14]") as r:
+        nn = knn(bvh, pts, pts, KNN_K)
+    steps.append(r)
+    require(r["launches"].get("nearest_knn", 0) == 1, "knn launched nearest_knn once")
+    require(bool((nn.indices >= 0).all()) and
+            bool(torch.isfinite(nn.distances).all()), "knn: every slot filled")
+    morton = importlib.import_module(
+        "repro_torch.core.query").query_sort_permutation(bvh, pts)
+    pops = int(kn.nearest_knn(bvh, pts, KNN_K, order=morton, records=rec,
+                              height=height, with_pops=True)[2].sum(dtype=torch.int64))
+    # Brute force: every squared distance of a query, as differences (not
+    # cdist's matrix-product form, whose rounding is far coarser), then
+    # topk.
+    brute = torch.from_numpy(rng.choice(n, n_brute, replace=False)).to(DEV)
+    agree = checked = 0
+    cols = [pts[:, a].contiguous() for a in range(3)]
+    for chunk in brute.split(32):
+        q = pts[chunk]
+        d2 = sum((c[None, :] - q[:, a, None]) ** 2 for a, c in enumerate(cols))
+        best = torch.topk(d2, KNN_K + 1, largest=False)
+        apart = best.values[:, KNN_K] - best.values[:, KNN_K - 1] > \
+            1e-6 * best.values[:, KNN_K]
+        want = torch.sort(best.indices[:, :KNN_K], 1).values
+        got = torch.sort(nn.indices[chunk].long(), 1).values
+        agree += int(((want == got).all(1) & apart).sum())
+        checked += int(apart.sum())
+        del d2, best
+    del cols
+    require(agree == checked, f"knn sets == brute force on {checked} queries")
+    log(f"[14] knn checked: {time.perf_counter() - t_all:.1f} s")
+    log(f"[14] knn: {KNN_K} neighbours of each of {n} particles; sets == "
+        f"brute force + topk on {checked} of {n_brute} sampled queries (the "
+        f"rest have the {KNN_K}th and {KNN_K + 1}th squared distances within "
+        f"1e-6, relative); mean {KNN_K}th distance {nn.distances[:, -1].mean().item():.4g}"
+        f" ({nn.distances[:, -1].mean().item() / eps:.3f} eps); {pops} pops; "
+        f"tree height {height}")
+    q_bytes = rec.numel() * 4 + n * (12 + 4)
+    rows.append(nearest_row(
+        torch, name="nearest_knn",
+        run=lambda: kn.nearest_knn(bvh, pts, KNN_K, order=morton,
+                                   records=rec, height=height),
+        sub_run=lambda: kn.nearest_knn(bvh, pts[sample], KNN_K, records=rec,
+                                       height=height),
+        plain=lambda: kn.nearest_knn_plain(bvh, pts[sample], KNN_K),
+        pops=pops, nbytes=q_bytes + n * KNN_K * 8,
+        launches=r["launches"].get("nearest_knn", 0),
+        path=f"knn self-query, k = {KNN_K}, {n} particles",
+        plain_input=sample_name, card=card, near_rep=near_rep,
+        extra={"s": r["s"], "peak_gib": r["peak_gib"]}))
+    del nn
+    log(f"[14] knn row: {time.perf_counter() - t_all:.1f} s")
+
+    # 2. EMST, keeping the third round's component map (the last, where
+    # there are fewer rounds).
+    calls = {"n": 0}
+    wrapped = temst.nearest_other_component
+
+    def keep_third(bvh_, centers, qcomp, comp, intervals, **kw):
+        calls["n"] += 1
+        if calls["n"] <= 3:
+            calls["args"] = (comp.clone(), intervals.clone())
+        return wrapped(bvh_, centers, qcomp, comp, intervals, **kw)
+
+    with swapped(temst, "nearest_other_component", keep_third):
+        with counted_step(torch, "emst", kernels, "[14]") as r:
+            tree = emst(pts, device=DEV)
+        steps.append(r)
+    rounds = int(tree.rounds)
+    require(r["launches"].get("nearest_other_component", 0) == rounds,
+            "emst launched nearest_other_component once a round")
+    labels = connected_components(n, tree.edges[:, 0], tree.edges[:, 1])
+    require(tree.edges.shape == (n - 1, 2) and bool((tree.edges >= 0).all())
+            and bool((labels == 0).all()), "emst: n - 1 edges that span")
+    log(f"[14] emst: {n - 1} edges spanning {n} particles (one union-find "
+        f"component), {rounds} rounds, total weight "
+        f"{float(tree.total_weight):.9g}, longest edge "
+        f"{float(tree.weights.max()):.4g}")
+    del tree, labels
+    comp, iv = calls["args"]
+    (clo, _), int_s = timed_once(torch, lambda: temst._node_component_intervals(
+        bvh, comp[bvh.leaf_perm.long()]))
+    require(torch.equal(clo, iv[:, 0]), "node_reduce's intervals again")
+    log(f"[14] one round's component intervals (node_reduce, a host sync a "
+        f"level): {int_s:.2f} ms")
+    del clo
+    e_pops = int(kn.nearest_other_component(
+        bvh, pts, comp, comp, iv, order=bvh.leaf_perm, records=rec, height=height,
+        with_pops=True)[2].sum(dtype=torch.int64))
+    n_comp = int((comp == torch.arange(n, dtype=torch.int32, device=DEV)).sum())
+    rows.append(nearest_row(
+        torch, name="nearest_other_component",
+        run=lambda: kn.nearest_other_component(bvh, pts, comp, comp, iv,
+                                               order=bvh.leaf_perm, records=rec,
+                                               height=height),
+        sub_run=lambda: kn.nearest_other_component(bvh, pts[sample], comp[sample],
+                                                   comp, iv, records=rec,
+                                                   height=height),
+        plain=lambda: kn.nearest_other_component_plain(bvh, pts[sample],
+                                                       comp[sample], comp, iv),
+        pops=e_pops, nbytes=q_bytes + n * 8 + iv.numel() * 4 + n * 8,
+        launches=r["launches"].get("nearest_other_component", 0),
+        path=f"emst, {n} particles; ms at the third round's {n_comp} components",
+        plain_input=sample_name + " (third round)", card=card, near_rep=near_rep,
+        extra={"s": r["s"], "peak_gib": r["peak_gib"], "rounds": rounds,
+               "intervals_ms": int_s}))
+    del comp, iv, calls
+    log(f"[14] emst row: {time.perf_counter() - t_all:.1f} s")
+
+    # 3. MLS onto uniform targets.
+    tgt = rng.uniform(0, 1, (n_targets, 3)).astype(np.float32)
+    vals = mls_field(pos).astype(np.float32)
+    with counted_step(torch, f"mls_interpolate k={MLS_K} onto {n_targets} targets",
+                      kernels, "[14]") as r:
+        interp = mls_interpolate(pts, torch.from_numpy(vals).to(DEV),
+                                 torch.from_numpy(tgt).to(DEV), MLS_K, device=DEV)
+    steps.append(r)
+    require(r["launches"].get("nearest_knn", 0) == 1, "mls launched nearest_knn once")
+    chk = rng.choice(n_targets, n_check, replace=False)
+    cnn = knn(bvh, pts, torch.from_numpy(tgt[chk]).to(DEV), MLS_K)
+    want, cond = mls_float64(pos, vals, tgt[chk], cnn.indices.cpu().numpy(),
+                             cnn.distances.cpu().numpy())
+    diff = np.abs(interp[torch.from_numpy(chk).to(DEV)].cpu().numpy() - want)
+    require(bool(np.isfinite(interp.cpu().numpy()).all()), "mls: finite values")
+    require(bool((diff <= mls_tolerance(cond)).all()),
+            "mls_interpolate within its tolerance of the float64 solve")
+    log(f"[14] mls_interpolate: {n_targets} finite values; {n_check} sampled "
+        f"targets within 1e-5 + 8 cond 2^-24 of a float64 solve (largest "
+        f"difference {diff.max():.3g}, median {np.median(diff):.3g}; condition "
+        f"numbers up to {cond.max():.3g}); error against the field "
+        f"{np.abs(want - mls_field(tgt[chk])).max():.3g} at most")
+    del interp, cnn
+    log(f"[14] mls checked: {time.perf_counter() - t_all:.1f} s")
+
+    # 4. Nearest hits of phase 11's skewers on the tree of eps-boxes.
+    obvh = build_bvh_objects(pts - eps, pts + eps, lo, hi)
+    m = max(1 << 10, n >> 4)
+    o, d = skewers(torch, seed + 31, m, lo, hi, pts)
+    with counted_step(torch, f"raycast ({m} skewers, eps-box leaves)", kernels,
+                      "[14]") as r:
+        hits = raycast(obvh, o, d)
+    steps.append(r)
+    require(r["launches"].get("nearest_ray", 0) == 1, "raycast launched nearest_ray once")
+    with counted_step(torch, "raycast_all (the same skewers)", kernels, "[14]") as r2:
+        allh = raycast_all(obvh, o, d, sort_queries=True)
+    steps.append(r2)
+    inv = safe_inv(d)
+    off = allh.offsets.long()
+    least = torch.full((m,), float("inf"), device=DEV)
+    found = torch.zeros(m, dtype=torch.int32, device=DEV)
+    leaf_of = torch.empty(n, dtype=torch.long, device=DEV)
+    leaf_of[obvh.leaf_perm.long()] = torch.arange(n, device=DEV) + (n - 1)
+    for a, b in zip(range(0, m, 1 << 16), range(1 << 16, m + (1 << 16), 1 << 16)):
+        b = min(b, m)
+        row = torch.repeat_interleave(torch.arange(a, b, device=DEV),
+                                      off[a + 1:b + 1] - off[a:b])
+        obj = allh.indices[int(off[a]):int(off[b])].long()
+        t, hit = ray_box(o[row], inv[row], obvh.node_lo[leaf_of[obj]],
+                         obvh.node_hi[leaf_of[obj]])
+        require(bool(hit.all()), "raycast_all rows hold hits")
+        least.scatter_reduce_(0, row, t, "amin")
+        found.scatter_reduce_(0, row, (obj == hits.index[row].long()).int(), "amax")
+    miss = hits.index < 0
+    require(bool(((off[1:] == off[:-1]) == miss).all()), "misses have empty rows")
+    require(bool((found[~miss] == 1).all()) and bits_equal(torch, hits.t[~miss],
+                                                    least[~miss]),
+            "each nearest hit is in its row at the row's least t")
+    r_pops = int(kn.nearest_ray(obvh, o, inv, records=kn.nearest_records(obvh),
+                                with_pops=True)[2].sum(dtype=torch.int64))
+    log(f"[14] raycast: {int((~miss).sum())} of {m} skewers hit; each hit is "
+        f"its raycast_all row's least slab t ({int(allh.total)} hits), each "
+        f"miss an empty row; {r_pops} pops")
+    orec = kn.nearest_records(obvh)
+    order = importlib.import_module(
+        "repro_torch.core.query").query_sort_permutation(obvh, o)
+    every = max(1, m >> 12)
+    rsub = torch.arange(0, m, every, device=DEV)
+    rows.append(nearest_row(
+        torch, name="nearest_ray",
+        run=lambda: kn.nearest_ray(obvh, o, inv, order=order, records=orec),
+        sub_run=lambda: kn.nearest_ray(obvh, o[rsub], inv[rsub], records=orec),
+        plain=lambda: kn.nearest_ray_plain(obvh, o[rsub], inv[rsub]),
+        pops=r_pops, nbytes=orec.numel() * 4 + m * (12 + 12 + 8),
+        launches=r["launches"].get("nearest_ray", 0),
+        path=f"raycast of {m} skewers on the tree of {n} eps-boxes",
+        plain_input=f"{rsub.numel()} of the {m} skewers (every {every}th)",
+        card=card, near_rep=near_rep,
+        extra={"s": r["s"], "peak_gib": r["peak_gib"]}))
+    log(f"[14] phase 14 steps: {json.dumps(steps)}; "
+        f"{time.perf_counter() - t_all:.1f} s")
+    return rows
+
+
 HACC_KERNELS = ("wavefront_count", "wavefront_min_label", "segment_sum_sorted",
                 "segment_max_sorted")
 
@@ -3457,6 +3933,7 @@ def instance_counts(kernels: dict) -> dict:
 
 
 def kernel_wrappers(names=None) -> dict:
+    from repro_torch.kernels import nearest as kn
     from repro_torch.kernels import pairwise as kp
     from repro_torch.kernels import segment as ks
     from repro_torch.kernels import wavefront as kw
@@ -3474,7 +3951,10 @@ def kernel_wrappers(names=None) -> dict:
              "stencil_count": kp.stencil_count,
              "stencil_min_label": kp.stencil_min_label,
              "pairwise_count": kp.pairwise_count,
-             "pairwise_min_label": kp.pairwise_min_label}
+             "pairwise_min_label": kp.pairwise_min_label,
+             "nearest_knn": kn.nearest_knn,
+             "nearest_other_component": kn.nearest_other_component,
+             "nearest_ray": kn.nearest_ray}
     return every if names is None else {k: every[k] for k in names}
 
 
@@ -3499,7 +3979,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
-    card, tiles, wave, stencil, seg = phase1_build()
+    card, tiles, wave, stencil, seg, near = phase1_build()
     cfg = InsituConfig(mode="simulation", cadence=1, min_pts=2,
                        halo_min_count=10, halo_capacity=1 << 20)
     t0 = time.perf_counter()
@@ -3512,6 +3992,7 @@ def main(argv=None) -> int:
     phase3_grid_and_pairwise(args.seed)
     phase3_pair_and_densebox(args.seed)
     phase3_sharded(args.seed)
+    phase3_nearest(args.seed)
     log(f"[3] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches_by_step, records = phase4_main_path(args.seed, 1 << args.n_log2, cfg)
@@ -3542,9 +4023,12 @@ def main(argv=None) -> int:
     sharded_rows = phase13_sharded(args.seed, 1 << args.n_log2, cfg, card, wave)
     log(f"[13] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    nearest_rows = phase14_nearest(args.seed, 1 << args.n_log2, card, near)
+    log(f"[14] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     phase9_kernel_line(launches_by_step, records,
                        nl_rows + grid_rows + pair_rows + halo_rows + pred_rows
-                       + dbscan_rows + sharded_rows,
+                       + dbscan_rows + sharded_rows + nearest_rows,
                        card, wave,
                        seg)
     log(f"[9] done in {time.perf_counter() - t0:.1f} s; "

@@ -2,9 +2,9 @@
 codes, the LBVH, the cell grid, the query engine and its protocols (the
 pair backend included), the traversal shims, union-find, the DBSCAN
 variants, the pair correlation, and the sharded layer (``distributed.py``
-on the in-process mesh of ``mesh.py``). Re-exports the ported names of
-the reference's list; ``knn``, ``emst``, ``interpolate`` and ``raycast``
-are not ported yet (ROADMAP A10)."""
+on the in-process mesh of ``mesh.py``), and the nearest family: ``knn``,
+``emst``, ``interpolate`` and ``raycast``. Re-exports the reference's
+list and the port's own additions."""
 from repro_torch.core.bvh import SENTINEL, Bvh, build_bvh, build_bvh_objects
 from repro_torch.core.cell_grid import CellGrid, build_cell_grid, cell_box
 from repro_torch.core.correlation import pair_count_histogram, two_point_correlation
@@ -42,7 +42,9 @@ from repro_torch.core.query import (
     DeviceCsr,
     IntersectsBox,
     Nearest,
+    NearestResult,
     Ray,
+    RayResult,
     Within,
     intersects_box,
     nearest,
@@ -61,6 +63,10 @@ from repro_torch.core.traversal import (
     traverse_sphere_stack,
     traverse_sphere_stackless,
 )
+from repro_torch.core.knn import KnnResult, knn
+from repro_torch.core.emst import EmstResult, emst
+from repro_torch.core.interpolate import mls_interpolate
+from repro_torch.core.raycast import RayHits, raycast, raycast_all
 from repro_torch.core import union_find
 
 __all__ = [
@@ -74,12 +80,14 @@ __all__ = [
     "Aabb", "aabb_of_points",
     "morton32", "morton64", "normalize_points",
     "Within", "IntersectsBox", "Nearest", "Ray",
-    "DeviceCsr", "BufferedCsr",
+    "NearestResult", "RayResult", "DeviceCsr", "BufferedCsr",
     "within", "intersects_box", "nearest", "ray",
     "query", "query_count", "query_csr", "query_csr_buffered",
     "query_csr_device", "query_fixed",
     "node_reduce",
     "pair_traverse_sphere", "traverse_sphere_stack", "traverse_sphere_stackless",
+    "KnnResult", "knn", "EmstResult", "emst",
+    "mls_interpolate", "RayHits", "raycast", "raycast_all",
     "union_find",
     "ShardMesh", "ShardAxis",
     "DistDbscanResult", "HaloExchange", "ShardContext", "ShardedCsr",

@@ -24,7 +24,7 @@ from repro_torch.core.geometry import ieee_maximum, ieee_minimum
 
 SENTINEL = -1
 
-__all__ = ["Bvh", "build_bvh", "build_bvh_objects", "SENTINEL"]
+__all__ = ["Bvh", "build_bvh", "build_bvh_objects", "SENTINEL", "node_depths"]
 
 
 class Bvh(NamedTuple):
@@ -173,3 +173,22 @@ def _build(centers, leaf_lo, leaf_hi, scene_lo, scene_hi, use_64bit: bool,
                node_lo=node_lo, node_hi=node_hi,
                range_left=first.to(i32), range_right=last.to(i32),
                box_leaves=box_leaves)
+
+
+def node_depths(bvh: Bvh) -> torch.Tensor:
+    """(2n-1,) int32 depth of every node, the root at 0; the table of
+    ``_node_depths`` (``repro/core/query.py:257-271``). The reference
+    propagates depths top-down for a fixed 96 levels, the most a tree of
+    64 code bits and 32 index bits can have; here one level at a time
+    until the last, which gives the same table."""
+    n = bvh.num_leaves
+    depth = torch.zeros(2 * n - 1, dtype=torch.int32,
+                        device=bvh.left_child.device)
+    level = torch.zeros(1, dtype=torch.int64, device=depth.device)
+    d = 0
+    while level.numel():
+        d += 1
+        kids = torch.cat([bvh.left_child[level], bvh.right_child[level]]).long()
+        depth[kids] = d
+        level = kids[kids < n - 1]
+    return depth

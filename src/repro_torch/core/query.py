@@ -1,9 +1,10 @@
 """The query engine; port of ``repro/core/query.py``: the predicates
-``Within``, ``IntersectsBox`` and ``Ray`` (all hits), the output protocols
+``Within``, ``IntersectsBox``, ``Nearest`` and ``Ray``, the output protocols
 ``query_count`` (``stop_at=``, ``with_stats=``, ``start_nodes=``),
 ``query_fixed``, ``query_csr_device``, ``query_csr`` and
 ``query_csr_buffered``, the generic engine ``query``/``traverse``/
-``node_reduce``, and ``query_sort_permutation``/``node_depths``.
+``traverse_nearest_stack``/``node_reduce``, and
+``query_sort_permutation``/``node_depths``.
 
 Backends (``backend=``), as the reference names them:
 
@@ -38,8 +39,14 @@ batches: ``callback(carry, query_idx, obj_idx, value) -> (carry, done)``
 gets the carries of the m lanes that hit a leaf, their (m,) int32 query
 and object indices and (m,) float32 values (the squared distance, or for
 a ``Ray`` the entry parameter ``t``); ``done`` is a Python bool or an
-(m,) bool tensor. ``query`` with ``Nearest``, or with a ``Ray`` and no
-callback (the nearest-hit protocol), is not ported (ROADMAP A10).
+(m,) bool tensor.
+
+``query`` with ``Nearest`` (``NearestResult``, or carries through the
+nearest callback protocol) and with a ``Ray`` and no callback (the
+nearest-hit protocol, ``RayResult``) runs the ordered-stack walks of
+``repro_torch.kernels.nearest``: the CUDA kernel on the card, its plain
+lockstep version on the CPU. The generic ``traverse_nearest_stack`` takes
+arbitrary callbacks and runs in torch ops wherever the tensors lie.
 
 Every protocol takes the reference's ``sort_queries=``: the Morton
 permutation of the query centres (box centres, ray origins) becomes the
@@ -55,9 +62,11 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from repro_torch.core.bvh import SENTINEL, Bvh
+from repro_torch.core.bvh import SENTINEL, Bvh, node_depths
 from repro_torch.core.geometry import safe_inv
 from repro_torch.core.morton import morton32, normalize_points, sort_by_morton32
+from repro_torch.kernels.nearest import (STACK_DEPTH, nearest_knn,
+                                         nearest_ray, ordered_stack_walk)
 from repro_torch.kernels.wavefront import (count_epilogue, fill_epilogue,
                                            fill_lanes, fixed_carry,
                                            fixed_epilogue, pair_starts,
@@ -67,12 +76,12 @@ from repro_torch.obs.stats import TraversalStats
 
 __all__ = ["Within", "IntersectsBox", "Nearest", "Ray", "within",
            "intersects_box", "nearest", "ray", "squared_radii",
-           "query_geometry", "DeviceCsr", "BufferedCsr", "query",
-           "query_count", "query_fixed", "query_csr", "query_csr_device",
-           "query_csr_buffered", "traverse", "stack_traverse",
-           "node_reduce", "node_depths", "query_sort_permutation"]
+           "query_geometry", "NearestResult", "RayResult", "DeviceCsr",
+           "BufferedCsr", "query", "query_count", "query_fixed", "query_csr",
+           "query_csr_device", "query_csr_buffered", "traverse",
+           "stack_traverse", "traverse_nearest_stack", "node_reduce",
+           "node_depths", "query_sort_permutation"]
 
-STACK_DEPTH = 96  # >= max tree depth: 64 code bits + 32 index tie-break bits
 
 
 # ---------------------------------------------------------------------------
@@ -92,16 +101,26 @@ class IntersectsBox(NamedTuple):
 
 
 class Nearest(NamedTuple):
-    """k-nearest predicates (not ported: ROADMAP A10)."""
+    """k-nearest predicates. ``k`` is a Python int."""
     centers: torch.Tensor  # (q, 3)
     k: int
 
 
 class Ray(NamedTuple):
-    """Ray predicates; with a callback, the all-hits protocol (slab test
-    against leaf volumes)."""
+    """Ray predicates: without a callback the nearest hit, with one the
+    all-hits protocol (slab test against leaf volumes)."""
     origins: torch.Tensor     # (q, 3) float32
     directions: torch.Tensor  # (q, 3) float32
+
+
+class NearestResult(NamedTuple):
+    indices: torch.Tensor    # (q, k) int32, sorted by distance (-1 = unfilled)
+    distances: torch.Tensor  # (q, k) float32 Euclidean
+
+
+class RayResult(NamedTuple):
+    index: torch.Tensor  # (q,) int32 original object index (-1 = miss)
+    t: torch.Tensor      # (q,) float32 entry parameter along the ray
 
 
 def within(centers: torch.Tensor, radii) -> Within:
@@ -212,25 +231,6 @@ def _thread_order(bvh: Bvh, pred, sort_queries: bool,
     if order is not None:
         raise ValueError("pass sort_queries=True or an order, not both")
     return query_sort_permutation(bvh, _pred_centers(pred))
-
-
-def node_depths(bvh: Bvh) -> torch.Tensor:
-    """(2n-1,) int32 depth of every node, the root at 0; the table of
-    ``_node_depths`` (``repro/core/query.py:257-271``). The reference
-    propagates depths top-down for a fixed 96 levels, the most a tree of
-    64 code bits and 32 index bits can have; here one level at a time
-    until the last, which gives the same table."""
-    n = bvh.num_leaves
-    depth = torch.zeros(2 * n - 1, dtype=torch.int32,
-                        device=bvh.left_child.device)
-    level = torch.zeros(1, dtype=torch.int64, device=depth.device)
-    d = 0
-    while level.numel():
-        d += 1
-        kids = torch.cat([bvh.left_child[level], bvh.right_child[level]]).long()
-        depth[kids] = d
-        level = kids[kids < n - 1]
-    return depth
 
 
 # ---------------------------------------------------------------------------
@@ -621,6 +621,40 @@ def traverse(bvh: Bvh, qdata, node_fn: Callable, leaf_fn: Callable,
     return out, TraversalStats.from_rows(rows)
 
 
+def traverse_nearest_stack(bvh: Bvh, centers: torch.Tensor, qdata,
+                           push_fn: Callable, leaf_fn: Callable, carry_init):
+    """Distance-ordered stack traversal, the nearest-search substrate
+    (``repro/core/query.py:429-484``), in torch ops on the tree's device:
+    children are pushed far first, so the near child is explored first;
+    ``push_fn(q, carry, child, d2_child) -> (m,) bool`` gates each push
+    against the carry, ``leaf_fn(q, carry, obj_idx, d2_leaf) -> carry``
+    updates it at a leaf. Both take lane batches: ``q`` and ``carry`` hold
+    the rows of the m lanes at such a node (``qdata`` a pytree of
+    per-query tensors), ``child`` and ``obj_idx`` are (m,) int32, ``d2``
+    (m,) float32. ``carry_init`` is broadcast to one carry per query. A
+    popped node is not tested again against the tightened bound, as in
+    the reference. The fixed walks of KNN, EMST and rays run as the CUDA
+    kernel of ``kernels/nearest.py``."""
+    q = centers.shape[0]
+    carries = _broadcast_carries(carry_init, q, centers.device)
+
+    def rebuild(flat):
+        it = iter(flat)
+        return _tmap(lambda _x: next(it), carries)
+
+    def push(lanes, carry, child, d2):
+        return push_fn(_take(qdata, lanes), rebuild(carry), child,
+                       d2).to(torch.bool)
+
+    def leaf(lanes, carry, obj, d2):
+        return tuple(_tleaves(leaf_fn(_take(qdata, lanes), rebuild(carry),
+                                      obj, d2)))
+
+    out, _ = ordered_stack_walk(bvh, _f32(centers), tuple(_tleaves(carries)),
+                                push, leaf)
+    return rebuild(out)
+
+
 def node_reduce(bvh: Bvh, leaf_values, combine: Callable, identity):
     """Bottom-up per-node reduction (``repro/core/query.py:487-523``): a
     pytree of (2n-1, ...) node values where leaf node ``(n-1)+k`` holds
@@ -711,6 +745,48 @@ def _pair_query(bvh, pred, callback, carry_init, with_stats=False):
                           with_stats, None, pair=True)
 
 
+def _nearest_batched(bvh: Bvh, centers: torch.Tensor, k: int,
+                     order: torch.Tensor | None = None) -> NearestResult:
+    """kNN by the Euclidean distance to leaf boxes (the points, for point
+    leaves): the ordered stack with a bounded, unsorted candidate buffer
+    (``repro/core/query.py:767-791``), as the KNN epilogue of the nearest
+    kernel on the card."""
+    idx, dist = nearest_knn(bvh, _f32(centers), k, order=order)
+    return NearestResult(indices=idx, distances=dist)
+
+
+def _nearest_query(bvh, pred: Nearest, callback, carry_init, order):
+    """``repro/core/query.py:794-825``. Without a callback the
+    ``NearestResult``; with one, the callback runs per result in ascending
+    distance, with the Euclidean distance (spatial callbacks get d²), on
+    lane batches of the queries still running: a result slot is skipped
+    where it is unfilled (-1) or the query is done."""
+    res = _nearest_batched(bvh, pred.centers, pred.k, order)
+    if callback is None:
+        return res
+    q, dev = pred.centers.shape[0], res.indices.device
+    carries = _broadcast_carries(carry_init, q, dev)
+    done = torch.zeros(q, dtype=torch.bool, device=dev)
+    qidx = torch.arange(q, dtype=torch.int32, device=dev)
+    for i in range(pred.k):
+        lanes = torch.nonzero((res.indices[:, i] >= 0) & ~done).flatten()
+        if not lanes.numel():
+            continue
+        new, d = callback(_take(carries, lanes), qidx[lanes],
+                          res.indices[lanes, i], res.distances[lanes, i])
+        _put(carries, lanes, new)
+        done[lanes] |= _as_done(d, lanes.numel(), dev)
+    return carries
+
+
+def _ray_query(bvh, pred: Ray, order) -> RayResult:
+    """The nearest-hit protocol (``repro/core/query.py:844-900``): the RAY
+    epilogue of the nearest kernel on the card."""
+    idx, t = nearest_ray(bvh, _f32(pred.origins),
+                         safe_inv(_f32(pred.directions)), order=order)
+    return RayResult(index=idx, t=t)
+
+
 def query(bvh: Bvh, predicates, callback: Callable | None = None,
           carry_init=None, *, backend: str = "stackless",
           sort_queries: bool = False, with_stats: bool = False,
@@ -725,24 +801,36 @@ def query(bvh: Bvh, predicates, callback: Callable | None = None,
     * ``Ray`` + callback -> the all-intersections protocol: the callback
       fires per leaf volume the ray pierces, with the entry parameter
       ``t`` in the last argument.
-    * ``Nearest``, and ``Ray`` without a callback, are not ported
-      (ROADMAP A10).
+    * ``Nearest`` -> ``NearestResult``, or with a callback the carries of
+      :func:`_nearest_query`'s protocol (any ``backend``: the nearest walk
+      is its own, as the reference's).
+    * ``Ray`` without a callback -> ``RayResult``, the nearest hit.
 
     ``backend``: ``stackless`` (``pallas`` is the same walk), ``stack`` or
     ``pair`` (a ``within`` self-join; carries in sorted leaf order, see
-    :func:`_pair_query`). ``sort_queries`` changes no result here and is
-    accepted for the reference's callers (the pair backend refuses it, as
-    the reference's does). ``with_stats=True`` returns ``(result,
-    TraversalStats)``. ``start_nodes`` (stackless) replaces the root."""
-    if start_nodes is not None and backend == "pair":
+    :func:`_pair_query`). ``sort_queries`` makes the nearest kernel's
+    threads take queries in Morton order; it changes no result, and the
+    torch walks ignore it (the pair backend refuses it, as the
+    reference's does). ``with_stats=True`` returns
+    ``(result, TraversalStats)``. ``start_nodes`` (stackless) replaces the
+    root."""
+    nearest_protocol = isinstance(predicates, Nearest) or (
+        isinstance(predicates, Ray) and callback is None)
+    if with_stats and nearest_protocol:
+        raise ValueError(
+            "with_stats instruments the spatial traversal cores; the "
+            "nearest / nearest-hit-ray protocols run on the priority-queue "
+            "substrate, which has no stats threading")
+    if start_nodes is not None and (nearest_protocol or backend == "pair"):
         raise ValueError(
             "start_nodes applies to the spatial stackless/pallas traversals; "
-            "the pair backend derives its own start nodes")
-    if isinstance(predicates, Nearest) or (isinstance(predicates, Ray)
-                                           and callback is None):
-        raise NotImplementedError(
-            "the nearest and nearest-hit ray protocols are not ported yet "
-            "(ROADMAP A10)")
+            "the nearest protocols have their own ordering and the pair "
+            "backend derives its own start nodes")
+    if nearest_protocol:
+        order = _thread_order(bvh, predicates, sort_queries, None)
+        if isinstance(predicates, Nearest):
+            return _nearest_query(bvh, predicates, callback, carry_init, order)
+        return _ray_query(bvh, predicates, order)
     if isinstance(predicates, Ray) and backend == "pair":
         raise ValueError("backend='pair' is a within() self-join")
     if not isinstance(predicates, (Within, IntersectsBox, Ray)):

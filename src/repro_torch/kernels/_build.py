@@ -36,7 +36,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "build_log", "library", "check",
            "count_launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("wavefront", "segment", "pairwise")
+SOURCES = ("wavefront", "segment", "pairwise", "nearest")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

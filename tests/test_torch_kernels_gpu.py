@@ -1168,3 +1168,76 @@ def test_first_kernel_use_from_four_threads(cuda, monkeypatch):
     assert ks.segment_max_sorted.launches == before + 4
     for out in outs:
         torch.testing.assert_close(out, want, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The nearest kernel (csrc/nearest.cu): KNN, EMST and RAY against their plain
+# versions, bit for bit, pops included.
+# ---------------------------------------------------------------------------
+
+def _same_bits(got, want):
+    for g, w in zip(got, want):
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("k", [1, 4, 16, 33, 64])
+def test_nearest_knn_matches_plain(cuda, k):
+    """k = 33 and 64 are past the local-memory buffer (LOCAL_K)."""
+    from repro_torch.kernels import nearest as kn
+    pts, bvh = _tree(cuda, 5000, k)
+    rng = np.random.default_rng(k)
+    q = torch.from_numpy(rng.uniform(-0.1, 1.1, (777, 3)).astype(np.float32)).to(cuda)
+    before = kn.nearest_knn.launches
+    _same_bits(kn.nearest_knn(bvh, q, k, with_pops=True),
+               kn.nearest_knn_plain(bvh, q, k, True))
+    _same_bits(kn.nearest_knn(bvh, pts, k, order=bvh.leaf_perm),
+               kn.nearest_knn_plain(bvh, pts, k))
+    assert kn.nearest_knn.launches == before + 2
+
+
+def test_nearest_knn_exact_ties_keep_slot_order(cuda):
+    from repro_torch.kernels import nearest as kn
+    g = np.stack(np.meshgrid(*[np.arange(6)] * 3), -1).reshape(-1, 3) / 8
+    pts = torch.from_numpy(np.concatenate([g, g]).astype(np.float32)).to(cuda)
+    bvh = build_bvh(pts, *scene_bounds(pts))
+    for k in (7, 45):
+        _same_bits(kn.nearest_knn(bvh, pts, k, with_pops=True),
+                   kn.nearest_knn_plain(bvh, pts, k, True))
+
+
+@pytest.mark.parametrize("n_comp", [1, 64, 5000])
+def test_nearest_other_component_matches_plain(cuda, n_comp):
+    from repro_torch.kernels import nearest as kn
+    temst = importlib.import_module("repro_torch.core.emst")
+    pts, bvh = _tree(cuda, 5000, n_comp)
+    comp = (torch.arange(5000, dtype=torch.int32, device=cuda) if n_comp == 5000
+            else torch.from_numpy(np.random.default_rng(n_comp).integers(
+                0, n_comp, 5000).astype(np.int32)).to(cuda))
+    clo, chi = temst._node_component_intervals(bvh, comp[bvh.leaf_perm.long()])
+    iv = torch.stack([clo, chi], 1)
+    before = kn.nearest_other_component.launches
+    _same_bits(kn.nearest_other_component(bvh, pts, comp, comp, iv,
+                                          order=bvh.leaf_perm, with_pops=True),
+               kn.nearest_other_component_plain(bvh, pts, comp, comp, iv, True))
+    assert kn.nearest_other_component.launches == before + 1
+
+
+@pytest.mark.parametrize("boxes", [False, True])
+def test_nearest_ray_matches_plain(cuda, boxes):
+    from repro_torch.core.bvh import build_bvh_objects
+    from repro_torch.core.geometry import safe_inv
+    from repro_torch.kernels import nearest as kn
+    pts, bvh = _tree(cuda, 5000, 11)
+    if boxes:
+        bvh = build_bvh_objects(pts - 0.004, pts + 0.004, *scene_bounds(pts))
+    rng = np.random.default_rng(12)
+    o = torch.from_numpy(rng.uniform(-0.2, 1.2, (1000, 3)).astype(np.float32)).to(cuda)
+    d = torch.from_numpy(rng.standard_normal((1000, 3)).astype(np.float32)).to(cuda)
+    d[::9, :2] = 0.0
+    d[1::13, 0] = -1e-13
+    o[::17] = pts[:o[::17].shape[0]]
+    inv = safe_inv(d)
+    _same_bits(kn.nearest_ray(bvh, o, inv, with_pops=True),
+               kn.nearest_ray_plain(bvh, o, inv, True))
