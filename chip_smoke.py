@@ -11,7 +11,10 @@ other predicates (IntersectsBox, all-hits rays) and trees (box leaves,
 traversal's DBSCAN and correlation and DenseBox, the sharded halo
 pipeline (distributed FDBSCAN, the catalog merge, the span tracer) on an
 in-process mesh of shards of the card, and the nearest family (kNN,
-EMST, MLS interpolation, nearest-hit ray casting) on the nearest kernel.
+EMST, MLS interpolation, nearest-hit ray casting) on the nearest kernel,
+and the in-situ training mode: xlstm-350m trained at full width and depth
+under the supervisor through a fault, with embedding clustering on the
+traversal and segment kernels, and served.
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. Phases, each of which must pass:
@@ -82,30 +85,36 @@ CUDA toolkit. Phases, each of which must pass:
    uniform points, EMST from singleton components and from 64 random
    ones for 2^16 sampled particles, RAY for 2^11 skewers on the point
    tree and on a tree of the particles' eps-boxes.
-3. The card against the plain path on the CPU: the in-situ step at 2^18
+3. The card against the plain path on the CPU: the in-situ step at 2^16
    particles (labels, core mask, rounds and the catalog's integer fields
-   exact, float fields to a stated tolerance); at 2^16, ``query_csr``
+   exact, float fields to a stated tolerance); at 2^14, ``query_csr``
    exact, ``query_csr_device`` at half the total, ``query_csr_buffered``
    from capacity 8 and ``dbscan_graph_cc``, all exact; ``fdbscan_grid``
-   and ``fdbscan_grid_auto`` (from capacity 2) at 2^18 uniform points,
+   and ``fdbscan_grid_auto`` (from capacity 2) at 2^16 uniform points,
    and ``eps_neighbor_counts``/``eps_min_label`` at 2^12 x 64, all exact;
-   at 2^16 ``fdbscan(use_64bit=False)``, ``fdbscan(use_stack=True,
+   at 2^14 ``fdbscan(use_64bit=False)``, ``fdbscan(use_stack=True,
    early_stop=False)``, ``query_count(backend="stack", with_stats=True)``
    and the generic ``query`` with the quickstart's index-sum callback,
    exact (the generic query launches no kernel); ``fdbscan_pair``
    (capacity 8), ``fdbscan_densebox`` and ``pair_count_histogram`` (2 eps)
-   at 2^16 Plummer particles, exact, and ROADMAP C9's four points, where
+   at 2^15 Plummer particles, exact, and ROADMAP C9's four points, where
    the reference's DenseBox wraps, equal to ``fdbscan``; on 4 shards of
-   the card against 4 shards of the CPU at 2^16 slab-sorted Plummer
+   the card against 4 shards of the CPU at 2^14 slab-sorted Plummer
    particles, ``halo_pipeline_sharded`` (int64 ids): labels, core mask,
    rounds, overflow and catalog integers exact (floats to a stated
    tolerance), and ``dbscan_distributed`` at int32 and int64 ids on the
    card equal to the CPU pipeline's labels, core mask, rounds and
-   overflow; at 2^16 Plummer particles ``knn`` (k = 16, self), ``emst``
+   overflow; at 2^14 Plummer particles ``knn`` (k = 16, self), ``emst``
    (edges, weights, rounds), ``raycast`` and ``raycast_all`` (2^10
    skewers on the eps-box tree) bit for bit, and ``mls_interpolate`` (k =
    8, 2^12 uniform targets) within 1e-5 + 8 cond 2^-24, cond each
-   target's Gram matrix's condition number.
+   target's Gram matrix's condition number; the LM stack at smoke size
+   (xlstm-350m's ``smoke()``, float32, TF32 off) on the card against the
+   same weights on the CPU: ``train_loss`` and every gradient leaf, five
+   ``train_step``s (parameters, losses), ``prefill`` plus two
+   ``decode_step``s (the same tokens, logits close) and the in-situ
+   embedding statistics from the same sampled rows and projection (the
+   same integers), each within the tolerance stated in ``phase3_lm``.
 4. The main path: ``InsituAnalyzer`` in simulation mode over two analysis
    steps of 2^24 particles (4096 Plummer spheres plus 20% background).
    The launch counters are set to 0 before each step and read after it;
@@ -196,6 +205,31 @@ CUDA toolkit. Phases, each of which must pass:
    at the third round's components, ``nearest_ray``) with its pops, the
    bound's operations per pop, registers, stack frame and its plain time
    on a sample named in ``plain_input``.
+15. The in-situ training mode at full width and depth (run before phase
+   9's line), through the port's entry points: ``repro_torch.launch.train``'s
+   ``main`` trains xlstm-350m, 3.4e8 parameters (``count_params`` within
+   5% of 0.34e9) in bf16 with float32 moments, on ``SyntheticTokens`` at
+   batch 8 x 128 tokens for 30 steps under its supervisor, running
+   ``InsituAnalyzer(mode="training")`` every 10: once uninterrupted (each
+   step timed by the supervisor; one checkpoint, at the end), once
+   checkpointing every 10 with a fault injected at step 17 through its
+   ``fault_hook``. The resumed
+   run's state must equal the uninterrupted run's bit for bit, its
+   analyses repeat the uninterrupted run's, and the mean loss of the last
+   5 steps be below the first 5's. The hook reads the launch counters
+   and sets them to 0 before each step: COUNT, MIN_LABEL and both segment
+   kernels must launch in every analysis and none outside one; each
+   analysis is timed by its fenced ``insitu`` span. Then the embedding
+   statistics with 80% of the rows collapsed onto row 0 (the clustered
+   fraction must rise), ``router_cluster_stats`` on a seeded router tree
+   of deepseek-moe-16b's shape (27, 2048, 64) (finite), and serving:
+   ``repro_torch.launch.serve``'s ``main`` prefills 4 prompts of 32 tokens
+   into a 48-slot cache and decodes to 16 tokens (bf16, timed on its
+   second call), and at float32 on the trained weights the last of 16
+   decode steps' logits against the full forward over the 48 tokens
+   within the reference test's tolerance. Printed with the card: the
+   median train step in ms and tokens/s, each analysis in ms with its
+   launches, prefill ms, decode ms a step and peak memory.
 9. One JSON line with each kernel's launches on its path, time per launch
    at that path's inputs, bound with the card's name and power limit
    beside it, plain version's time and library yardstick. The traversal
@@ -995,7 +1029,7 @@ def sum_tolerance(torch, data, seg, nseg):
     return 2.0 * (rows_per - 1).clamp(min=0)[:, None] * 2.0 ** -24 * abs_sum
 
 
-def phase3_whole_path(seed: int, cfg, n: int = 1 << 18, n_lists: int = 1 << 16):
+def phase3_whole_path(seed: int, cfg, n: int = 1 << 16, n_lists: int = 1 << 14):
     import torch
     from repro_torch.analysis import insitu
     from repro_torch.data.pipeline import hacc_benchmark_epsilon
@@ -1033,7 +1067,7 @@ def phase3_whole_path(seed: int, cfg, n: int = 1 << 18, n_lists: int = 1 << 16):
     from repro_torch.core.bvh import build_bvh
     from repro_torch.core.dbscan import dbscan_graph_cc
     from repro_torch.core.geometry import scene_bounds
-    # The neighbor lists run at 2^16: the plain path on the CPU takes a
+    # The neighbor lists run at 2^14: the plain path on the CPU takes a
     # minute per 2^18 points for these four calls.
     pos, _, _ = plummer_cloud(seed + 5, n_lists)
     eps = hacc_benchmark_epsilon(1.0, n_lists)
@@ -1640,7 +1674,7 @@ def phase2_pairwise_kernels(seed: int, n_log2: int = 21):
         f"eps2 each, the plain d2 of a pair; {ties} tie pairs): exact")
 
 
-def phase3_grid_and_pairwise(seed: int, n: int = 1 << 18, n_pairs: int = 1 << 12):
+def phase3_grid_and_pairwise(seed: int, n: int = 1 << 16, n_pairs: int = 1 << 12):
     import torch
     from repro_torch.core import fdbscan_grid as tgrid
     from repro_torch.kernels import ops
@@ -1650,7 +1684,9 @@ def phase3_grid_and_pairwise(seed: int, n: int = 1 << 18, n_pairs: int = 1 << 12
     lo, hi = np.zeros(3, np.float32), np.ones(3, np.float32)
     dims = tgrid.grid_dims_for(lo, hi, eps)
     # The CPU runs the auto driver only (its last attempt is fdbscan_grid
-    # at the capacity it found): the plain path there takes ~40 s a run.
+    # at the capacity it found): the plain path there takes ~40 s a run at
+    # 2^18 points. This phase's CPU runs were cut twice (2^18 to 2^16, 2^16
+    # to 2^14) to keep the whole script under 900 s with phase 15.
     t0 = time.perf_counter()
     auto_c, info_c = tgrid.fdbscan_grid_auto(
         pts, eps, GRID_MIN_PTS, scene_lo=lo, scene_hi=hi, capacity=2,
@@ -2809,7 +2845,7 @@ def c7_kernel_checks(seed):
         "counts 1")
 
 
-def phase3_pair_and_densebox(seed: int, n: int = 1 << 16):
+def phase3_pair_and_densebox(seed: int, n: int = 1 << 15):
     """The card against the CPU path, exactly: fdbscan_pair, fdbscan_densebox
     and pair_count_histogram at ``n`` Plummer particles, and the C9 case."""
     import torch
@@ -3178,7 +3214,7 @@ def slab_cloud(torch, seed: int, n: int, shards: int):
     return pts, vels, eps, faces, torch.from_numpy(order).to(DEV)
 
 
-def phase3_sharded(seed: int, n: int = 1 << 16, shards: int = 4):
+def phase3_sharded(seed: int, n: int = 1 << 14, shards: int = 4):
     """The sharded path on ``shards`` shards of the card against as many
     of the CPU: ``halo_pipeline_sharded`` at int64 ids (its DBSCAN runs
     MIN_LABEL's int64 instance) on both, labels, core mask, rounds,
@@ -3589,7 +3625,7 @@ def phase2_nearest(seed, bvh, pts, eps, q: int = 1 << 16, q_ray: int = 1 << 11):
             f"{time.perf_counter() - t0:.1f} s)")
 
 
-def phase3_nearest(seed: int, n: int = 1 << 16, m_rays: int = 1 << 10):
+def phase3_nearest(seed: int, n: int = 1 << 14, m_rays: int = 1 << 10):
     """The card against the CPU at ``n`` Plummer particles: ``knn`` (k =
     16, self), ``emst`` (edges, weights, rounds), ``raycast`` and
     ``raycast_all`` (``m_rays`` skewers on the eps-box tree), all exact;
@@ -3908,6 +3944,302 @@ def phase14_nearest(seed: int, n: int, card: str, near_rep: dict,
     return rows
 
 
+LM_ARCH = "xlstm-350m"
+
+
+def adam_close(got, want, lr: float, n_steps: int, what: str) -> None:
+    """Parameters after Adam steps: within 2e-5 except where the
+    normalized step turned on a gradient within rounding of zero (at most
+    1e-3 of the entries, each off by at most two steps of ``lr`` a step)."""
+    diff = (got.float().cpu() - want.float().cpu()).abs()
+    far = float((diff > 2e-5).float().mean())
+    require(far <= 1e-3 and float(diff.max()) <= 2 * lr * n_steps,
+            f"{what}: {far:.2e} of entries past 2e-5, max {float(diff.max()):.3g}")
+
+
+def phase3_lm(seed: int):
+    """The LM stack at smoke size, the card against the CPU on the same
+    weights (float32, TF32 off). Tolerances: ``train_loss`` rtol 1e-5;
+    each gradient leaf rtol 1e-4 and atol 1e-6 (entries at most ~0.2); the
+    five steps' losses rtol 1e-5 and parameters by ``adam_close``; the
+    decoded tokens equal and their logits within 1e-4; the embedding
+    statistics' integers equal and eps within 2^-20 relative."""
+    import torch
+    from repro_torch.analysis.insitu import (InsituConfig, embedding_stats_from,
+                                             sample_embedding_draws)
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.models.spec import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.tree import keystr, leaves, leaves_with_path, tree_map
+
+    t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH).smoke()
+    opt_cfg = adamw.OptConfig(lr=1e-3, warmup_steps=2, total_steps=10,
+                              moment_dtype="float32")
+    icfg = InsituConfig(sample_rows=128)
+    params = init_params(lm.model_spec(cfg), seed, torch.float32, "cpu")
+    base = steps.TrainState(params, adamw.init_opt_state(opt_cfg, params))
+    rows, r = sample_embedding_draws(base.params["embed"], icfg, seed)
+    out = {}
+    for dev in (DEV, "cpu"):
+        state = tree_map(lambda x: x.to(dev), base)
+        data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                          global_batch=4, seed=seed), device=dev)
+        loss, _, grads = steps.value_and_grad(state.params, cfg, data.batch_at(0))
+        losses = []
+        for i in range(5):
+            state, m = steps.train_step(state, data.batch_at(i), cfg=cfg,
+                                        opt_cfg=opt_cfg)
+            losses.append(float(m["loss"]))
+        params0 = tree_map(lambda x: x.to(dev), base.params)
+        prompt = data.batch_at(9)["tokens"][:, :12]
+        logits, cache = steps.prefill_step(params0, {"tokens": prompt}, cfg=cfg,
+                                           cache_len=14)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        toks, logs = [tok], []
+        for i in range(2):
+            tok, logits, cache = steps.serve_step(params0, cache, tok, 12 + i, cfg=cfg)
+            toks.append(tok)
+            logs.append(logits)
+        stats = embedding_stats_from(rows.to(dev), r.to(dev), icfg)
+        out[dev] = (loss, grads, losses, state, torch.cat(toks, 1), logs, stats)
+    (lg, gg, lsg, sg, tg, logg, stg), (lc, gc, lsc, sc, tc, logc, stc) = \
+        out[DEV], out["cpu"]
+    require(abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc)), "train_loss card vs CPU")
+    for (path, a), b in zip(leaves_with_path(gg), leaves(gc)):
+        require(torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-6),
+                f"gradient {keystr(path)} card vs CPU")
+    require(all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(lsg, lsc)),
+            f"train_step losses card {lsg} vs CPU {lsc}")
+    for (path, a), b in zip(leaves_with_path(sg.params), leaves(sc.params)):
+        adam_close(a, b, opt_cfg.lr, 5, f"parameter {keystr(path)} after 5 steps")
+    require(int(sg.opt.step) == int(sc.opt.step) == 5, "optimizer step")
+    require(torch.equal(tg.cpu(), tc), f"decoded tokens card {tg.tolist()} vs CPU {tc.tolist()}")
+    for a, b in zip(logg, logc):
+        require(torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-4), "decode logits card vs CPU")
+    for k in stc:
+        if k == "insitu/embed_eps":
+            require(abs(float(stg[k]) - float(stc[k])) <= 2.0 ** -20 * float(stc[k]), k)
+        else:
+            require(float(stg[k]) == float(stc[k]), f"{k} card vs CPU")
+    log(f"[3] LM at smoke size, card == CPU within tolerance: train_loss "
+        f"{float(lg):.6f}, {len(leaves(gg))} gradient leaves, 5 train steps "
+        f"(losses {lsg}), tokens {tg.tolist()}, embedding stats "
+        f"{ {k: float(v) for k, v in stg.items()} }; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase15_lm(seed: int, card: str, smoke: bool = False, batch: int = 8,
+               seq: int = 128, prompts: int = 4, prompt_len: int = 32,
+               gen: int = 16):
+    """Phase 15: in-situ training mode at full width and depth, through the
+    port's entry points ``repro_torch.launch.train.main`` and
+    ``repro_torch.launch.serve.main`` (``smoke``: their reduced config,
+    for a rehearsal)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.analysis import insitu
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, steps, train
+    from repro_torch.models import lm
+    from repro_torch.models.spec import TensorSpec, count_params, init_params
+    from repro_torch.obs import SpanTracer
+    from repro_torch.tree import leaves, tree_map
+
+    t_all = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    cfg = cfg.smoke() if smoke else cfg
+    n_params = count_params(lm.model_spec(cfg))
+    require(smoke or abs(n_params - 0.34e9) / 0.34e9 < 0.05,
+            f"xlstm-350m has {n_params} parameters")
+    total, every, fault_at, cadence = 30, 10, 17, 10
+    pdt = "float32" if smoke else "bf16"
+    common = ["--arch", LM_ARCH, "--seed", str(seed), "--device", DEV] \
+        + (["--smoke"] if smoke else [])
+    log(f"[15] {LM_ARCH}: {n_params} parameters ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.resolved_head_dim}, "
+        f"vocab {cfg.padded_vocab}), {pdt} with float32 moments; batch {batch} x {seq}")
+    kernels = kernel_wrappers(HACC_KERNELS)
+    (SRC.parent / "build").mkdir(exist_ok=True)
+
+    def train_run(fault: bool):
+        """``launch.train.main`` for 30 steps, analysing every 10; with a
+        fault at step 17 and a checkpoint every 10 steps, or without them
+        and checkpointing only at the end. The hook that the
+        supervisor calls before each step reads the launch counters and
+        sets them to 0: the train step launches none of the four kernels,
+        so what launched since the last step's hook is that step's
+        analysis. Returns main's result, the spans and the launches."""
+        tracer, launches, last, crashed = SpanTracer(), [], [], []
+
+        def hook(i):
+            if last:
+                j = last.pop()
+                got = {k: fn.launches for k, fn in kernels.items()}
+                if j % cadence == 0:
+                    launches.append((j, got))
+                else:
+                    require(not any(got.values()),
+                            f"launches {got} at step {j}, which has no analysis")
+            reset_counts(kernels)
+            last.append(i)
+            if fault and i == fault_at and not crashed:
+                crashed.append(i)
+                raise RuntimeError("injected fault")
+
+        ckpt = tempfile.mkdtemp(dir=str(SRC.parent / "build"))
+        try:
+            t0 = time.perf_counter()
+            out = train.main(common + [
+                "--steps", str(total), "--batch", str(batch), "--seq", str(seq),
+                "--ckpt-dir", ckpt, "--ckpt-every", str(every if fault else total + 1),
+                "--insitu-every", str(cadence), "--log-every", "1"],
+                fault_hook=hook, tracer=tracer)
+            secs = time.perf_counter() - t0
+            hook(total)                       # the last step's launches
+            out.update(seconds=secs, launches=launches, crashed=crashed,
+                       tracer=tracer, checkpoints=CheckpointStore(ckpt).steps())
+        finally:
+            shutil.rmtree(ckpt)
+        for j, got in launches:
+            require(all(v > 0 for v in got.values()),
+                    f"the analysis at step {j} launched {got}")
+        return out
+
+    def analyses(out):
+        spans = [e for e in out["tracer"].events if e["name"] == "insitu"]
+        names = {e["name"] for e in out["tracer"].events}
+        require(names == {"insitu", "insitu/embed_stats", "insitu/router_stats",
+                          "insitu/host_readback"}, f"spans {sorted(names)}")
+        return [(e["args"]["step"], round(e["dur"] / 1e3, 1), got)
+                for e, (_, got) in zip(spans, out["launches"])]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ref = train_run(fault=False)
+    train_peak = torch.cuda.max_memory_allocated()
+    step_s = [st.seconds for st in ref["supervisor"].stats]
+    med = float(np.median(step_s[1:]))
+    losses = ref["losses"]
+    require(len(losses) == total, f"{len(losses)} losses logged")
+    log(f"[15] uninterrupted run: {ref['seconds']:.1f} s; losses "
+        f"{[round(x, 4) for x in losses]}; checkpoints {ref['checkpoints']}")
+    log(f"[15] train step (supervisor's clock, to the end of its device work): "
+        f"median {med * 1e3:.1f} ms ({batch * seq / med:.0f} tokens/s), first "
+        f"{step_s[0] * 1e3:.1f} ms, max of the rest {max(step_s[1:]) * 1e3:.1f} ms; "
+        f"peak memory {train_peak / 2**30:.2f} GiB ({card})")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    require(last < first, f"mean loss of the last 5 steps {last} >= first 5's {first}")
+    ref_ana = analyses(ref)
+    require([a[0] for a in ref_ana] == [0, 10, 20], "analyses at the cadence")
+
+    got = train_run(fault=True)
+    got_ana = analyses(got)
+    for step, ms, launched in got_ana:
+        log(f"[15] analysis at step {step}: {ms} ms, launches {launched}")
+    require(got["supervisor"].restarts == 1 and got["crashed"] == [fault_at],
+            "one restart")
+    require([a[0] for a in got_ana] == [0, 10, 10, 20], "analyses at the cadence")
+    hist, ref_hist = got["insitu"], ref["insitu"]
+    require(hist[1] == hist[2] and [hist[0], hist[2], hist[3]] == ref_hist,
+            "the resumed run's analyses repeat the uninterrupted run's")
+    same = [torch.equal(a, b) for a, b in zip(leaves(got["state"]), leaves(ref["state"]))]
+    require(all(same) and len(same) == len(leaves(ref["state"])),
+            f"resumed state != uninterrupted run in {same.count(False)} leaves")
+    log(f"[15] supervised run through the fault: {got['seconds']:.1f} s, restart 1 "
+        f"after the fault at step {fault_at}, resumed from step {every}; "
+        f"checkpoints {got['checkpoints']}; all {len(same)} leaves (parameters, "
+        f"moments, step) bit-equal to the uninterrupted run, analyses equal")
+    del got
+    params = ref["state"].params
+
+    # Collapse: 80% of the embedding rows onto row 0.
+    icfg = insitu.InsituConfig(eps_quantile=0.005)
+    emb = params["embed"]
+    idx = torch.arange(emb.shape[0], device=emb.device)
+    reset_counts(kernels)
+    base = insitu.embedding_cluster_stats(params, icfg, 1, device=DEV)
+    collapsed = insitu.embedding_cluster_stats(
+        {"embed": torch.where((idx % 5 > 0)[:, None], emb[0][None], emb)},
+        icfg, 1, device=DEV)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    require(all(v > 0 for v in launches.values()), f"collapse launches {launches}")
+    f0 = float(base["insitu/embed_clustered_frac"])
+    f1 = float(collapsed["insitu/embed_clustered_frac"])
+    require(f1 > f0, f"clustered fraction {f0} -> {f1} after the collapse")
+    log(f"[15] collapse: clustered fraction {f0:.4f} -> {f1:.4f}, clusters "
+        f"{int(base['insitu/embed_num_clusters'])} -> "
+        f"{int(collapsed['insitu/embed_num_clusters'])}; launches {launches}")
+
+    # Router clustering on deepseek-moe-16b's router shape.
+    routers = init_params({"layers": {"sub0_attn_moe": {"moe": {"router": TensorSpec(
+        (27, 2048, 64), ("layers", "embed", None))}}}}, seed, torch.bfloat16, DEV)
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rstats = {k: float(v) for k, v in insitu.router_cluster_stats(
+        routers, insitu.InsituConfig(), 0, device=DEV).items()}
+    r_ms = (time.perf_counter() - t0) * 1e3
+    r_launch = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+    require(set(rstats) == {"insitu/router_eps", "insitu/router_collapsed_experts"}
+            and all(np.isfinite(v) for v in rstats.values()), f"router stats {rstats}")
+    require({"wavefront_count", "wavefront_min_label"} <= set(r_launch),
+            f"router launches {r_launch}")
+    log(f"[15] routers (27, 2048, 64): {rstats}, {r_ms:.1f} ms, launches {r_launch}")
+
+    # Serving through launch.serve.main (bf16, its own weights from the
+    # seed), timed on its second call; then float32 on the trained weights
+    # against the full forward.
+    argv = common + ["--requests", str(prompts), "--prompt-len", str(prompt_len),
+                     "--gen-tokens", str(gen)]
+    serve.main(argv)                           # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    served = serve.main(argv)
+    serve_peak = torch.cuda.max_memory_allocated()
+    require(served["tokens"].shape == (prompts, gen), "served tokens' shape")
+    pre_ms, dec_ms = served["prefill_ms"], served["decode_ms_per_step"]
+    log(f"[15] serve (launch.serve, {pdt}): prefill {prompts} x {prompt_len} tokens "
+        f"into a {prompt_len + gen}-slot cache {pre_ms:.1f} ms, decode {dec_ms:.2f} "
+        f"ms a step ({gen - 1} steps of {prompts}), peak memory "
+        f"{serve_peak / 2**30:.2f} GiB ({card})")
+    c32 = cfg.scaled(dtype="float32", param_dtype="float32")
+    p32 = tree_map(lambda x: x.float(), params)
+    del ref, params
+    prompt = torch.tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (prompts, prompt_len)), dtype=torch.int32, device=DEV)
+    cache_len = prompt_len + gen
+    logits, cache = steps.prefill_step(p32, {"tokens": prompt}, cfg=c32,
+                                       cache_len=cache_len)
+    fed = [torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]]
+    for i in range(gen):
+        nxt, logits, cache = steps.serve_step(p32, cache, fed[-1], prompt_len + i,
+                                              cfg=c32)
+        fed.append(nxt)
+    seq_all = torch.cat([prompt] + fed[:gen], 1)
+    full_logits, _ = steps.prefill_step(p32, {"tokens": seq_all}, cfg=c32,
+                                        cache_len=cache_len)
+    err = float((logits - full_logits).abs().max())
+    require(torch.allclose(logits, full_logits, atol=2e-3, rtol=1e-3),
+            f"decode logits vs full forward at float32: max error {err}")
+    log(f"[15] float32: last decode step's logits == the full forward over "
+        f"{seq_all.shape[1]} tokens within atol 2e-3, rtol 1e-3 (max error {err:.3g})")
+    summary = {"params": n_params, "train_step_ms": round(med * 1e3, 2),
+               "tokens_per_s": round(batch * seq / med),
+               "analysis_ms": [a[1] for a in got_ana],
+               "analysis_launches": got_ana[0][2], "prefill_ms": round(pre_ms, 2),
+               "decode_ms_per_step": round(dec_ms, 3),
+               "train_peak_gib": round(train_peak / 2**30, 2),
+               "serve_peak_gib": round(serve_peak / 2**30, 2), "card": card,
+               "s": round(time.perf_counter() - t_all, 1)}
+    log(f"[15] summary: {json.dumps(summary)}")
+    return summary
+
+
 HACC_KERNELS = ("wavefront_count", "wavefront_min_label", "segment_sum_sorted",
                 "segment_max_sorted")
 
@@ -3993,6 +4325,7 @@ def main(argv=None) -> int:
     phase3_pair_and_densebox(args.seed)
     phase3_sharded(args.seed)
     phase3_nearest(args.seed)
+    phase3_lm(args.seed)
     log(f"[3] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches_by_step, records = phase4_main_path(args.seed, 1 << args.n_log2, cfg)
@@ -4025,6 +4358,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     nearest_rows = phase14_nearest(args.seed, 1 << args.n_log2, card, near)
     log(f"[14] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase15_lm(args.seed, card)
+    log(f"[15] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase9_kernel_line(launches_by_step, records,
                        nl_rows + grid_rows + pair_rows + halo_rows + pred_rows

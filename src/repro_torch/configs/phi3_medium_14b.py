@@ -1,0 +1,19 @@
+"""phi3-medium-14b [dense] — 40L d_model=5120 40H (GQA kv=10) d_ff=17920
+vocab=100352; RoPE SwiGLU GQA [arXiv:2404.14219; unverified]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi3-medium-14b",
+    family="dense",
+    n_layers=40,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=10,
+    d_ff=17920,
+    vocab=100352,
+    block_pattern=("attn",),
+    activation="silu",
+    tie_embeddings=False,
+    rope_theta=10000.0,
+    supports_long_context=False,
+)

@@ -1,9 +1,10 @@
 """Carry the JAX package's state into the port's tensors.
 
-This system has no model weights: its state is the particles and the BVH
-(or cell grid) over them. These helpers take that state as numpy arrays,
-as the JAX package hands it out, so that a test can run the port's
-traversal on the very tree the reference built.
+The halo-finding state is the particles and the BVH (or cell grid) over
+them; the LM stack's is a nested dict of parameters and the optimizer's
+moments. These helpers take that state as numpy arrays, as the JAX
+package hands it out (``jax.tree.map(np.asarray, tree)``), so that a test
+can run the port on the very tree or weights the reference built.
 """
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ import torch
 from repro_torch.core.bvh import Bvh
 from repro_torch.core.cell_grid import CellGrid
 
-__all__ = ["bvh_from_numpy", "cell_grid_from_numpy", "morton64_to_int64"]
+__all__ = ["bvh_from_numpy", "cell_grid_from_numpy", "morton64_to_int64",
+           "params_from_numpy", "params_to_numpy", "train_state_from_numpy"]
 
 
 def _t(a, dtype, device) -> torch.Tensor:
@@ -64,3 +66,48 @@ def morton64_to_int64(hi, lo) -> torch.Tensor:
     hi = np.asarray(hi, np.uint32).astype(np.int64)
     lo = np.asarray(lo, np.uint32).astype(np.int64)
     return torch.from_numpy((hi << 32) | lo)
+
+
+def _tensor_from_numpy(a, dtype, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits
+        t = torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def params_from_numpy(tree, dtype=None, device="cpu"):
+    """A nested dict of numpy arrays (the reference's parameters or any
+    tree of them, ``ml_dtypes`` bfloat16 included) as the port's tree of
+    tensors on ``device``; ``dtype`` casts every leaf."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, dtype, device) for k, v in tree.items()}
+    return _tensor_from_numpy(tree, dtype, device)
+
+
+def params_to_numpy(tree):
+    """The port's tree of tensors as numpy arrays (bfloat16 leaves as
+    float32, which holds them exactly)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def train_state_from_numpy(params, m, v, step, error=None, dtype=None,
+                           moment_dtype=None, device="cpu"):
+    """A port ``TrainState`` from the reference's ``TrainState`` fields as
+    numpy trees: parameters, the moments ``m`` and ``v``, the step and the
+    compression error buffers (or None)."""
+    from repro_torch.launch.steps import TrainState
+    from repro_torch.optim.adamw import OptState
+    opt = OptState(step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                                     device=device),
+                   m=params_from_numpy(m, moment_dtype, device),
+                   v=params_from_numpy(v, moment_dtype, device),
+                   error=None if error is None else
+                   params_from_numpy(error, torch.float32, device))
+    return TrainState(params_from_numpy(params, dtype, device), opt)

@@ -1,7 +1,8 @@
-"""The whole ported slice, particles in and halo statistics out, against the
-JAX reference's ``InsituAnalyzer`` in simulation mode; and the port's
-guards: no JAX or ``repro`` imports, no silent CPU fallback, no kernel
-launches on the CPU path."""
+"""The in-situ analyzer against the JAX reference's ``InsituAnalyzer``: in
+simulation mode particles in and halo statistics out; in training mode
+embedding and router clustering from the reference's own draws. And the
+port's guards: no JAX or ``repro`` imports, no silent CPU fallback, no
+kernel launches on the CPU path."""
 import ast
 from pathlib import Path
 
@@ -78,7 +79,8 @@ def _imports(path: Path):
 
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", *sorted((ROOT / "tools").glob("*.py"))]
+    files += [ROOT / "chip_smoke.py", *sorted((ROOT / "tools").glob("*.py")),
+              *sorted((ROOT / "examples").glob("*_torch.py"))]
     assert len(files) > 10
     bad = [(f.relative_to(ROOT), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
@@ -98,9 +100,168 @@ def test_entry_points_raise_without_a_card(monkeypatch, call):
             InsituAnalyzer(InsituConfig(**CFG))
 
 
-def test_unported_analyzer_modes_raise():
-    with pytest.raises(NotImplementedError, match="A14"):
-        InsituAnalyzer(InsituConfig(mode="training"), device="cpu")
+# --- training mode -----------------------------------------------------------
+
+def _lm_params(arch, seed=0):
+    """(reference params, port params carried across) at smoke size."""
+    import jax
+    from repro.configs import get_config
+    from repro.models import lm as jlm
+    from repro.models.spec import init_params
+    from repro_torch.interop import params_from_numpy
+    jp = init_params(jlm.model_spec(get_config(arch).smoke()),
+                     jax.random.PRNGKey(seed), jnp.float32)
+    return jp, params_from_numpy(jax.tree.map(np.asarray, jp))
+
+
+def _reference_embedding_draws(table, cfg, step):
+    """The reference's draws (``insitu.py:55-66``, ``:89-91``): sampled
+    rows and the projection matrix."""
+    import jax
+    key = jax.random.PRNGKey(step)
+    idx = jax.random.choice(key, table.shape[0],
+                            (min(cfg.sample_rows, table.shape[0]),), replace=False)
+    d = table.shape[1]
+    r = jax.random.normal(jax.random.fold_in(key, 1), (d, cfg.project_dim),
+                          jnp.float32) / np.sqrt(d)
+    return np.asarray(table[idx]), np.asarray(r)
+
+
+INT_EMBED = ("insitu/embed_num_clusters", "insitu/embed_largest_cluster",
+             "insitu/embed_union_rounds", "insitu/embed_clustered_frac")
+
+
+def _assert_embed_stats_equal(got, want):
+    assert got.keys() == want.keys()
+    for k in INT_EMBED:
+        assert float(got[k]) == float(want[k]), k
+    # eps: a linear quantile of float32 squared distances (the two
+    # packages interpolate in other orders), within 2^-20 relative; no
+    # pair lies within rounding of it here (where one did, its label
+    # could differ, ROADMAP C8)
+    assert float(got["insitu/embed_eps"]) == pytest.approx(
+        float(want["insitu/embed_eps"]), rel=2.0 ** -20)
+
+
+@pytest.mark.parametrize("step,rows", [(0, 128), (3, 128), (11, 64), (4, 512)])
+def test_embedding_stats_from_reference_draws_match(step, rows):
+    from repro.analysis.insitu import embedding_cluster_stats as jax_embed
+    from repro_torch.analysis.insitu import embedding_stats_from
+    jp, _ = _lm_params("xlstm-350m")
+    cfg = InsituConfig(sample_rows=rows)
+    want = jax_embed(jp, JaxInsituConfig(sample_rows=rows), step)
+    sampled, r = _reference_embedding_draws(jp["embed"], cfg, step)
+    got = embedding_stats_from(torch.tensor(sampled), torch.tensor(r), cfg)
+    assert float(want["insitu/embed_clustered_frac"]) > 0
+    _assert_embed_stats_equal(got, want)
+
+
+def test_embedding_draws_are_seeded_from_the_step():
+    from repro_torch.analysis.insitu import (embedding_cluster_stats,
+                                             sample_embedding_draws)
+    _, p = _lm_params("xlstm-350m")
+    cfg = InsituConfig(sample_rows=100)
+    rows, r = sample_embedding_draws(p["embed"], cfg, 5)
+    rows2, r2 = sample_embedding_draws(p["embed"], cfg, 5)
+    assert torch.equal(rows, rows2) and torch.equal(r, r2)
+    assert rows.shape == (100, 64) and r.shape == (64, 3)
+    # distinct rows (a draw without replacement)
+    assert torch.unique(rows, dim=0).shape[0] == 100
+    a = embedding_cluster_stats(p, cfg, 5, device="cpu")
+    b = embedding_cluster_stats(p, cfg, 6, device="cpu")
+    assert set(a) == set(b) and all(np.isfinite(float(v)) for v in a.values())
+    assert float(a["insitu/embed_eps"]) != float(b["insitu/embed_eps"])
+
+
+def test_detects_representation_collapse():
+    """The reference test (``tests/test_insitu.py:31-44``): 80% of the rows
+    collapsed onto row 0 raise the clustered fraction."""
+    from repro_torch.analysis.insitu import embedding_cluster_stats
+    _, p = _lm_params("xlstm-350m")
+    cfg = InsituConfig(sample_rows=128, eps_quantile=0.005)
+    base = embedding_cluster_stats(p, cfg, 1, device="cpu")
+    emb = p["embed"]
+    idx = torch.arange(emb.shape[0])
+    collapsed = dict(p, embed=torch.where((idx % 5 > 0)[:, None], emb[0][None], emb))
+    after = embedding_cluster_stats(collapsed, cfg, 1, device="cpu")
+    assert float(after["insitu/embed_clustered_frac"]) > \
+        float(base["insitu/embed_clustered_frac"])
+
+
+@pytest.mark.parametrize("step", [0, 2])
+def test_router_stats_on_deepseek_match_reference(step):
+    import jax
+    from repro.analysis.insitu import router_cluster_stats as jax_router
+    from repro_torch.analysis.insitu import router_columns, router_stats_from
+    jp, p = _lm_params("deepseek-moe-16b")
+    want = jax_router(jp, JaxInsituConfig(), step)
+    cols = router_columns(p)
+    flat = jax.tree_util.tree_flatten_with_path(jp)[0]
+    jcols = np.concatenate([np.asarray(w.mean(axis=0) if w.ndim == 3 else w).T
+                            for path, w in flat
+                            if "router" in jax.tree_util.keystr(path)])
+    np.testing.assert_allclose(cols.numpy(), jcols, rtol=1e-6, atol=1e-7)
+    r = jax.random.normal(jax.random.PRNGKey(step + 7), (cols.shape[1], 3),
+                          jnp.float32) / np.sqrt(cols.shape[1])
+    got = router_stats_from(cols, torch.tensor(np.asarray(r)))
+    assert got.keys() == want.keys()
+    assert float(got["insitu/router_collapsed_experts"]) == \
+        float(want["insitu/router_collapsed_experts"])
+    assert float(got["insitu/router_eps"]) == pytest.approx(
+        float(want["insitu/router_eps"]), rel=2.0 ** -20)
+
+
+def test_router_stats_empty_for_dense_arch():
+    """granite-20b has no router; its smoke parameters come from the
+    reference, since the port does not build attention yet."""
+    from repro.analysis.insitu import router_cluster_stats as jax_router
+    from repro_torch.analysis.insitu import router_cluster_stats
+    jp, p = _lm_params("granite-20b")
+    assert jax_router(jp, JaxInsituConfig(), 0) == {}
+    assert router_cluster_stats(p, InsituConfig(), 0, device="cpu") == {}
+
+
+def test_training_analyzer_cadence():
+    _, p = _lm_params("xlstm-350m")
+    an = InsituAnalyzer(InsituConfig(cadence=5, sample_rows=64), device="cpu")
+    ran = [step for step in range(11) if an.maybe_run(p, step)]
+    assert ran == [0, 5, 10]
+    assert [s for s, _ in an.history] == [0, 5, 10]
+    assert set(an.history[0][1]) == {
+        "insitu/embed_eps", "insitu/embed_clustered_frac",
+        "insitu/embed_num_clusters", "insitu/embed_largest_cluster",
+        "insitu/embed_union_rounds"}
+
+
+def test_training_analyzer_spans_match_reference(tmp_path):
+    from repro.obs.trace import SpanTracer as JaxTracer
+    from repro.obs.trace import load_chrome_trace as jax_load
+    from repro.obs.trace import span_tree as jax_span_tree
+    from repro_torch.obs import SpanTracer, load_chrome_trace, span_tree
+
+    jp, p = _lm_params("deepseek-moe-16b")
+    jtracer, ttracer = JaxTracer(), SpanTracer()
+    want = JaxInsituAnalyzer(JaxInsituConfig(sample_rows=64),
+                             tracer=jtracer).maybe_run(jp, 0)
+    got = InsituAnalyzer(InsituConfig(sample_rows=64), tracer=ttracer,
+                         device="cpu").maybe_run(p, 0)
+    assert got.keys() == want.keys()
+    jev = jax_load(jtracer.export(str(tmp_path / "jax.json")))
+    tev = load_chrome_trace(ttracer.export(str(tmp_path / "torch.json")))
+    assert [(e["name"], e["args"]) for e in tev] == \
+        [(e["name"], e["args"]) for e in jev]
+    assert span_tree(tev) == jax_span_tree(jev) == {
+        "insitu": ["insitu/embed_stats", "insitu/router_stats",
+                   "insitu/host_readback"],
+        "insitu/embed_stats": [], "insitu/router_stats": [],
+        "insitu/host_readback": []}
+
+
+def test_insitu_config_fields_match_reference():
+    import dataclasses
+    assert [f.name for f in dataclasses.fields(InsituConfig)] == \
+        [f.name for f in dataclasses.fields(JaxInsituConfig)]
+    assert dataclasses.asdict(InsituConfig()) == dataclasses.asdict(JaxInsituConfig())
 
 
 def test_analyzer_tracer_spans_match_reference(tmp_path):
