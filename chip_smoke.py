@@ -14,7 +14,10 @@ in-process mesh of shards of the card, and the nearest family (kNN,
 EMST, MLS interpolation, nearest-hit ray casting) on the nearest kernel,
 and the in-situ training mode: xlstm-350m trained at full width and depth
 under the supervisor through a fault, with embedding clustering on the
-traversal and segment kernels, and served.
+traversal and segment kernels, and served; attention, the dense FFN and
+MoE: deepseek-moe-16b served at full size and trained at full width with
+router clustering on its own routers, gemma2-9b served an 8192-token
+prompt at full size.
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. Phases, each of which must pass:
@@ -85,12 +88,12 @@ CUDA toolkit. Phases, each of which must pass:
    uniform points, EMST from singleton components and from 64 random
    ones for 2^16 sampled particles, RAY for 2^11 skewers on the point
    tree and on a tree of the particles' eps-boxes.
-3. The card against the plain path on the CPU: the in-situ step at 2^16
+3. The card against the plain path on the CPU: the in-situ step at 2^15
    particles (labels, core mask, rounds and the catalog's integer fields
    exact, float fields to a stated tolerance); at 2^14, ``query_csr``
    exact, ``query_csr_device`` at half the total, ``query_csr_buffered``
    from capacity 8 and ``dbscan_graph_cc``, all exact; ``fdbscan_grid``
-   and ``fdbscan_grid_auto`` (from capacity 2) at 2^16 uniform points,
+   and ``fdbscan_grid_auto`` (from capacity 2) at 2^15 uniform points,
    and ``eps_neighbor_counts``/``eps_min_label`` at 2^12 x 64, all exact;
    at 2^14 ``fdbscan(use_64bit=False)``, ``fdbscan(use_stack=True,
    early_stop=False)``, ``query_count(backend="stack", with_stats=True)``
@@ -114,7 +117,13 @@ CUDA toolkit. Phases, each of which must pass:
    ``train_step``s (parameters, losses), ``prefill`` plus two
    ``decode_step``s (the same tokens, logits close) and the in-situ
    embedding statistics from the same sampled rows and projection (the
-   same integers), each within the tolerance stated in ``phase3_lm``.
+   same integers), each within the tolerance stated in ``phase3_lm``;
+   and the six architectures of attention, the dense FFN and MoE
+   (gemma2-9b, phi3-medium-14b, codeqwen1.5-7b, granite-20b,
+   deepseek-moe-16b, qwen3-moe-235b-a22b) at ``smoke()``: ``train_loss``
+   with its aux loss and every gradient leaf, ``prefill`` and two decode
+   steps (logits and caches) on the card against the CPU, within the
+   tolerances stated in ``phase3_attention_archs``.
 4. The main path: ``InsituAnalyzer`` in simulation mode over two analysis
    steps of 2^24 particles (4096 Plummer spheres plus 20% background).
    The launch counters are set to 0 before each step and read after it;
@@ -209,10 +218,10 @@ CUDA toolkit. Phases, each of which must pass:
    9's line), through the port's entry points: ``repro_torch.launch.train``'s
    ``main`` trains xlstm-350m, 3.4e8 parameters (``count_params`` within
    5% of 0.34e9) in bf16 with float32 moments, on ``SyntheticTokens`` at
-   batch 8 x 128 tokens for 30 steps under its supervisor, running
-   ``InsituAnalyzer(mode="training")`` every 10: once uninterrupted (each
+   batch 8 x 128 tokens for 12 steps under its supervisor, running
+   ``InsituAnalyzer(mode="training")`` every 5: once uninterrupted (each
    step timed by the supervisor; one checkpoint, at the end), once
-   checkpointing every 10 with a fault injected at step 17 through its
+   checkpointing every 5 with a fault injected at step 7 through its
    ``fault_hook``. The resumed
    run's state must equal the uninterrupted run's bit for bit, its
    analyses repeat the uninterrupted run's, and the mean loss of the last
@@ -230,6 +239,27 @@ CUDA toolkit. Phases, each of which must pass:
    within the reference test's tolerance. Printed with the card: the
    median train step in ms and tokens/s, each analysis in ms with its
    launches, prefill ms, decode ms a step and peak memory.
+16. Attention, the dense FFN and MoE at full width through the port's
+   entry points (run before phase 9's line): (a) ``launch.serve``'s
+   ``main`` serves deepseek-moe-16b at full size, 1.64e10 parameters
+   (``count_params`` within 5% of 16.4e9) in bf16, 4 prompts of 32 tokens
+   decoded to 16, timed on its second call, with the bytes bound of a
+   decode step; (b) at float32, full width, 2 groups plus layer 0 and
+   no-drop capacity, the last of 16 decode steps' logits against the
+   full forward over the 48 tokens within the reference test's
+   tolerance; (c) ``launch.train``'s ``main`` (``config=`` 4 groups plus
+   layer 0, full width, 2.9e9 parameters, bf16 with float32 moments)
+   trains 10 steps at batch 8 x 128 with ``InsituAnalyzer(mode=
+   "training")`` every 5 clustering the trained routers: the loss must
+   fall, the aux loss stay finite, and COUNT, MIN_LABEL and both segment
+   kernels launch in every analysis and in none outside one; (d)
+   gemma2-9b (9.24e9 parameters, bf16) serves one 8192-token prompt
+   (the blockwise path, the 4096-token window, softcaps, sandwich norms,
+   GeGLU, GQA 16/8) decoded 16 tokens past it, and on one ``attn_local``
+   and one ``attn`` layer at 8192 tokens the blockwise path agrees with
+   ``_sdpa`` and its full mask within 1e-2 norm-relative. Printed with
+   the card: prefill, decode ms a step, the train step, each analysis
+   with its launches, peak memory.
 9. One JSON line with each kernel's launches on its path, time per launch
    at that path's inputs, bound with the card's name and power limit
    beside it, plain version's time and library yardstick. The traversal
@@ -1029,7 +1059,7 @@ def sum_tolerance(torch, data, seg, nseg):
     return 2.0 * (rows_per - 1).clamp(min=0)[:, None] * 2.0 ** -24 * abs_sum
 
 
-def phase3_whole_path(seed: int, cfg, n: int = 1 << 16, n_lists: int = 1 << 14):
+def phase3_whole_path(seed: int, cfg, n: int = 1 << 15, n_lists: int = 1 << 14):
     import torch
     from repro_torch.analysis import insitu
     from repro_torch.data.pipeline import hacc_benchmark_epsilon
@@ -1674,7 +1704,7 @@ def phase2_pairwise_kernels(seed: int, n_log2: int = 21):
         f"eps2 each, the plain d2 of a pair; {ties} tie pairs): exact")
 
 
-def phase3_grid_and_pairwise(seed: int, n: int = 1 << 16, n_pairs: int = 1 << 12):
+def phase3_grid_and_pairwise(seed: int, n: int = 1 << 15, n_pairs: int = 1 << 12):
     import torch
     from repro_torch.core import fdbscan_grid as tgrid
     from repro_torch.kernels import ops
@@ -1685,8 +1715,8 @@ def phase3_grid_and_pairwise(seed: int, n: int = 1 << 16, n_pairs: int = 1 << 12
     dims = tgrid.grid_dims_for(lo, hi, eps)
     # The CPU runs the auto driver only (its last attempt is fdbscan_grid
     # at the capacity it found): the plain path there takes ~40 s a run at
-    # 2^18 points. This phase's CPU runs were cut twice (2^18 to 2^16, 2^16
-    # to 2^14) to keep the whole script under 900 s with phase 15.
+    # 2^18 points. Cut to 2^16, then to 2^15, to keep the whole script
+    # under 900 s with phases 15 and 16.
     t0 = time.perf_counter()
     auto_c, info_c = tgrid.fdbscan_grid_auto(
         pts, eps, GRID_MIN_PTS, scene_lo=lo, scene_hi=hi, capacity=2,
@@ -4057,7 +4087,9 @@ def phase15_lm(seed: int, card: str, smoke: bool = False, batch: int = 8,
     n_params = count_params(lm.model_spec(cfg))
     require(smoke or abs(n_params - 0.34e9) / 0.34e9 < 0.05,
             f"xlstm-350m has {n_params} parameters")
-    total, every, fault_at, cadence = 30, 10, 17, 10
+    # 12 steps (cut from 30 to make room for phase 16 and the groups'
+    # recompute), a fault at 7, checkpoints and analyses every 5
+    total, every, fault_at, cadence = 12, 5, 7, 5
     pdt = "float32" if smoke else "bf16"
     common = ["--arch", LM_ARCH, "--seed", str(seed), "--device", DEV] \
         + (["--smoke"] if smoke else [])
@@ -4068,8 +4100,8 @@ def phase15_lm(seed: int, card: str, smoke: bool = False, batch: int = 8,
     (SRC.parent / "build").mkdir(exist_ok=True)
 
     def train_run(fault: bool):
-        """``launch.train.main`` for 30 steps, analysing every 10; with a
-        fault at step 17 and a checkpoint every 10 steps, or without them
+        """``launch.train.main`` for 12 steps, analysing every 5; with a
+        fault at step 7 and a checkpoint every 5 steps, or without them
         and checkpointing only at the end. The hook that the
         supervisor calls before each step reads the launch counters and
         sets them to 0: the train step launches none of the four kernels,
@@ -4136,7 +4168,8 @@ def phase15_lm(seed: int, card: str, smoke: bool = False, batch: int = 8,
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     require(last < first, f"mean loss of the last 5 steps {last} >= first 5's {first}")
     ref_ana = analyses(ref)
-    require([a[0] for a in ref_ana] == [0, 10, 20], "analyses at the cadence")
+    at = list(range(0, total, cadence))
+    require([a[0] for a in ref_ana] == at, "analyses at the cadence")
 
     got = train_run(fault=True)
     got_ana = analyses(got)
@@ -4144,9 +4177,11 @@ def phase15_lm(seed: int, card: str, smoke: bool = False, batch: int = 8,
         log(f"[15] analysis at step {step}: {ms} ms, launches {launched}")
     require(got["supervisor"].restarts == 1 and got["crashed"] == [fault_at],
             "one restart")
-    require([a[0] for a in got_ana] == [0, 10, 10, 20], "analyses at the cadence")
+    resumed = fault_at // every * every       # its analysis runs twice
+    require([a[0] for a in got_ana] == sorted(at + [resumed]), "analyses at the cadence")
     hist, ref_hist = got["insitu"], ref["insitu"]
-    require(hist[1] == hist[2] and [hist[0], hist[2], hist[3]] == ref_hist,
+    k = at.index(resumed)
+    require(hist[k] == hist[k + 1] and hist[:k] + hist[k + 1:] == ref_hist,
             "the resumed run's analyses repeat the uninterrupted run's")
     same = [torch.equal(a, b) for a, b in zip(leaves(got["state"]), leaves(ref["state"]))]
     require(all(same) and len(same) == len(leaves(ref["state"])),
@@ -4240,6 +4275,337 @@ def phase15_lm(seed: int, card: str, smoke: bool = False, batch: int = 8,
     return summary
 
 
+ATTN_ARCHS = ("gemma2-9b", "phi3-medium-14b", "codeqwen1.5-7b", "granite-20b",
+              "deepseek-moe-16b", "qwen3-moe-235b-a22b")
+
+
+def grads_close(torch, got, want, what: str) -> None:
+    """Gradient leaves within rtol 1e-4 and atol 1e-6 of the leaf's
+    largest entry (at least 1e-3)."""
+    for (path, a), b in zip(got, want):
+        scale = max(float(b.abs().max()), 1e-3)
+        require(torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-6 * scale),
+                f"{what}: gradient {path} card vs CPU")
+
+
+def phase3_attention_archs(seed: int, batch: int = 2, s: int = 20):
+    """The six architectures of attention, the dense FFN and MoE at smoke
+    size (float32, TF32 off), the card against the CPU on the same
+    weights: ``train_loss`` (rtol 1e-5) and its aux loss (rtol 1e-5,
+    atol 1e-7) with every gradient leaf (``grads_close``), ``prefill`` of
+    ``s - 2`` tokens into an ``s``-slot cache and two ``serve_step``s fed
+    the same tokens: logits within rtol 1e-4, atol 1e-4, the caches'
+    leaves within 1e-5, 1e-5."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.models.spec import init_params
+    from repro_torch.tree import keystr, leaves, leaves_with_path, tree_map
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    seen = {}
+    for arch in ATTN_ARCHS:
+        cfg = get_config(arch).smoke()
+        params = init_params(lm.model_spec(cfg), seed, torch.float32, "cpu")
+        toks = rng.integers(0, cfg.vocab, (batch, s + 1)).astype(np.int32)
+        mask = rng.random((batch, s)) < 0.9
+        out = {}
+        for dev in (DEV, "cpu"):
+            p = tree_map(lambda x: x.to(dev), params)
+            b = {"tokens": torch.tensor(toks[:, :-1], device=dev),
+                 "labels": torch.tensor(toks[:, 1:], device=dev),
+                 "loss_mask": torch.tensor(mask, device=dev)}
+            loss, metrics, grads = steps.value_and_grad(p, cfg, b)
+            logits, cache = steps.prefill_step(p, {"tokens": b["tokens"][:, :s - 2]},
+                                               cfg=cfg, cache_len=s)
+            logs = [logits]
+            for i in range(2):
+                _, logits, cache = steps.serve_step(p, cache, b["tokens"][:, s - 2 + i:s - 1 + i],
+                                                    s - 2 + i, cfg=cfg)
+                logs.append(logits)
+            out[dev] = (loss, metrics["aux_loss"], leaves_with_path(grads), logs,
+                        leaves_with_path(cache))
+        (lg, ag, gg, logg, cg), (lc, ac, gc, logc, cc) = out[DEV], out["cpu"]
+        require(abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc)), f"{arch}: train_loss")
+        require(abs(float(ag) - float(ac)) <= 1e-5 * abs(float(ac)) + 1e-7, f"{arch}: aux loss")
+        grads_close(torch, [(keystr(q), a) for q, a in gg], [b for _, b in gc], arch)
+        for i, (a, b) in enumerate(zip(logg, logc)):
+            require(torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-4),
+                    f"{arch}: logits of step {i} card vs CPU "
+                    f"(max error {float((a.cpu() - b).abs().max()):.3g})")
+        for (q, a), (_, b) in zip(cg, cc):
+            require(torch.allclose(a.cpu(), b, rtol=1e-5, atol=1e-5),
+                    f"{arch}: cache {keystr(q)} card vs CPU")
+        seen[arch] = round(float(lg), 5)
+    log(f"[3] attention, dense FFN and MoE at smoke size, card == CPU within "
+        f"tolerance (train_loss, gradients, prefill, 2 decode steps, caches): "
+        f"{json.dumps(seen)}; {time.perf_counter() - t0:.1f} s")
+
+
+MOE_ARCH = "deepseek-moe-16b"
+GEMMA_ARCH = "gemma2-9b"
+
+
+def decode_bytes(cfg, n_params: int, batch: int, cache_len: int, dtype_bytes: int) -> int:
+    """Bytes a decode step must move: every weight but the embedding table
+    (of which it reads ``batch`` rows) once, and every KV slot once."""
+    from repro_torch.models import blocks as B
+    from repro_torch.models import lm
+    kv = 0
+    layers = {"layers": (B.group_cache_shapes(cfg, batch, cache_len), cfg.n_groups)}
+    if cfg.first_layer_dense_ff:
+        layers["layer0"] = (B.group_cache_shapes(lm._dense_cfg(cfg), batch, cache_len), 1)
+    for shapes, groups in layers.values():
+        for sub in shapes.values():
+            kv += groups * sum(int(np.prod(sh)) * dtype_bytes for sh, _ in sub.values())
+    table = cfg.padded_vocab * cfg.d_model
+    return (n_params - table + batch * cfg.d_model) * dtype_bytes + kv
+
+
+def chunked_vs_full(torch, cfg, seed: int, s: int, dev: str) -> dict:
+    """One ``attn_local`` and one ``attn`` layer of ``cfg`` (bf16, seeded
+    weights) at ``s`` tokens: ``self_attention`` on its blockwise path
+    against the same call with ``_sdpa`` and its full mask (the chunked
+    threshold raised past ``s``). Returns each layer's norm-relative and
+    largest absolute difference of the outputs."""
+    from repro_torch.models import attention as A
+    from repro_torch.models.spec import init_params
+    p = init_params(A.attn_spec(cfg), seed, torch.bfloat16, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x = torch.randn((1, s, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.arange(s, device=dev)[None]
+    out = {}
+    for kind, window in (("attn_local", cfg.sliding_window), ("attn", None)):
+        with torch.no_grad():
+            chunked, _ = A.self_attention(p, cfg, x, positions=pos, window=window)
+            with swapped(A, "CHUNKED_THRESHOLD", s + 1):
+                full, _ = A.self_attention(p, cfg, x, positions=pos, window=window)
+        diff = (chunked.float() - full.float())
+        out[kind] = {"rel": float(diff.norm() / full.float().norm()),
+                     "max_abs": float(diff.abs().max()),
+                     "max_out": float(full.float().abs().max())}
+        del chunked, full, diff
+    return out
+
+
+# bf16: the blockwise path rounds its unnormalized tile probabilities to
+# bf16, the full path its normalized ones, so outputs differ by roundings.
+CHUNKED_REL_TOL = 1e-2
+
+
+def phase16_attention_moe(seed: int, card: str, smoke: bool = False,
+                          serve_prompts: int = 4, serve_len: int = 32,
+                          serve_gen: int = 16, check_groups: int = 2,
+                          train_groups: int = 4, train_steps: int = 10,
+                          batch: int = 8, seq: int = 128, cadence: int = 5,
+                          gemma_len: int = 8192, gemma_gen: int = 16):
+    """Phase 16: attention, the dense FFN and MoE at full width through the
+    port's entry points. (a) deepseek-moe-16b serves at full size (bf16,
+    ``launch.serve.main``, timed on its second call); (b) at float32,
+    full width, ``check_groups`` groups plus layer 0 and no-drop capacity,
+    the last of ``serve_gen`` decode steps' logits against the full
+    forward; (c) it trains ``train_steps`` steps at ``train_groups``
+    groups plus layer 0 (``launch.train.main`` with ``config=``) with the
+    in-situ analysis every ``cadence`` steps clustering its own routers;
+    (d) gemma2-9b serves a ``gemma_len``-token prompt at full size, and
+    its blockwise attention agrees with the full path on one local and
+    one global layer. ``smoke``: the reduced configs, for a rehearsal."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, steps, train
+    from repro_torch.models import attention as A
+    from repro_torch.models import lm
+    from repro_torch.models.spec import count_params, init_params
+    from repro_torch.obs import SpanTracer
+
+    t_all = time.perf_counter()
+    summary = {"card": card}
+    common = ["--seed", str(seed), "--device", DEV] + (["--smoke"] if smoke else [])
+    pdt = "float32" if smoke else "bf16"
+
+    # (a) deepseek-moe-16b serves at full size.
+    cfg = get_config(MOE_ARCH)
+    cfg = cfg.smoke() if smoke else cfg
+    n_params = count_params(lm.model_spec(cfg))
+    require(smoke or abs(n_params - 16.4e9) / 16.4e9 < 0.05,
+            f"{MOE_ARCH} has {n_params} parameters")
+    log(f"[16] {MOE_ARCH}: {n_params} parameters ({cfg.n_groups} MoE groups + "
+        f"layer 0, d_model {cfg.d_model}, {cfg.n_experts} experts top-{cfg.top_k}, "
+        f"{cfg.n_shared_experts} shared, vocab {cfg.padded_vocab}), {pdt}")
+    argv = ["--arch", MOE_ARCH] + common + [
+        "--requests", str(serve_prompts), "--prompt-len", str(serve_len),
+        "--gen-tokens", str(serve_gen)]
+    serve.main(argv)                           # warm-up
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    served = serve.main(argv)
+    peak = torch.cuda.max_memory_allocated()
+    require(served["tokens"].shape == (serve_prompts, serve_gen), "served tokens' shape")
+    nbytes = decode_bytes(cfg, n_params, serve_prompts, serve_len + serve_gen,
+                          4 if smoke else 2)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    pre_ms, dec_ms = served["prefill_ms"], served["decode_ms_per_step"]
+    log(f"[16] (a) serve {MOE_ARCH} (launch.serve, {pdt}, second call): prefill "
+        f"{serve_prompts} x {serve_len} tokens {pre_ms:.1f} ms, decode {dec_ms:.2f} ms "
+        f"a step ({serve_gen - 1} steps of {serve_prompts}); bytes bound of a decode "
+        f"step {nbytes / 1e9:.2f} GB / 3.35 TB/s = {bound_ms:.2f} ms "
+        f"({bound_ms / dec_ms:.3f} of it); peak memory {peak / 2**30:.2f} GiB ({card})")
+    summary.update(moe_params=n_params, moe_prefill_ms=round(pre_ms, 2),
+                   moe_decode_ms_per_step=round(dec_ms, 3),
+                   moe_decode_bound_ms=round(bound_ms, 3),
+                   moe_serve_peak_gib=round(peak / 2**30, 2))
+    del served
+
+    # (b) float32, full width, fewer groups, no-drop capacity: decode ==
+    # the full forward.
+    c32 = cfg.scaled(n_layers=check_groups, dtype="float32", param_dtype="float32",
+                     capacity_factor=float(cfg.n_experts))
+    p32 = init_params(lm.model_spec(c32), seed, torch.float32, DEV)
+    prompt = torch.tensor(np.random.default_rng(seed).integers(
+        0, c32.vocab, (serve_prompts, serve_len)), dtype=torch.int32, device=DEV)
+    cache_len = serve_len + serve_gen
+    logits, cache = steps.prefill_step(p32, {"tokens": prompt}, cfg=c32, cache_len=cache_len)
+    fed = [torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]]
+    for i in range(serve_gen):
+        nxt, logits, cache = steps.serve_step(p32, cache, fed[-1], serve_len + i, cfg=c32)
+        fed.append(nxt)
+    seq_all = torch.cat([prompt] + fed[:serve_gen], 1)
+    full, _ = steps.prefill_step(p32, {"tokens": seq_all}, cfg=c32, cache_len=cache_len)
+    err = float((logits - full).abs().max())
+    require(torch.allclose(logits, full, atol=2e-3, rtol=1e-3),
+            f"{MOE_ARCH} decode logits vs full forward at float32: max error {err}")
+    log(f"[16] (b) {MOE_ARCH} at float32, {check_groups} groups + layer 0, capacity "
+        f"factor {c32.capacity_factor:g} (no drops): the last of {serve_gen} decode "
+        f"steps' logits == the full forward over {seq_all.shape[1]} tokens within atol "
+        f"2e-3, rtol 1e-3 (max error {err:.3g}; {card})")
+    summary["moe_decode_vs_full_max_err"] = err
+    del p32, cache, logits, full
+
+    # (c) training at full width with fewer groups, in-situ every cadence.
+    kernels = kernel_wrappers(HACC_KERNELS)
+    tcfg = get_config(MOE_ARCH).scaled(n_layers=train_groups)
+    t_params = count_params(lm.model_spec(tcfg.smoke() if smoke else tcfg))
+    tracer, launches, last = SpanTracer(), [], []
+
+    def hook(i):
+        if last:
+            j = last.pop()
+            got = {k: fn.launches for k, fn in kernels.items()}
+            if j % cadence == 0:
+                launches.append((j, got))
+            else:
+                require(not any(got.values()),
+                        f"launches {got} at step {j}, which has no analysis")
+        reset_counts(kernels)
+        last.append(i)
+
+    (SRC.parent / "build").mkdir(exist_ok=True)
+    ckpt = tempfile.mkdtemp(dir=str(SRC.parent / "build"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        out = train.main(["--arch", MOE_ARCH] + common + [
+            "--steps", str(train_steps), "--batch", str(batch), "--seq", str(seq),
+            "--ckpt-dir", ckpt, "--ckpt-every", str(train_steps + 1),
+            "--insitu-every", str(cadence), "--log-every", "1"],
+            fault_hook=hook, tracer=tracer, config=tcfg)
+        secs = time.perf_counter() - t0
+        hook(train_steps)
+    finally:
+        shutil.rmtree(ckpt)
+    train_peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    step_s = [st.seconds for st in out["supervisor"].stats]
+    med = float(np.median(step_s[1:]))
+    aux = [st.metrics["aux_loss"] for st in out["supervisor"].stats]
+    require(len(losses) == train_steps and losses[-1] < losses[0],
+            f"{MOE_ARCH} training losses {losses}")
+    require(all(np.isfinite(aux)), f"aux losses {aux}")
+    routers = out["state"].params["layers"]["sub0_attn_moe"]["moe"]["router"]
+    t_cfg = tcfg.smoke() if smoke else tcfg
+    require(tuple(routers.shape) == (t_cfg.n_groups, t_cfg.d_model, t_cfg.n_experts),
+            f"router leaf {tuple(routers.shape)}")
+    spans = [e for e in tracer.events if e["name"] == "insitu"]
+    require([j for j, _ in launches] == list(range(0, train_steps, cadence))
+            and len(spans) == len(launches), f"analyses at {[j for j, _ in launches]}")
+    hist = out["insitu"]
+    for (j, got), (_, stats) in zip(launches, hist):
+        require(all(v > 0 for v in got.values()), f"the analysis at step {j} launched {got}")
+        require({"insitu/router_eps", "insitu/router_collapsed_experts"} <= set(stats)
+                and all(np.isfinite(v) for v in stats.values()),
+                f"the analysis at step {j}: {stats}")
+    ana = [(j, round(e["dur"] / 1e3, 1), got) for e, (j, got) in zip(spans, launches)]
+    for j, ms, got in ana:
+        log(f"[16] (c) analysis at step {j}: {ms} ms, launches {got}; router stats "
+            f"{ {k: v for k, v in dict(hist)[j].items() if 'router' in k} } ({card})")
+    log(f"[16] (c) train {MOE_ARCH} (launch.train, {pdt}, float32 moments), "
+        f"{t_cfg.n_groups} groups + layer 0 at full width, {t_params} parameters, batch "
+        f"{batch} x {seq}: losses {[round(x, 4) for x in losses]}, aux "
+        f"{[round(x, 4) for x in aux]}; median step {med * 1e3:.1f} ms "
+        f"({batch * seq / med:.0f} tokens/s), first {step_s[0] * 1e3:.1f} ms; "
+        f"{secs:.1f} s with the checkpoint at the end; peak memory "
+        f"{train_peak / 2**30:.2f} GiB ({card}); the routers clustered: "
+        f"{tuple(routers.shape)} averaged over groups to {t_cfg.n_experts} columns")
+    summary.update(moe_train_params=t_params, moe_train_step_ms=round(med * 1e3, 2),
+                   moe_train_tokens_per_s=round(batch * seq / med),
+                   moe_analysis_ms=[a[1] for a in ana], moe_analysis_launches=ana[0][2],
+                   moe_train_peak_gib=round(train_peak / 2**30, 2),
+                   moe_train_s=round(secs, 1))
+    del out, routers
+
+    # (d) gemma2-9b serves a long prompt at full size.
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[16] (d) device memory allocated before: {held / 2**30:.2f} GiB, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after a collection ({card})")
+    gcfg = get_config(GEMMA_ARCH)
+    gcfg = gcfg.smoke() if smoke else gcfg
+    g_params = count_params(lm.model_spec(gcfg))
+    require(smoke or abs(g_params - 9.24e9) / 9.24e9 < 0.05,
+            f"{GEMMA_ARCH} has {g_params} parameters")
+    require(gemma_len >= A.CHUNKED_THRESHOLD, "the prompt takes the blockwise path")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g_served = serve.main(["--arch", GEMMA_ARCH] + common + [
+        "--requests", "1", "--prompt-len", str(gemma_len), "--gen-tokens", str(gemma_gen)])
+    g_peak = torch.cuda.max_memory_allocated()
+    require(g_served["tokens"].shape == (1, gemma_gen), "gemma2 tokens' shape")
+    g_bytes = decode_bytes(gcfg, g_params, 1, gemma_len + gemma_gen, 4 if smoke else 2)
+    g_bound = g_bytes / HBM_BYTES_PER_S * 1e3
+    g_pre, g_dec = g_served["prefill_ms"], g_served["decode_ms_per_step"]
+    log(f"[16] (d) serve {GEMMA_ARCH} (launch.serve, {pdt}, first call): {g_params} "
+        f"parameters, {gcfg.n_layers} layers, window {gcfg.sliding_window}, 1 prompt of "
+        f"{gemma_len} tokens (blockwise attention) {g_pre:.1f} ms, decode {g_dec:.2f} ms "
+        f"a step ({gemma_gen - 1} steps into a {gemma_len + gemma_gen}-slot cache; bytes "
+        f"bound {g_bytes / 1e9:.2f} GB, {g_bound:.2f} ms); peak memory "
+        f"{g_peak / 2**30:.2f} GiB ({card})")
+    del g_served
+    torch.cuda.empty_cache()
+    layers = chunked_vs_full(torch, gcfg, seed, gemma_len, DEV)
+    for kind, r in layers.items():
+        require(r["rel"] <= CHUNKED_REL_TOL,
+                f"{GEMMA_ARCH} {kind}: blockwise vs full attention {r}")
+    log(f"[16] (d) {GEMMA_ARCH} at {gemma_len} tokens, bf16: blockwise attention == "
+        f"_sdpa with its full mask within {CHUNKED_REL_TOL:g} norm-relative: "
+        f"{json.dumps(layers)} ({card})")
+    summary.update(gemma_params=g_params, gemma_prefill_ms=round(g_pre, 2),
+                   gemma_decode_ms_per_step=round(g_dec, 3),
+                   gemma_decode_bound_ms=round(g_bound, 3),
+                   gemma_serve_peak_gib=round(g_peak / 2**30, 2),
+                   gemma_chunked_rel={k: r["rel"] for k, r in layers.items()},
+                   s=round(time.perf_counter() - t_all, 1))
+    log(f"[16] summary: {json.dumps(summary)}")
+    return summary
+
+
 HACC_KERNELS = ("wavefront_count", "wavefront_min_label", "segment_sum_sorted",
                 "segment_max_sorted")
 
@@ -4326,6 +4692,7 @@ def main(argv=None) -> int:
     phase3_sharded(args.seed)
     phase3_nearest(args.seed)
     phase3_lm(args.seed)
+    phase3_attention_archs(args.seed)
     log(f"[3] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches_by_step, records = phase4_main_path(args.seed, 1 << args.n_log2, cfg)
@@ -4361,6 +4728,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase15_lm(args.seed, card)
     log(f"[15] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase16_attention_moe(args.seed, card)
+    log(f"[16] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase9_kernel_line(launches_by_step, records,
                        nl_rows + grid_rows + pair_rows + halo_rows + pred_rows

@@ -25,6 +25,7 @@ import dataclasses
 import math
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.core.dbscan import fdbscan
@@ -78,11 +79,31 @@ def _project(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return (y - lo) / span
 
 
+def _quantile(x: torch.Tensor, q: float) -> torch.Tensor:
+    """``jnp.quantile(x, q)`` of a 1-D float32 tensor by its default
+    method, linear interpolation between the order statistics around
+    ``q (n - 1)``, with the reference's float32 arithmetic for the
+    position and weights (computed on the host: they depend on ``n``
+    only). From a sort, so it has no size limit (``torch.quantile``
+    refuses more than 2^24 elements, ROADMAP C12); a NaN anywhere gives
+    NaN, as the reference's does."""
+    n = x.shape[0]
+    f32 = np.float32
+    pos = f32(q) * (f32(n) - f32(1))
+    lo, hi = np.floor(pos), np.ceil(pos)
+    w_hi = pos - lo
+    w_lo = f32(1) - w_hi
+    lo, hi = (int(np.clip(i, 0, n - 1)) for i in (lo, hi))
+    xs = torch.sort(x).values
+    out = xs[lo] * float(w_lo) + xs[hi] * float(w_hi)
+    return torch.where(torch.isnan(x).any(), torch.nan, out)
+
+
 def _eps_from_quantile(pts: torch.Tensor, q: float) -> torch.Tensor:
     d2 = torch.sum((pts[:, None] - pts[None]) ** 2, dim=-1)
     n = pts.shape[0]
     iu = torch.triu_indices(n, n, 1, device=pts.device)
-    return torch.sqrt(torch.quantile(d2[iu[0], iu[1]], q))
+    return torch.sqrt(_quantile(d2[iu[0], iu[1]], q))
 
 
 def sample_embedding_draws(table: torch.Tensor, cfg: InsituConfig, step: int):

@@ -1,8 +1,9 @@
 """Model/run configuration; port of ``repro/configs/base.py``, the same
 frozen dataclasses field for field (the port keeps its own copy). One
 config drives model construction and the train and serve entry points; the
-port builds the ``mlstm`` and ``slstm`` kinds so far, and
-``repro_torch.models.lm.model_spec`` raises for the others (ROADMAP A14).
+port builds every kind but ``cross`` and the Mamba ones, for which
+``repro_torch.models.lm.model_spec`` raises (ROADMAP A14 (c), (d)), as
+it does for an encoder or a frontend.
 
 Block patterns: a model is ``n_layers`` layers arranged as ``n_layers //
 len(block_pattern)`` repeats of ``block_pattern`` (scanned groups). Entries:

@@ -55,7 +55,7 @@ class SyntheticTokens:
         cfg = self.cfg
         if cfg.frontend_dim:
             raise NotImplementedError(
-                "frontend inputs are not ported yet (ROADMAP A14)")
+                "frontend inputs are not ported yet (ROADMAP A14 (d))")
         start, rows = self._host_slice(host_index, host_count)
         toks = np.empty((rows, cfg.seq_len + 1), np.int32)
         for r in range(rows):

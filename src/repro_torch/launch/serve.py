@@ -8,7 +8,9 @@ into a shared cache, and decode in lock-step batches, on the card.
 ``main`` returns the generated tokens, (requests, gen-tokens), with the
 prefill's time and the decode's time per step.
 
-Architectures whose blocks are not ported yet raise (ROADMAP A14).
+Every architecture with attention, dense or MoE FFNs or xLSTM blocks
+serves; jamba-1.5-large raises naming ROADMAP A14 (c), llama-3.2-vision-11b
+and seamless-m4t-large-v2 A14 (d).
 """
 from __future__ import annotations
 
@@ -55,6 +57,7 @@ def main(argv=None) -> dict:
     batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab, (b, s)),
                                     dtype=torch.int32, device=dev)}
 
+    _sync(dev)                      # the weights' initialisation done
     t0 = time.time()
     logits, cache = steps.prefill_step(params, batch, cfg=cfg, cache_len=cache_len)
     tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]

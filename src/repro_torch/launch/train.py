@@ -9,12 +9,16 @@ segment kernels) at its cadence.
       --steps 100 --ckpt-dir CKPT_DIR [--smoke] [--device cpu]
 
 A checkpoint directory that holds a committed step resumes from it.
-Called as a function, ``main`` also takes the supervisor's ``fault_hook``
-and a span tracer for the analyses, and returns the final state, the
-logged losses, the analyses' history and the supervisor (its per-step
-times are in ``supervisor.stats``).
+Called as a function, ``main`` also takes the supervisor's ``fault_hook``,
+a span tracer for the analyses and a ``config`` in place of ``--arch``'s
+(the same model with fewer groups, say), and returns the final state,
+the logged losses, the analyses' history and the supervisor (its
+per-step times are in ``supervisor.stats``).
 
-Architectures whose blocks are not ported yet raise (ROADMAP A14).
+Every architecture with attention, dense or MoE FFNs or xLSTM blocks
+trains; jamba-1.5-large raises naming ROADMAP A14 (c) (Mamba),
+llama-3.2-vision-11b and seamless-m4t-large-v2 A14 (d) (cross-attention,
+the encoder, the frontends).
 """
 from __future__ import annotations
 
@@ -40,10 +44,12 @@ from repro_torch.optim import adamw
 from repro_torch.runtime.supervisor import Supervisor, SupervisorConfig
 
 
-def main(argv=None, *, fault_hook=None, tracer=None) -> dict:
+def main(argv=None, *, fault_hook=None, tracer=None, config=None) -> dict:
     """``fault_hook(step)`` runs before each step and may raise to simulate
     a failure (``Supervisor.run``); ``tracer`` (a
-    ``repro_torch.obs.SpanTracer``) records each analysis's spans."""
+    ``repro_torch.obs.SpanTracer``) records each analysis's spans;
+    ``config`` (a ``ModelConfig``) replaces ``--arch``'s config, and
+    ``--smoke`` still reduces it."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="xlstm-350m")
     ap.add_argument("--smoke", action="store_true",
@@ -64,7 +70,7 @@ def main(argv=None, *, fault_hook=None, tracer=None) -> dict:
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     dev = resolve_device(args.device)
-    cfg = get_config(args.arch)
+    cfg = config if config is not None else get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
     spec = lm.model_spec(cfg)

@@ -1,57 +1,89 @@
 """Sublayer/group assembly; port of ``repro/models/blocks.py``: every
 architecture is n_groups repeats of a block_pattern of sublayers.
 
-The port builds the xLSTM kinds, ``mlstm`` and ``slstm``; every other
-kind, and a dense or MoE FFN (``d_ff > 0``), raises
-``NotImplementedError`` (ROADMAP A14 (b)-(d)). The reference's
-``constrain_*`` calls are sharding constraints, the identity without a
-mesh (``parallel/sharding.py:165-262``), so the port has none.
+The port builds the attention kinds (``attn``, ``attn_local`` and their
+``*_moe`` forms, with a dense FFN when ``d_ff > 0``), the sandwich norms
+and the xLSTM kinds (``mlstm``, ``slstm``). The Mamba kinds raise
+``NotImplementedError`` naming ROADMAP A14 (c), cross-attention A14 (d).
+The reference's ``constrain_*`` calls are sharding constraints, the
+identity without a mesh (``parallel/sharding.py:165-262``), so the port
+has none.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mlp as M
 from repro_torch.models import ssm as S
 
-PORTED_KINDS = ("mlstm", "slstm")
+PORTED_KINDS = ("attn", "attn_local", "mlstm", "slstm")
+_NOT_YET = {"mamba": "the Mamba block (ROADMAP A14 (c))",
+            "cross": "cross-attention (ROADMAP A14 (d))"}
 
 
 def unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP A14); the port builds the "
-        f"{'/'.join(PORTED_KINDS)} blocks of xlstm-350m")
+    return NotImplementedError(f"{what} is not ported yet")
 
 
-def _check_kind(cfg: ModelConfig, kind: str) -> None:
-    if kind not in PORTED_KINDS:
-        raise unported(f"block kind {kind!r}")
+def _base(kind: str) -> str:
+    """The sublayer kind without its ``_moe`` suffix; raises for a kind
+    the port does not build yet, and ``ValueError`` for an unknown one,
+    as the reference does."""
+    base = kind.removesuffix("_moe")
+    if base in _NOT_YET:
+        raise unported(_NOT_YET[base])
+    if base not in PORTED_KINDS:
+        raise ValueError(kind)
+    return base
+
+
+def _ffn_part_spec(cfg: ModelConfig, kind: str) -> dict:
+    """FFN spec attached to a sublayer: dense, MoE, or none (d_ff == 0)."""
+    if kind.endswith("_moe"):
+        return {"moe": M.moe_spec(cfg)}
     if cfg.d_ff > 0:
-        raise unported(f"the dense FFN (d_ff={cfg.d_ff})")
+        return {"ffn": M.ffn_spec(cfg)}
+    return {}
 
 
 def sublayer_spec(cfg: ModelConfig, kind: str, layer_in_group: int = 0) -> dict:
-    _check_kind(cfg, kind)
+    base = _base(kind)
     d = cfg.d_model
     spec: dict = {"norm1": L.rmsnorm_spec(d)}
-    if kind == "mlstm":
+    if base in ("attn", "attn_local"):
+        spec["attn"] = A.attn_spec(cfg)
+    elif base == "mlstm":
         spec["mlstm"] = S.mlstm_spec(cfg)
     else:
         spec["slstm"] = S.slstm_spec(cfg)
     if cfg.sandwich_norm:
         spec["norm1_post"] = L.rmsnorm_spec(d)
+
+    ffn_spec = _ffn_part_spec(cfg, kind)
+    if ffn_spec:
+        spec["norm2"] = L.rmsnorm_spec(d)
+        spec.update(ffn_spec)
+        if cfg.sandwich_norm:
+            spec["norm2_post"] = L.rmsnorm_spec(d)
     return spec
 
 
 def sublayer_cache_shape(cfg: ModelConfig, kind: str, batch: int, cache_len: int):
     """Zero-initialized decode cache for one sublayer: {name: (shape,
-    dtype)}. The recurrent states are f32 and do not grow with
+    dtype)}. Attention keeps K and V of ``cache_len`` slots in the
+    activations' dtype; the recurrent states are f32 and do not grow with
     ``cache_len``."""
-    _check_kind(cfg, kind)
-    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    base = _base(kind)
+    kv, hd, h = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_heads
     f32 = torch.float32
-    if kind == "mlstm":
+    act = torch.bfloat16 if cfg.dtype == "bfloat16" else f32
+    if base in ("attn", "attn_local"):
+        return {"k": ((batch, cache_len, kv, hd), act),
+                "v": ((batch, cache_len, kv, hd), act)}
+    if base == "mlstm":
         return {"C": ((batch, h, hd, hd), f32), "n": ((batch, h, hd), f32)}
     return {"h": ((batch, h, hd), f32), "c": ((batch, h, hd), f32),
             "n": ((batch, h, hd), f32)}
@@ -59,15 +91,33 @@ def sublayer_cache_shape(cfg: ModelConfig, kind: str, batch: int, cache_len: int
 
 def sublayer_apply(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
                    ctx: dict, cache: dict | None):
-    """Returns (x, new_cache, aux_loss). ctx keys: positions, mode
-    ("train" | "prefill" | "decode"), cache_pos."""
-    _check_kind(cfg, kind)
+    """Returns (x, new_cache, aux_loss). ctx keys: positions (B,S) or
+    (B,1) absolute positions; mode ("train" | "prefill" | "decode");
+    cache_pos (decode); causal (optional, default True)."""
+    base = _base(kind)
     mode = ctx["mode"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: dict = {}
 
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    if kind == "mlstm":
+    if base in ("attn", "attn_local"):
+        window = cfg.sliding_window if base == "attn_local" else None
+        if mode == "decode":
+            out, kvc = A.self_attention(
+                p["attn"], cfg, h, positions=ctx["positions"], window=window,
+                cache=A.KvCache(cache["k"], cache["v"]), cache_pos=ctx["cache_pos"])
+            new_cache = {"k": kvc.k, "v": kvc.v}
+        else:
+            out, kvc = A.self_attention(
+                p["attn"], cfg, h, positions=ctx["positions"], window=window,
+                causal=ctx.get("causal", True))
+            if mode == "prefill":  # the prompt's K/V into slots [0, s)
+                s = kvc.k.shape[1]
+                new_cache = {
+                    name: torch.cat([new.to(old.dtype), old[:, s:]], dim=1)
+                    for name, new, old in (("k", kvc.k, cache["k"]),
+                                           ("v", kvc.v, cache["v"]))}
+    elif base == "mlstm":
         if mode == "decode":
             out, (C, n) = S.mlstm(p["mlstm"], cfg, h, state=(cache["C"], cache["n"]))
             new_cache = {"C": C, "n": n}
@@ -87,7 +137,18 @@ def sublayer_apply(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
 
     if cfg.sandwich_norm:
         out = L.rmsnorm(p["norm1_post"], out, cfg.norm_eps)
-    return x + out, new_cache, aux
+    x = x + out
+
+    if kind.endswith("_moe") or "ffn" in p:
+        h2 = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
+        if kind.endswith("_moe"):
+            y, aux = M.moe_ffn(p["moe"], cfg, h2)
+        else:
+            y = M.ffn(p["ffn"], cfg, h2)
+        if cfg.sandwich_norm:
+            y = L.rmsnorm(p["norm2_post"], y, cfg.norm_eps)
+        x = x + y
+    return x, new_cache, aux
 
 
 def group_spec(cfg: ModelConfig) -> dict:

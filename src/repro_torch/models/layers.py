@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.spec import TensorSpec
 
@@ -35,6 +36,16 @@ def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
     if cap is None:
         return x
     return torch.tanh(x / cap) * cap
+
+
+def remat(fn, *args):
+    """``fn(*args)``, recomputed in the backward when autograd records
+    (``torch.utils.checkpoint``, non-reentrant), as the reference's
+    ``jax.checkpoint``: only the arguments are kept. Nothing recomputed
+    draws random numbers, so no RNG state is saved."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 def activate(x: torch.Tensor, kind: str) -> torch.Tensor:

@@ -1,13 +1,17 @@
 """The decoder LM and its train / prefill / decode entry points; port of
-``repro/models/lm.py`` for the architectures whose blocks are ported
-(xlstm-350m: ``mlstm`` and ``slstm``).
+``repro/models/lm.py`` for the architectures whose blocks are ported:
+attention (with a dense or MoE FFN, and deepseek's dense layer 0) and
+xLSTM.
 
 Parameters for the repeated block group are stacked on a leading
 ``n_groups`` axis, as in the reference; the reference's ``lax.scan``
-over groups is a loop over that axis here, with no remat (at xlstm-350m's
-size the activations are small). Loss is chunked over the sequence
-(``LOSS_CHUNK``) so (B, S, vocab) logits never materialize. An encoder,
-a modality frontend or a dense layer 0 raises (ROADMAP A14 (b), (d)).
+over groups is a loop over that axis here. In training each group is
+recomputed in the backward (``layers.remat``, as the reference's
+``nothing_saveable`` remat), so only the groups' inputs are kept. The loss is chunked over the sequence (``LOSS_CHUNK``) and each
+chunk is recomputed in the backward too (the reference's
+``jax.checkpoint(chunk)``), so the (B, S, vocab) logits never
+materialize, in training either. An encoder or a modality frontend
+raises (ROADMAP A14 (d)).
 """
 from __future__ import annotations
 
@@ -16,13 +20,13 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.spec import TensorSpec, stack_specs
 from repro_torch.tree import tree_map
 
 LOSS_CHUNK = 512
-NEG_INF = -2.0 ** 30  # the reference's masked-logit value (models/attention.py:22)
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -33,16 +37,21 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 # Spec
 # ---------------------------------------------------------------------------
 
+def _dense_cfg(cfg: ModelConfig) -> ModelConfig:
+    """deepseek's dense layer 0: one ``attn`` group with its own d_ff."""
+    return cfg.scaled(block_pattern=("attn",), d_ff=cfg.first_layer_dense_ff,
+                      n_experts=0)
+
+
 def model_spec(cfg: ModelConfig) -> dict:
-    if cfg.first_layer_dense_ff:
-        raise B.unported("the dense layer 0")
     if cfg.frontend_dim:
-        raise B.unported("the modality frontend")
+        raise B.unported("the modality frontend (ROADMAP A14 (d))")
     if cfg.encoder_layers:
-        raise B.unported("the encoder")
+        raise B.unported("the encoder (ROADMAP A14 (d))")
     d = cfg.d_model
     spec: dict = {
-        # std 1/sqrt(d): tied logits land at O(1)
+        # std 1/sqrt(d): tied logits land at O(1); gemma-style scale_embed
+        # multiplies activations back up by sqrt(d).
         "embed": TensorSpec((cfg.padded_vocab, d), ("vocab", "embed"),
                             init="embed", scale=d ** -0.5),
         "layers": stack_specs(B.group_spec(cfg), cfg.n_groups),
@@ -50,6 +59,8 @@ def model_spec(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         spec["lm_head"] = TensorSpec((d, cfg.padded_vocab), ("embed", "vocab"))
+    if cfg.first_layer_dense_ff:  # deepseek: dense layer 0
+        spec["layer0"] = B.group_spec(_dense_cfg(cfg))
     return spec
 
 
@@ -71,7 +82,7 @@ def _mask_padded_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
     if cfg.padded_vocab == cfg.vocab:
         return logits
     live = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab
-    return torch.where(live, logits, NEG_INF)
+    return torch.where(live, logits, A.NEG_INF)
 
 
 def _head(params, cfg: ModelConfig) -> torch.Tensor:
@@ -89,21 +100,28 @@ def _group(tree, g: int):
 
 
 def _run_stack(params, cfg: ModelConfig, h: torch.Tensor, ctx: dict, cache=None):
-    """The group stack; with ``cache`` (group-stacked, from ``init_cache``
-    or a previous step) it returns the new cache, stacked the same way."""
+    """Layer 0 (deepseek's, not stacked), then the group stack; with
+    ``cache`` (from ``init_cache`` or a previous step) it returns the new
+    cache, laid out the same way. Under autograd each group is recomputed
+    in the backward, as the reference's scan body is."""
+    if "layer0" in params:
+        c0 = cache["layer0"] if cache is not None else None
+        h, c0_new, _ = B.group_apply(_dense_cfg(cfg), params["layer0"], h, ctx, c0)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     stacked = cache["layers"] if cache is not None else None
     new_groups = []
     for g in range(cfg.n_groups):
         c_g = _group(stacked, g) if stacked is not None else None
-        h, new_c, aux_g = B.group_apply(cfg, _group(params["layers"], g), h,
-                                        ctx, c_g)
+        h, new_c, aux_g = L.remat(B.group_apply, cfg, _group(params["layers"], g),
+                                  h, ctx, c_g)
         aux = aux + aux_g
         new_groups.append(new_c)
     new_cache = None
     if stacked is not None:
         new_cache = {"layers": tree_map(lambda *xs: torch.stack(xs),
                                         *new_groups)}
+        if "layer0" in params:
+            new_cache["layer0"] = c0_new
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return h, new_cache, aux
 
@@ -119,15 +137,18 @@ def _chunked_xent(params, cfg: ModelConfig, h: torch.Tensor, labels: torch.Tenso
     c = min(LOSS_CHUNK, s)
     assert s % c == 0
     w = _head(params, cfg)
-    total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for j in range(s // c):
-        sl = slice(j * c, (j + 1) * c)
-        hx, lx, mx = h[:, sl], labels[:, sl], mask[:, sl].float()
+
+    def chunk(hx, lx, mx):
         logits = torch.matmul(hx, w.to(hx.dtype)).float()
         logits = _mask_padded_vocab(cfg, L.softcap(logits, cfg.final_softcap))
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.take_along_dim(logits, lx.long()[..., None], dim=-1)[..., 0]
-        total = total + torch.sum((lse - gold) * mx)
+        return torch.sum((lse - gold) * mx)
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for j in range(s // c):
+        sl = slice(j * c, (j + 1) * c)
+        total = total + L.remat(chunk, h[:, sl], labels[:, sl], mask[:, sl].float())
     return total / torch.clamp(mask.sum(), min=1.0)
 
 
@@ -151,19 +172,29 @@ def train_loss(params, cfg: ModelConfig, batch: dict):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None):
-    """Zeroed decode cache (group-stacked) on ``device`` (``None``: the card)."""
+    """Zeroed decode cache on ``device`` (``None``: the card): the group
+    stack's with a leading groups axis, and deepseek's layer 0's under
+    ``"layer0"`` without one."""
     device = resolve_device(device)
-    shapes = B.group_cache_shapes(cfg, batch, cache_len)
-    return {"layers": {
-        key: {name: torch.zeros((cfg.n_groups,) + shape, dtype=dtype, device=device)
-              for name, (shape, dtype) in sub.items()}
-        for key, sub in shapes.items()}}
+
+    def zeros(shapes, lead=()):
+        return {key: {name: torch.zeros(lead + shape, dtype=dtype, device=device)
+                      for name, (shape, dtype) in sub.items()}
+                for key, sub in shapes.items()}
+
+    cache = {"layers": zeros(B.group_cache_shapes(cfg, batch, cache_len),
+                             (cfg.n_groups,))}
+    if cfg.first_layer_dense_ff:
+        cache["layer0"] = zeros(B.group_cache_shapes(_dense_cfg(cfg), batch,
+                                                     cache_len))
+    return cache
 
 
 def prefill(params, cfg: ModelConfig, batch: dict, cache_len: int | None = None):
     """Run the full prompt; returns (last-position logits, cache). The
     cache is allocated at ``cache_len`` (>= prompt length) so decode can
-    append; the recurrent blocks keep only their final states."""
+    append: attention writes the prompt's K/V into slots [0, s), the
+    recurrent blocks keep only their final states."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     h = _embed(params, cfg, tokens)

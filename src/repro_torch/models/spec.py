@@ -77,7 +77,7 @@ def _init_leaf(spec: TensorSpec, gen: torch.Generator, dtype, device) -> torch.T
         fan_in = int(np.prod(spec.shape[:-1])) if len(spec.shape) > 1 else spec.shape[0]
         std = spec.scale if spec.scale is not None else fan_in ** -0.5
     x = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * std).to(dtype)
+    return x.mul_(std).to(dtype)     # in place: one float32 copy of the leaf
 
 
 def init_params(spec_tree, seed: int = 0, dtype=torch.float32, device=None):

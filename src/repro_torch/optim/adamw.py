@@ -18,6 +18,10 @@ import torch
 from repro_torch.tree import leaves, tree_map
 
 F32 = torch.float32
+# Entries of a leaf updated at once: a leaf of an MoE's experts holds 7e8
+# of them, and the update's float32 temporaries of a whole one would not
+# fit beside two copies of the state.
+UPDATE_SLICE = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,6 +140,20 @@ def apply_updates(cfg: OptConfig, params, grads, opt: OptState):
         new_p = (p.to(F32) - lr * delta).to(p.dtype)
         return new_p, mf.to(m.dtype), vf.to(v.dtype)
 
-    out = tree_map(upd, params, grads, opt.m, opt.v)
+    def upd_sliced(p, g, m, v):
+        """``upd`` over slices of at most ``UPDATE_SLICE`` entries of a
+        large leaf, written into its new tensors: the same bits (every op
+        is elementwise), with float32 temporaries of one slice."""
+        if p.numel() <= UPDATE_SLICE:
+            return upd(p, g, m, v)
+        new = [torch.empty(p.shape, dtype=x.dtype, device=x.device) for x in (p, m, v)]
+        flat = [x.reshape(-1) for x in (p, g, m, v)]
+        for lo in range(0, p.numel(), UPDATE_SLICE):
+            parts = upd(*(x[lo:lo + UPDATE_SLICE] for x in flat))
+            for dst, part in zip(new, parts):
+                dst.view(-1)[lo:lo + part.numel()] = part
+        return tuple(new)
+
+    out = tree_map(upd_sliced, params, grads, opt.m, opt.v)
     new_opt = OptState(step=step, m=_pick(out, 1), v=_pick(out, 2), error=new_error)
     return _pick(out, 0), new_opt, {"grad_norm": gnorm, "lr": lr}

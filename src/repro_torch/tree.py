@@ -26,21 +26,24 @@ def _children(node):
     return None
 
 
+def _walk(node, path: tuple[str, ...], out: list) -> None:
+    # A module-level function, not a closure over ``out``: a nested
+    # function that calls itself is a reference cycle, which would keep
+    # every leaf it saw alive until the garbage collector runs.
+    if node is None:
+        return
+    kids = _children(node)
+    if kids is None:
+        out.append((path, node))
+        return
+    for key, child in kids:
+        _walk(child, path + (key,), out)
+
+
 def leaves_with_path(tree) -> list[tuple[tuple[str, ...], Any]]:
     """``[(path, leaf)]`` in the reference's leaf order."""
     out = []
-
-    def walk(node, path):
-        if node is None:
-            return
-        kids = _children(node)
-        if kids is None:
-            out.append((path, node))
-            return
-        for key, child in kids:
-            walk(child, path + (key,))
-
-    walk(tree, ())
+    _walk(tree, (), out)
     return out
 
 

@@ -212,8 +212,8 @@ def test_router_stats_on_deepseek_match_reference(step):
 
 
 def test_router_stats_empty_for_dense_arch():
-    """granite-20b has no router; its smoke parameters come from the
-    reference, since the port does not build attention yet."""
+    """granite-20b has no router (its smoke parameters from the
+    reference, carried across)."""
     from repro.analysis.insitu import router_cluster_stats as jax_router
     from repro_torch.analysis.insitu import router_cluster_stats
     jp, p = _lm_params("granite-20b")
@@ -300,3 +300,41 @@ def test_cpu_path_launches_no_kernel(monkeypatch):
     InsituAnalyzer(InsituConfig(**CFG), device="cpu").maybe_run(
         {"positions": pts, "velocities": vel, "eps": 0.03}, 0)
     assert [fn.launches for fn in wrappers] == [0, 0, 0, 0]
+
+
+@pytest.mark.parametrize("n,q", [(1, 0.3), (7, 0.0), (7, 1.0), (7, 0.5), (100, 0.01),
+                                 (101, 0.05), (1000, 0.37)])
+def test_quantile_is_the_references_linear_quantile(n, q):
+    """``_quantile`` against ``jnp.quantile``'s default (linear) method
+    on float32 values with repeats, within 2^-22 relative (the
+    interpolation may round once more or less there); at the ends and
+    at whole positions exact."""
+    from repro_torch.analysis.insitu import _quantile
+    x = np.round(np.random.default_rng(n).standard_normal(n), 2).astype(np.float32)
+    want = float(jnp.quantile(jnp.asarray(x), q))
+    got = float(_quantile(torch.tensor(x), q))
+    assert got == pytest.approx(want, rel=2.0 ** -22, abs=0)
+    if q in (0.0, 1.0) or n == 1:
+        assert got == want
+
+
+def test_quantile_of_a_nan_is_nan_as_the_reference():
+    from repro_torch.analysis.insitu import _quantile
+    x = np.array([0.5, np.nan, 0.25, 1.0], np.float32)
+    assert np.isnan(float(jnp.quantile(jnp.asarray(x), 0.1)))
+    assert np.isnan(float(_quantile(torch.tensor(x), 0.1)))
+
+
+def test_eps_quantile_past_2_24_pairs_matches_reference():
+    """ROADMAP C12: 5,800 sampled rows have 16,817,100 pairs, past the
+    2^24 elements ``torch.quantile`` takes; the port's in-situ eps (the
+    embedding analysis's 1% quantile) equals the reference's on the same
+    seeded points within 2^-20 relative, as the tests above hold it."""
+    from repro.analysis.insitu import _eps_from_quantile as jax_eps
+    from repro_torch.analysis.insitu import _eps_from_quantile
+    n = 5800
+    assert n * (n - 1) // 2 > 2 ** 24
+    pts = np.random.default_rng(12).random((n, 3)).astype(np.float32)
+    want = float(jax_eps(jnp.asarray(pts), 0.01))
+    got = float(_eps_from_quantile(torch.tensor(pts), 0.01))
+    assert got == pytest.approx(want, rel=2.0 ** -20)

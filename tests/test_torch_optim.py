@@ -111,3 +111,24 @@ def test_apply_updates_keeps_bf16_params_and_changes_no_input():
     for a, b in zip(leaves(params_to_numpy(p)), jax.tree.leaves(before)):
         np.testing.assert_array_equal(a, b)
     assert int(opt.step) == 0 and int(new_opt.step) == 1
+
+
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+@pytest.mark.parametrize("slice_len", [7, 32])
+def test_sliced_update_of_large_leaves_is_bit_equal(monkeypatch, moments, slice_len):
+    """Leaves past ``UPDATE_SLICE`` entries are updated a slice at a
+    time; with slices of 7 (ragged) or 32 entries every output equals the
+    update of whole leaves bit for bit, and no input changes."""
+    cfg = A.OptConfig(lr=1e-2, warmup_steps=0, total_steps=10, moment_dtype=moments)
+    p = params_from_numpy(_tree(np.random.default_rng(5)), torch.bfloat16)
+    g = params_from_numpy(_tree(np.random.default_rng(6)), torch.bfloat16)
+    opt = A.init_opt_state(cfg, p)
+    p1, opt1, _ = A.apply_updates(cfg, p, g, opt)
+    p2, opt2, _ = A.apply_updates(cfg, p1, g, opt1)
+    monkeypatch.setattr(A, "UPDATE_SLICE", slice_len)
+    before = [x.clone() for x in leaves((p1, g, opt1))]
+    s2, sopt2, _ = A.apply_updates(cfg, p1, g, opt1)
+    for a, b in zip(leaves((p2, opt2)), leaves((s2, sopt2))):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for a, b in zip(before, leaves((p1, g, opt1))):
+        assert torch.equal(a, b)

@@ -36,6 +36,19 @@ from repro_torch.tree import keystr, leaves, leaves_with_path  # noqa: E402
 ARCH = "xlstm-350m"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module, restored after it: its
+    training loops run thousands of small ops, and with several test
+    workers sharing the cores an op spread over every core mostly waits
+    for the others (6 workers on 8 cores: 60 steps took 567 s, against
+    13 s alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg():
     return get_config(ARCH).smoke()
 
@@ -313,13 +326,44 @@ def test_train_cli_resumes_through_a_fault_bit_for_bit(tmp_path):
     assert [e["args"]["step"] for e in tracer.events if e["name"] == "insitu"] == [0, 5, 5, 10]
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "jamba-1.5-large-398b"])
 def test_entry_points_raise_naming_a14_for_unported_archs(arch, tmp_path):
     with pytest.raises(NotImplementedError, match="A14"):
         train_cli.main(["--arch", arch, "--smoke", "--device", "cpu",
                            "--ckpt-dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="A14"):
         serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "deepseek-moe-16b"])
+def test_serve_cli_serves_attention_archs(arch):
+    """gemma2's prompt of 20 tokens passes its window (16 at smoke size);
+    deepseek serves through its dense layer 0 and MoE groups."""
+    out = serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests",
+                          "2", "--prompt-len", "20", "--gen-tokens", "4"])
+    gen = out["tokens"]
+    assert gen.shape == (2, 4) and (gen >= 0).all() and (gen < 256).all()
+
+
+def test_train_cli_clusters_the_routers_of_a_real_moe(tmp_path, capsys):
+    """deepseek at smoke size with 6 routed experts (through ``config=``,
+    which ``--smoke`` then reduces): the loss falls and each analysis
+    clusters the trained routers' 6 expert columns (the reference's
+    router statistics)."""
+    cfg = get_config("deepseek-moe-16b").scaled(n_experts=6)
+    out = train_cli.main(["--arch", "deepseek-moe-16b", "--smoke", "--device", "cpu",
+                          "--steps", "8", "--batch", "4", "--seq", "16",
+                          "--ckpt-dir", str(tmp_path), "--insitu-every", "4",
+                          "--log-every", "1"], config=cfg)
+    assert out["losses"][-1] < out["losses"][0]
+    layers = out["state"].params["layers"]
+    assert layers["sub0_attn_moe"]["moe"]["router"].shape == (2, 64, 6)
+    assert "layer0" in out["state"].params
+    assert [s for s, _ in out["insitu"]] == [0, 4]
+    for _, stats in out["insitu"]:
+        assert {"insitu/router_eps", "insitu/router_collapsed_experts"} <= set(stats)
+        assert 0 <= stats["insitu/router_collapsed_experts"] <= 6
+    assert "insitu/router_eps" in capsys.readouterr().out
 
 
 def test_example_trains_with_insitu_analysis():
@@ -333,3 +377,44 @@ def test_example_trains_with_insitu_analysis():
     out = mod.main(["--steps", "26", "--device", "cpu"])
     assert [s for s, _ in out["insitu"]] == [0, 25]
     assert out["losses"][-1] < out["losses"][0]
+
+
+def test_serve_batched_example_twin():
+    """``examples/serve_batched_torch.py``, the twin of the reference's
+    ``serve_batched.py``: gemma2-9b at smoke size, on the CPU."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    run = subprocess.run([sys.executable, str(root / "examples" / "serve_batched_torch.py"),
+                          "--device", "cpu"], capture_output=True, text=True,
+                         env={**os.environ, "PYTHONPATH": str(root / "src")}, timeout=300)
+    assert run.returncode == 0, run.stderr[-2000:]
+    assert "prefill 4x32 tokens" in run.stdout and "request 0: generated" in run.stdout
+
+
+def test_a_train_step_frees_the_state_it_replaced():
+    """With the garbage collector off, the state a step replaced is freed
+    as soon as the caller drops it (reference counts alone): a leaf walk
+    that kept its leaves in a reference cycle held every old state, 28.5
+    GB at deepseek-moe-16b's 4 groups, until a collection. The first
+    step is skipped: torch imports its compiler on its first recompute,
+    and that import keeps the frames of the moment for a while."""
+    import gc
+    import weakref
+    cfg = get_config("granite-20b").smoke()
+    opt_cfg = adamw.OptConfig(moment_dtype="float32")
+    state = _init_state(cfg, opt_cfg, 0)
+    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=2,
+                                      seed=0), device="cpu")
+    state, _ = steps.train_step(state, data.batch_at(0), cfg=cfg, opt_cfg=opt_cfg)
+    gc.collect()
+    gc.disable()
+    try:
+        for i in (1, 2):
+            refs = [weakref.ref(x) for x in leaves(state)]
+            state, _ = steps.train_step(state, data.batch_at(i), cfg=cfg, opt_cfg=opt_cfg)
+            assert all(r() is None for r in refs), i
+    finally:
+        gc.enable()
