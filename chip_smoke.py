@@ -17,7 +17,10 @@ under the supervisor through a fault, with embedding clustering on the
 traversal and segment kernels, and served; attention, the dense FFN and
 MoE: deepseek-moe-16b served at full size and trained at full width with
 router clustering on its own routers, gemma2-9b served an 8192-token
-prompt at full size.
+prompt at full size; Mamba, cross-attention and the encoder: one group
+of jamba-1.5-large served at full width (and an 8192-token prompt),
+llama-3.2-vision-11b served at full size, seamless-m4t-v2 trained at full
+size with the in-situ analysis and served.
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. Phases, each of which must pass:
@@ -120,10 +123,14 @@ CUDA toolkit. Phases, each of which must pass:
    same integers), each within the tolerance stated in ``phase3_lm``;
    and the six architectures of attention, the dense FFN and MoE
    (gemma2-9b, phi3-medium-14b, codeqwen1.5-7b, granite-20b,
-   deepseek-moe-16b, qwen3-moe-235b-a22b) at ``smoke()``: ``train_loss``
-   with its aux loss and every gradient leaf, ``prefill`` and two decode
-   steps (logits and caches) on the card against the CPU, within the
-   tolerances stated in ``phase3_attention_archs``.
+   deepseek-moe-16b, qwen3-moe-235b-a22b) and the three of Mamba,
+   cross-attention and the encoder (jamba-1.5-large, llama-3.2-vision-11b,
+   seamless-m4t-v2, their frontends' embeddings from one seeded draw) at
+   ``smoke()``: ``train_loss`` with its aux loss and every gradient leaf
+   (Mamba's backward runs on the card only here), ``prefill`` and two
+   decode steps (logits and caches: KV slots, Mamba's state and conv
+   window, the cross layers' memory K/V) on the card against the CPU,
+   within the tolerances stated in ``phase3_attention_archs``.
 4. The main path: ``InsituAnalyzer`` in simulation mode over two analysis
    steps of 2^24 particles (4096 Plummer spheres plus 20% background).
    The launch counters are set to 0 before each step and read after it;
@@ -260,6 +267,34 @@ CUDA toolkit. Phases, each of which must pass:
    ``_sdpa`` and its full mask within 1e-2 norm-relative. Printed with
    the card: prefill, decode ms a step, the train step, each analysis
    with its launches, peak memory.
+17. Mamba, cross-attention and the encoder at full width through the
+   port's entry points (run after phase 16, before phase 9's line): (a)
+   ``launch.serve``'s ``main(config=)`` serves jamba-1.5-large cut to one
+   group (8 layers: attention, 7 Mamba, 4 MoE) and 8 experts, 2.59e10
+   parameters (``count_params`` within 1%), in bf16: one group at its
+   published 16 experts is 4.52e10 parameters, 90.5 GB, more than the
+   card holds, and the full model 3.99e11. 4 prompts of 32 tokens decoded
+   to 16, timed on its second call, with the bytes bound of a decode step,
+   then one 8192-token prompt (32 chunks of 256) decoded 16 tokens past
+   it; (b) at float32, the last of 16 decode steps' logits against the
+   full forward over the 48 tokens within the reference test's tolerance
+   for jamba (one group, 2 experts with no-drop capacity, ``ssm_chunk``
+   16 so that the tokens run as 3 chunks; 1.14e10 parameters),
+   llama-3.2-vision-11b (one group of 5 layers with its cross layer) and
+   seamless-m4t-v2 at full size; (c) llama-3.2-vision-11b serves at full
+   size (9.81e9 parameters, bf16, 1601 x 7680 vision embeddings a
+   request), 4 prompts of 32 tokens decoded to 16, with the decode's
+   bytes bound; (d) ``launch.train``'s ``main`` trains seamless-m4t-v2 at
+   full size (1.67e9 parameters, bf16 with float32 moments) 10 steps at
+   batch 8 x 128 tokens plus 1024 frames of 1024, running
+   ``InsituAnalyzer(mode="training")`` every 5, one checkpoint at the
+   end: the loss must fall and COUNT, MIN_LABEL and both segment kernels
+   launch in every analysis and in none outside one; then 4 prompts are
+   served on the trained weights. Jamba's training needs more than one
+   card (one group at 8 experts is 3.1e11 bytes of state), so Mamba's
+   backward runs on the card only in phase 3. Printed with the card:
+   prefill, decode ms a step with its bound, the train step in ms and
+   tokens/s, each analysis with its launches, peak memory.
 9. One JSON line with each kernel's launches on its path, time per launch
    at that path's inputs, bound with the card's name and power limit
    beside it, plain version's time and library yardstick. The traversal
@@ -4062,6 +4097,31 @@ def phase3_lm(seed: int):
         f"{time.perf_counter() - t0:.1f} s")
 
 
+def analysis_hook(kernels: dict, cadence: int):
+    """A supervisor's ``fault_hook`` that reads the launch counters of
+    ``kernels`` and sets them to 0 before each step: the train step
+    launches none of them, so what launched since the previous step's
+    hook is that step's analysis, which runs every ``cadence`` steps; a
+    step without one must have launched nothing. Returns the hook and the
+    list of (step, launches) it fills; call the hook once more with the
+    step count after the run, for the last step's launches."""
+    launches, last = [], []
+
+    def hook(i):
+        if last:
+            j = last.pop()
+            got = {k: fn.launches for k, fn in kernels.items()}
+            if j % cadence == 0:
+                launches.append((j, got))
+            else:
+                require(not any(got.values()),
+                        f"launches {got} at step {j}, which has no analysis")
+        reset_counts(kernels)
+        last.append(i)
+
+    return hook, launches
+
+
 def phase15_lm(seed: int, card: str, smoke: bool = False, batch: int = 8,
                seq: int = 128, prompts: int = 4, prompt_len: int = 32,
                gen: int = 16):
@@ -4107,19 +4167,11 @@ def phase15_lm(seed: int, card: str, smoke: bool = False, batch: int = 8,
         sets them to 0: the train step launches none of the four kernels,
         so what launched since the last step's hook is that step's
         analysis. Returns main's result, the spans and the launches."""
-        tracer, launches, last, crashed = SpanTracer(), [], [], []
+        tracer, crashed = SpanTracer(), []
+        count, launches = analysis_hook(kernels, cadence)
 
         def hook(i):
-            if last:
-                j = last.pop()
-                got = {k: fn.launches for k, fn in kernels.items()}
-                if j % cadence == 0:
-                    launches.append((j, got))
-                else:
-                    require(not any(got.values()),
-                            f"launches {got} at step {j}, which has no analysis")
-            reset_counts(kernels)
-            last.append(i)
+            count(i)
             if fault and i == fault_at and not crashed:
                 crashed.append(i)
                 raise RuntimeError("injected fault")
@@ -4275,27 +4327,64 @@ def phase15_lm(seed: int, card: str, smoke: bool = False, batch: int = 8,
     return summary
 
 
+HYBRID_ARCHS = ("jamba-1.5-large-398b", "llama-3.2-vision-11b", "seamless-m4t-large-v2")
 ATTN_ARCHS = ("gemma2-9b", "phi3-medium-14b", "codeqwen1.5-7b", "granite-20b",
               "deepseek-moe-16b", "qwen3-moe-235b-a22b")
 
 
-def grads_close(torch, got, want, what: str) -> None:
-    """Gradient leaves within rtol 1e-4 and atol 1e-6 of the leaf's
-    largest entry (at least 1e-3)."""
+def grads_close(torch, got, want, what: str, atol: float = 1e-6) -> float:
+    """Gradient leaves within rtol 1e-4 and ``atol`` of the leaf's largest
+    entry (at least 1e-3). Returns the largest difference over that
+    entry."""
+    worst = 0.0
     for (path, a), b in zip(got, want):
         scale = max(float(b.abs().max()), 1e-3)
-        require(torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-6 * scale),
-                f"{what}: gradient {path} card vs CPU")
+        err = float((a.cpu() - b).abs().max()) / scale
+        worst = max(worst, err)
+        require(torch.allclose(a.cpu(), b, rtol=1e-4, atol=atol * scale),
+                f"{what}: gradient {path} card vs CPU ({err:.3g} of its largest entry)")
+    return worst
+
+
+def frontend_batch(torch, cfg, rng, batch: int, dev) -> dict:
+    """The frontend's stub embeddings (batch, frontend_tokens,
+    frontend_dim) f32 from ``rng``, under both ``frames`` and ``vision``
+    as ``SyntheticTokens`` gives them; {} without a frontend."""
+    if not cfg.frontend_dim:
+        return {}
+    emb = torch.tensor(rng.standard_normal((batch, cfg.frontend_tokens, cfg.frontend_dim)),
+                       dtype=torch.float32, device=dev)
+    return {"frames": emb, "vision": emb}
+
+
+# Deep Mamba stacks amplify roundings: at jamba's smoke size the f32
+# gradients of the CPU and of JAX each lie up to 1.6e-5 of a leaf's
+# largest entry from the same model in float64, so two f32 runs may lie
+# twice that apart (the card from the CPU: up to 3.44e-5 on an H100).
+# llama and seamless: the bound of tests/test_torch_hybrid.py.
+GRAD_ATOL = {"jamba-1.5-large-398b": 1e-4, "llama-3.2-vision-11b": 1e-5,
+             "seamless-m4t-large-v2": 1e-5}
+# Its caches likewise: after its 8 layers, a float32 prefill and two
+# decode steps leave Mamba states and conv windows (entries up to ~4) up
+# to 2.7e-5 from float64's (8 seeds, on the CPU), so two f32 runs may lie
+# twice that apart (the card from the CPU: up to 4.01e-5 on an H100).
+CACHE_ATOL = {"jamba-1.5-large-398b": 1e-4}
 
 
 def phase3_attention_archs(seed: int, batch: int = 2, s: int = 20):
-    """The six architectures of attention, the dense FFN and MoE at smoke
-    size (float32, TF32 off), the card against the CPU on the same
+    """The six architectures of attention, the dense FFN and MoE and the
+    three of Mamba, cross-attention and the encoder (jamba, llama-3.2-vision,
+    seamless, with their frontends' embeddings from one seeded draw) at
+    smoke size (float32, TF32 off), the card against the CPU on the same
     weights: ``train_loss`` (rtol 1e-5) and its aux loss (rtol 1e-5,
-    atol 1e-7) with every gradient leaf (``grads_close``), ``prefill`` of
-    ``s - 2`` tokens into an ``s``-slot cache and two ``serve_step``s fed
-    the same tokens: logits within rtol 1e-4, atol 1e-4, the caches'
-    leaves within 1e-5, 1e-5."""
+    atol 1e-7) with every gradient leaf (``grads_close``; the three at
+    ``GRAD_ATOL``), ``prefill`` of ``s - 2`` tokens into an ``s``-slot
+    cache and two ``serve_step``s fed the same tokens: logits within rtol
+    1e-4, atol 1e-4, the caches' leaves (KV slots, Mamba's state and conv
+    window, the cross layers' memory K/V) within rtol 1e-5, atol 1e-5
+    (jamba: ``CACHE_ATOL``). Logs each arch's loss, its gradients'
+    largest difference over a leaf's largest entry and its caches'
+    largest difference."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import steps
@@ -4306,20 +4395,22 @@ def phase3_attention_archs(seed: int, batch: int = 2, s: int = 20):
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed)
     seen = {}
-    for arch in ATTN_ARCHS:
+    for arch in ATTN_ARCHS + HYBRID_ARCHS:
         cfg = get_config(arch).smoke()
         params = init_params(lm.model_spec(cfg), seed, torch.float32, "cpu")
         toks = rng.integers(0, cfg.vocab, (batch, s + 1)).astype(np.int32)
         mask = rng.random((batch, s)) < 0.9
+        emb = frontend_batch(torch, cfg, rng, batch, "cpu")
         out = {}
         for dev in (DEV, "cpu"):
             p = tree_map(lambda x: x.to(dev), params)
+            front = {k: v.to(dev) for k, v in emb.items()}
             b = {"tokens": torch.tensor(toks[:, :-1], device=dev),
                  "labels": torch.tensor(toks[:, 1:], device=dev),
-                 "loss_mask": torch.tensor(mask, device=dev)}
+                 "loss_mask": torch.tensor(mask, device=dev), **front}
             loss, metrics, grads = steps.value_and_grad(p, cfg, b)
-            logits, cache = steps.prefill_step(p, {"tokens": b["tokens"][:, :s - 2]},
-                                               cfg=cfg, cache_len=s)
+            logits, cache = steps.prefill_step(
+                p, {"tokens": b["tokens"][:, :s - 2], **front}, cfg=cfg, cache_len=s)
             logs = [logits]
             for i in range(2):
                 _, logits, cache = steps.serve_step(p, cache, b["tokens"][:, s - 2 + i:s - 1 + i],
@@ -4330,18 +4421,23 @@ def phase3_attention_archs(seed: int, batch: int = 2, s: int = 20):
         (lg, ag, gg, logg, cg), (lc, ac, gc, logc, cc) = out[DEV], out["cpu"]
         require(abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc)), f"{arch}: train_loss")
         require(abs(float(ag) - float(ac)) <= 1e-5 * abs(float(ac)) + 1e-7, f"{arch}: aux loss")
-        grads_close(torch, [(keystr(q), a) for q, a in gg], [b for _, b in gc], arch)
+        g_err = grads_close(torch, [(keystr(q), a) for q, a in gg], [b for _, b in gc],
+                            arch, GRAD_ATOL.get(arch, 1e-6))
         for i, (a, b) in enumerate(zip(logg, logc)):
             require(torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-4),
                     f"{arch}: logits of step {i} card vs CPU "
                     f"(max error {float((a.cpu() - b).abs().max()):.3g})")
+        c_atol, c_err = CACHE_ATOL.get(arch, 1e-5), 0.0
         for (q, a), (_, b) in zip(cg, cc):
-            require(torch.allclose(a.cpu(), b, rtol=1e-5, atol=1e-5),
-                    f"{arch}: cache {keystr(q)} card vs CPU")
-        seen[arch] = round(float(lg), 5)
-    log(f"[3] attention, dense FFN and MoE at smoke size, card == CPU within "
-        f"tolerance (train_loss, gradients, prefill, 2 decode steps, caches): "
-        f"{json.dumps(seen)}; {time.perf_counter() - t0:.1f} s")
+            err = float((a.cpu() - b).abs().max())
+            c_err = max(c_err, err)
+            require(torch.allclose(a.cpu(), b, rtol=1e-5, atol=c_atol),
+                    f"{arch}: cache {keystr(q)} card vs CPU (max error {err:.3g})")
+        seen[arch] = {"loss": round(float(lg), 5), "grad_err": float(f"{g_err:.3g}"),
+                      "cache_err": float(f"{c_err:.3g}")}
+    log(f"[3] attention, dense FFN, MoE, Mamba, cross-attention and the encoder at "
+        f"smoke size, card == CPU within tolerance (train_loss, gradients, prefill, 2 "
+        f"decode steps, caches): {json.dumps(seen)}; {time.perf_counter() - t0:.1f} s")
 
 
 MOE_ARCH = "deepseek-moe-16b"
@@ -4350,16 +4446,26 @@ GEMMA_ARCH = "gemma2-9b"
 
 def decode_bytes(cfg, n_params: int, batch: int, cache_len: int, dtype_bytes: int) -> int:
     """Bytes a decode step must move: every weight but the embedding table
-    (of which it reads ``batch`` rows) once, and every KV slot once."""
+    (of which it reads ``batch`` rows), the frontend's projection, the
+    encoder and the cross layers' K/V projections (which only the prefill
+    runs) once at ``dtype_bytes`` each, and every cache leaf (KV slots,
+    recurrent states, the cross layers' memory K/V) once at its own
+    dtype's size."""
     from repro_torch.models import blocks as B
     from repro_torch.models import lm
+    from repro_torch.models.spec import count_params
+    spec = lm.model_spec(cfg)
+    unread = [spec[k] for k in ("frontend_proj", "encoder") if k in spec]
+    unread += [{n: sub["attn"][n] for n in ("wk", "wv", "bk", "bv", "k_norm") if n in sub["attn"]}
+               for key, sub in spec["layers"].items() if "_cross" in key]
+    n_params -= sum(count_params(t) for t in unread)
     kv = 0
     layers = {"layers": (B.group_cache_shapes(cfg, batch, cache_len), cfg.n_groups)}
     if cfg.first_layer_dense_ff:
         layers["layer0"] = (B.group_cache_shapes(lm._dense_cfg(cfg), batch, cache_len), 1)
     for shapes, groups in layers.values():
         for sub in shapes.values():
-            kv += groups * sum(int(np.prod(sh)) * dtype_bytes for sh, _ in sub.values())
+            kv += groups * sum(int(np.prod(sh)) * dt.itemsize for sh, dt in sub.values())
     table = cfg.padded_vocab * cfg.d_model
     return (n_params - table + batch * cfg.d_model) * dtype_bytes + kv
 
@@ -4396,6 +4502,56 @@ def chunked_vs_full(torch, cfg, seed: int, s: int, dev: str) -> dict:
 CHUNKED_REL_TOL = 1e-2
 
 
+def free_card(torch) -> None:
+    """Release what the previous step left: its tensors once a collection
+    has run, then the allocator's cached blocks."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_twice(serve, argv, config=None, params=None):
+    """``launch.serve.main`` twice, the second call timed and traced for
+    peak memory. Returns its result and the peak in bytes."""
+    import torch
+    serve.main(argv, config=config, params=params)      # warm-up
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    out = serve.main(argv, config=config, params=params)
+    return out, torch.cuda.max_memory_allocated()
+
+
+def decode_vs_full(torch, cfg, seed: int, prompts: int, plen: int, gen: int) -> float:
+    """``cfg`` (float32) with seeded weights on the card: ``prefill_step``
+    of ``prompts`` prompts of ``plen`` tokens (with the frontend's
+    embeddings from the same seed), then ``gen`` ``serve_step``s, each fed
+    the last one's token; the last step's logits must equal the full
+    forward over the ``plen + gen`` tokens within the reference test's
+    tolerance (atol 2e-3, rtol 1e-3). Returns the largest error."""
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.models.spec import init_params
+    p32 = init_params(lm.model_spec(cfg), seed, torch.float32, DEV)
+    rng = np.random.default_rng(seed)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab, (prompts, plen)), dtype=torch.int32,
+                          device=DEV)
+    front = frontend_batch(torch, cfg, rng, prompts, DEV)
+    cache_len = plen + gen
+    logits, cache = steps.prefill_step(p32, {"tokens": prompt, **front}, cfg=cfg,
+                                       cache_len=cache_len)
+    fed = [torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]]
+    for i in range(gen):
+        nxt, logits, cache = steps.serve_step(p32, cache, fed[-1], plen + i, cfg=cfg)
+        fed.append(nxt)
+    seq_all = torch.cat([prompt] + fed[:gen], 1)
+    full, _ = steps.prefill_step(p32, {"tokens": seq_all, **front}, cfg=cfg,
+                                 cache_len=cache_len)
+    err = float((logits - full).abs().max())
+    require(torch.allclose(logits, full, atol=2e-3, rtol=1e-3),
+            f"{cfg.name} decode logits vs full forward at float32: max error {err}")
+    return err
+
+
 def phase16_attention_moe(seed: int, card: str, smoke: bool = False,
                           serve_prompts: int = 4, serve_len: int = 32,
                           serve_gen: int = 16, check_groups: int = 2,
@@ -4413,15 +4569,14 @@ def phase16_attention_moe(seed: int, card: str, smoke: bool = False,
     (d) gemma2-9b serves a ``gemma_len``-token prompt at full size, and
     its blockwise attention agrees with the full path on one local and
     one global layer. ``smoke``: the reduced configs, for a rehearsal."""
-    import gc
     import shutil
     import tempfile
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve, steps, train
+    from repro_torch.launch import serve, train
     from repro_torch.models import attention as A
     from repro_torch.models import lm
-    from repro_torch.models.spec import count_params, init_params
+    from repro_torch.models.spec import count_params
     from repro_torch.obs import SpanTracer
 
     t_all = time.perf_counter()
@@ -4441,11 +4596,7 @@ def phase16_attention_moe(seed: int, card: str, smoke: bool = False,
     argv = ["--arch", MOE_ARCH] + common + [
         "--requests", str(serve_prompts), "--prompt-len", str(serve_len),
         "--gen-tokens", str(serve_gen)]
-    serve.main(argv)                           # warm-up
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    served = serve.main(argv)
-    peak = torch.cuda.max_memory_allocated()
+    served, peak = serve_twice(serve, argv)
     require(served["tokens"].shape == (serve_prompts, serve_gen), "served tokens' shape")
     nbytes = decode_bytes(cfg, n_params, serve_prompts, serve_len + serve_gen,
                           4 if smoke else 2)
@@ -4466,44 +4617,19 @@ def phase16_attention_moe(seed: int, card: str, smoke: bool = False,
     # the full forward.
     c32 = cfg.scaled(n_layers=check_groups, dtype="float32", param_dtype="float32",
                      capacity_factor=float(cfg.n_experts))
-    p32 = init_params(lm.model_spec(c32), seed, torch.float32, DEV)
-    prompt = torch.tensor(np.random.default_rng(seed).integers(
-        0, c32.vocab, (serve_prompts, serve_len)), dtype=torch.int32, device=DEV)
-    cache_len = serve_len + serve_gen
-    logits, cache = steps.prefill_step(p32, {"tokens": prompt}, cfg=c32, cache_len=cache_len)
-    fed = [torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]]
-    for i in range(serve_gen):
-        nxt, logits, cache = steps.serve_step(p32, cache, fed[-1], serve_len + i, cfg=c32)
-        fed.append(nxt)
-    seq_all = torch.cat([prompt] + fed[:serve_gen], 1)
-    full, _ = steps.prefill_step(p32, {"tokens": seq_all}, cfg=c32, cache_len=cache_len)
-    err = float((logits - full).abs().max())
-    require(torch.allclose(logits, full, atol=2e-3, rtol=1e-3),
-            f"{MOE_ARCH} decode logits vs full forward at float32: max error {err}")
+    err = decode_vs_full(torch, c32, seed, serve_prompts, serve_len, serve_gen)
     log(f"[16] (b) {MOE_ARCH} at float32, {check_groups} groups + layer 0, capacity "
         f"factor {c32.capacity_factor:g} (no drops): the last of {serve_gen} decode "
-        f"steps' logits == the full forward over {seq_all.shape[1]} tokens within atol "
-        f"2e-3, rtol 1e-3 (max error {err:.3g}; {card})")
+        f"steps' logits == the full forward over {serve_len + serve_gen} tokens within "
+        f"atol 2e-3, rtol 1e-3 (max error {err:.3g}; {card})")
     summary["moe_decode_vs_full_max_err"] = err
-    del p32, cache, logits, full
 
     # (c) training at full width with fewer groups, in-situ every cadence.
     kernels = kernel_wrappers(HACC_KERNELS)
     tcfg = get_config(MOE_ARCH).scaled(n_layers=train_groups)
     t_params = count_params(lm.model_spec(tcfg.smoke() if smoke else tcfg))
-    tracer, launches, last = SpanTracer(), [], []
-
-    def hook(i):
-        if last:
-            j = last.pop()
-            got = {k: fn.launches for k, fn in kernels.items()}
-            if j % cadence == 0:
-                launches.append((j, got))
-            else:
-                require(not any(got.values()),
-                        f"launches {got} at step {j}, which has no analysis")
-        reset_counts(kernels)
-        last.append(i)
+    tracer = SpanTracer()
+    hook, launches = analysis_hook(kernels, cadence)
 
     (SRC.parent / "build").mkdir(exist_ok=True)
     ckpt = tempfile.mkdtemp(dir=str(SRC.parent / "build"))
@@ -4562,8 +4688,7 @@ def phase16_attention_moe(seed: int, card: str, smoke: bool = False,
 
     # (d) gemma2-9b serves a long prompt at full size.
     held = torch.cuda.memory_allocated()
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_card(torch)
     log(f"[16] (d) device memory allocated before: {held / 2**30:.2f} GiB, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after a collection ({card})")
     gcfg = get_config(GEMMA_ARCH)
@@ -4603,6 +4728,215 @@ def phase16_attention_moe(seed: int, card: str, smoke: bool = False,
                    gemma_chunked_rel={k: r["rel"] for k, r in layers.items()},
                    s=round(time.perf_counter() - t_all, 1))
     log(f"[16] summary: {json.dumps(summary)}")
+    return summary
+
+
+JAMBA_ARCH, VISION_ARCH, SEAMLESS_ARCH = HYBRID_ARCHS
+
+
+# Phase 17's shapes: requests of SERVE_LEN tokens decoded SERVE_GEN;
+# jamba at one group (8 layers) of JAMBA_EXPERTS experts has JAMBA_PARAMS
+# parameters (one group at its published 16 experts has 4.52e10, 90.5 GB
+# in bf16: more than the card holds); seamless trains TRAIN_STEPS steps
+# of TRAIN_BATCH x TRAIN_SEQ tokens with the analysis every CADENCE.
+SERVE_PROMPTS, SERVE_LEN, SERVE_GEN, LONG_LEN = 4, 32, 16, 8192
+JAMBA_EXPERTS, JAMBA_PARAMS = 8, 2.59e10
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, CADENCE = 10, 8, 128, 5
+
+
+def phase17_hybrid(seed: int, card: str, smoke: bool = False):
+    """Phase 17: Mamba, cross-attention and the encoder at full width
+    through the port's entry points. (a) jamba-1.5-large serves one group
+    (8 layers: attention, 7 Mamba, 4 MoE) at ``JAMBA_EXPERTS`` experts in
+    bf16 (``launch.serve.main(config=)``, timed on its second call), then
+    one ``LONG_LEN``-token prompt; (b) at float32, the last of
+    ``SERVE_GEN`` decode steps' logits against the full forward for jamba
+    (one group, 2 experts with no-drop capacity, ``ssm_chunk`` 16 so that
+    the 48 tokens run as 3 chunks), llama-3.2-vision (one group of 5 layers with
+    its cross layer) and seamless at full size; (c) llama-3.2-vision-11b
+    serves at full size (bf16); (d) seamless trains ``TRAIN_STEPS`` steps
+    at full size (bf16, float32 moments) with the in-situ analysis every
+    ``CADENCE`` steps, then serves on the trained weights
+    (``launch.serve.main(params=)``). ``smoke``: the reduced configs, for
+    a rehearsal."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, train
+    from repro_torch.models import lm
+    from repro_torch.models.spec import count_params
+    from repro_torch.obs import SpanTracer
+    from repro_torch.tree import leaves
+
+    t_all = time.perf_counter()
+    summary = {"card": card}
+    common = ["--seed", str(seed), "--device", DEV] + (["--smoke"] if smoke else [])
+    pdt = "float32" if smoke else "bf16"
+    reduce = (lambda c: c.smoke()) if smoke else (lambda c: c)
+    serve_argv = common + ["--requests", str(SERVE_PROMPTS), "--prompt-len",
+                           str(SERVE_LEN), "--gen-tokens", str(SERVE_GEN)]
+
+    def bound(cfg, n_params, requests, cache_len):
+        nbytes = decode_bytes(cfg, n_params, requests, cache_len, 4 if smoke else 2)
+        return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+
+    # (a) jamba: one group at full width, fewer experts.
+    jcfg = get_config(JAMBA_ARCH).scaled(n_layers=8, n_experts=JAMBA_EXPERTS)
+    j_params = count_params(lm.model_spec(reduce(jcfg)))
+    require(smoke or abs(j_params - JAMBA_PARAMS) / JAMBA_PARAMS < 0.01,
+            f"{JAMBA_ARCH} at one group has {j_params} parameters")
+    free_card(torch)
+    served, peak = serve_twice(serve, ["--arch", JAMBA_ARCH] + serve_argv, jcfg)
+    require(served["tokens"].shape == (SERVE_PROMPTS, SERVE_GEN), "jamba's tokens")
+    nbytes, b_ms = bound(reduce(jcfg), j_params, SERVE_PROMPTS, SERVE_LEN + SERVE_GEN)
+    pre_ms, dec_ms = served["prefill_ms"], served["decode_ms_per_step"]
+    log(f"[17] (a) serve {JAMBA_ARCH} (launch.serve, {pdt}, second call): one group "
+        f"({jcfg.n_layers} layers {list(jcfg.block_pattern)}), {jcfg.n_experts} experts "
+        f"top-{jcfg.top_k}, {j_params} parameters; prefill {SERVE_PROMPTS} x {SERVE_LEN} "
+        f"tokens {pre_ms:.1f} ms, decode {dec_ms:.2f} ms a step ({SERVE_GEN - 1} steps of "
+        f"{SERVE_PROMPTS}); bytes bound of a decode step {nbytes / 1e9:.2f} GB / 3.35 TB/s "
+        f"= {b_ms:.2f} ms ({b_ms / dec_ms:.3f} of it); peak memory {peak / 2**30:.2f} GiB "
+        f"({card})")
+    summary.update(jamba_params=j_params, jamba_prefill_ms=round(pre_ms, 2),
+                   jamba_decode_ms_per_step=round(dec_ms, 3),
+                   jamba_decode_bound_ms=round(b_ms, 3),
+                   jamba_serve_peak_gib=round(peak / 2**30, 2))
+    del served
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    long = serve.main(["--arch", JAMBA_ARCH] + common + [
+        "--requests", "1", "--prompt-len", str(LONG_LEN), "--gen-tokens", str(SERVE_GEN)],
+        config=jcfg)
+    l_peak = torch.cuda.max_memory_allocated()
+    require(long["tokens"].shape == (1, SERVE_GEN), "jamba's long prompt's tokens")
+    _, l_bound = bound(reduce(jcfg), j_params, 1, LONG_LEN + SERVE_GEN)
+    chunk = reduce(jcfg).ssm_chunk
+    log(f"[17] (a) {JAMBA_ARCH}: 1 prompt of {LONG_LEN} tokens ({LONG_LEN // chunk} "
+        f"chunks of {chunk} in each Mamba layer, blockwise attention) {long['prefill_ms']:.1f} "
+        f"ms (first call), decode {long['decode_ms_per_step']:.2f} ms a step ({SERVE_GEN - 1} "
+        f"steps; bytes bound {l_bound:.2f} ms); peak memory {l_peak / 2**30:.2f} GiB ({card})")
+    summary.update(jamba_long_prefill_ms=round(long["prefill_ms"], 2),
+                   jamba_long_decode_ms_per_step=round(long["decode_ms_per_step"], 3),
+                   jamba_long_peak_gib=round(l_peak / 2**30, 2))
+    del long
+    free_card(torch)
+
+    # (b) float32 against the full forward.
+    f32 = dict(dtype="float32", param_dtype="float32")
+    checks = {
+        JAMBA_ARCH: get_config(JAMBA_ARCH).scaled(n_layers=8, n_experts=2, capacity_factor=2.0,
+                                                  ssm_chunk=16, **f32),
+        VISION_ARCH: get_config(VISION_ARCH).scaled(n_layers=5, **f32),
+        SEAMLESS_ARCH: get_config(SEAMLESS_ARCH).scaled(**f32)}
+    errs = {}
+    for arch, c32 in checks.items():
+        c32 = reduce(c32)
+        errs[arch] = decode_vs_full(torch, c32, seed, SERVE_PROMPTS, SERVE_LEN, SERVE_GEN)
+        log(f"[17] (b) {arch} at float32, {c32.n_layers} layers, "
+            f"{count_params(lm.model_spec(c32))} parameters: the last of {SERVE_GEN} decode "
+            f"steps' logits == the full forward over {SERVE_LEN + SERVE_GEN} tokens within "
+            f"atol 2e-3, rtol 1e-3 (max error {errs[arch]:.3g}; {card})")
+        free_card(torch)
+    summary["decode_vs_full_max_err"] = errs
+
+    # (c) llama-3.2-vision-11b at full size.
+    vcfg = reduce(get_config(VISION_ARCH))
+    v_params = count_params(lm.model_spec(vcfg))
+    require(smoke or abs(v_params - 9.81e9) / 9.81e9 < 0.01,
+            f"{VISION_ARCH} has {v_params} parameters")
+    served, peak = serve_twice(serve, ["--arch", VISION_ARCH] + serve_argv)
+    require(served["tokens"].shape == (SERVE_PROMPTS, SERVE_GEN), "llama's tokens")
+    nbytes, b_ms = bound(vcfg, v_params, SERVE_PROMPTS, SERVE_LEN + SERVE_GEN)
+    pre_ms, dec_ms = served["prefill_ms"], served["decode_ms_per_step"]
+    log(f"[17] (c) serve {VISION_ARCH} (launch.serve, {pdt}, second call): {v_params} "
+        f"parameters, {vcfg.frontend_tokens} x {vcfg.frontend_dim} vision embeddings a "
+        f"request; prefill {SERVE_PROMPTS} x {SERVE_LEN} tokens {pre_ms:.1f} ms, decode "
+        f"{dec_ms:.2f} ms a step; bytes bound {nbytes / 1e9:.2f} GB = {b_ms:.2f} ms "
+        f"({b_ms / dec_ms:.3f} of it); peak memory {peak / 2**30:.2f} GiB ({card})")
+    summary.update(vision_params=v_params, vision_prefill_ms=round(pre_ms, 2),
+                   vision_decode_ms_per_step=round(dec_ms, 3),
+                   vision_decode_bound_ms=round(b_ms, 3),
+                   vision_serve_peak_gib=round(peak / 2**30, 2))
+    del served
+    free_card(torch)
+
+    # (d) seamless trains at full size with the in-situ analysis.
+    scfg = reduce(get_config(SEAMLESS_ARCH))
+    s_params = count_params(lm.model_spec(scfg))
+    require(smoke or abs(s_params - 1.67e9) / 1.67e9 < 0.01,
+            f"{SEAMLESS_ARCH} has {s_params} parameters")
+    kernels = kernel_wrappers(HACC_KERNELS)
+    tracer = SpanTracer()
+    hook, launches = analysis_hook(kernels, CADENCE)
+
+    (SRC.parent / "build").mkdir(exist_ok=True)
+    ckpt = tempfile.mkdtemp(dir=str(SRC.parent / "build"))
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        out = train.main(["--arch", SEAMLESS_ARCH] + common + [
+            "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--ckpt-dir", ckpt, "--ckpt-every", str(TRAIN_STEPS + 1),
+            "--insitu-every", str(CADENCE), "--log-every", "1"],
+            fault_hook=hook, tracer=tracer)
+        secs = time.perf_counter() - t0
+        hook(TRAIN_STEPS)
+    finally:
+        shutil.rmtree(ckpt)
+    train_peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    step_s = [st.seconds for st in out["supervisor"].stats]
+    med = float(np.median(step_s[1:]))
+    require(len(losses) == TRAIN_STEPS and losses[-1] < losses[0],
+            f"{SEAMLESS_ARCH} training losses {losses}")
+    spans = [e for e in tracer.events if e["name"] == "insitu"]
+    require([j for j, _ in launches] == list(range(0, TRAIN_STEPS, CADENCE))
+            and len(spans) == len(launches), f"analyses at {[j for j, _ in launches]}")
+    for j, got in launches:
+        require(all(v > 0 for v in got.values()), f"the analysis at step {j} launched {got}")
+    ana = [(j, round(e["dur"] / 1e3, 1), got) for e, (j, got) in zip(spans, launches)]
+    for j, ms, got in ana:
+        log(f"[17] (d) analysis at step {j}: {ms} ms, launches {got}; "
+            f"{ {k: round(float(v), 4) for k, v in dict(out['insitu'])[j].items()} } ({card})")
+    frames = TRAIN_SEQ * TRAIN_BATCH + scfg.frontend_tokens * TRAIN_BATCH
+    log(f"[17] (d) train {SEAMLESS_ARCH} (launch.train, {pdt}, float32 moments), full size, "
+        f"{s_params} parameters, batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens + "
+        f"{scfg.frontend_tokens} frames of {scfg.frontend_dim}: losses "
+        f"{[round(x, 4) for x in losses]}; median step {med * 1e3:.1f} ms "
+        f"({TRAIN_BATCH * TRAIN_SEQ / med:.0f} decoder tokens/s, {frames / med:.0f} "
+        f"with the frames), first {step_s[0] * 1e3:.1f} ms; {secs:.1f} s with the checkpoint "
+        f"at the end; peak memory {train_peak / 2**30:.2f} GiB ({card})")
+    summary.update(seamless_params=s_params, seamless_train_step_ms=round(med * 1e3, 2),
+                   seamless_train_tokens_per_s=round(TRAIN_BATCH * TRAIN_SEQ / med),
+                   seamless_analysis_ms=[a[1] for a in ana],
+                   seamless_analysis_launches=ana[0][2],
+                   seamless_train_peak_gib=round(train_peak / 2**30, 2),
+                   seamless_train_s=round(secs, 1))
+
+    # ... then serves 4 prompts on the trained weights (launch.serve.main,
+    # timed on its second call).
+    params = out["state"].params
+    del out
+    free_card(torch)
+    require(all(bool(torch.isfinite(x).all()) for x in leaves(params)),
+            f"{SEAMLESS_ARCH}'s trained weights are finite")
+    served, s_peak = serve_twice(serve, ["--arch", SEAMLESS_ARCH] + serve_argv, params=params)
+    require(served["tokens"].shape == (SERVE_PROMPTS, SERVE_GEN), "seamless's served tokens")
+    nbytes, b_ms = bound(scfg, s_params, SERVE_PROMPTS, SERVE_LEN + SERVE_GEN)
+    pre_ms, dec_ms = served["prefill_ms"], served["decode_ms_per_step"]
+    log(f"[17] (d) serve {SEAMLESS_ARCH} on the trained weights (launch.serve, {pdt}, "
+        f"second call): prefill {SERVE_PROMPTS} x {SERVE_LEN} tokens + "
+        f"{scfg.frontend_tokens} frames (the encoder) {pre_ms:.1f} ms, decode {dec_ms:.2f} "
+        f"ms a step; bytes bound {nbytes / 1e9:.2f} GB = {b_ms:.2f} ms; peak memory "
+        f"{s_peak / 2**30:.2f} GiB ({card})")
+    summary.update(seamless_prefill_ms=round(pre_ms, 2),
+                   seamless_decode_ms_per_step=round(dec_ms, 3),
+                   seamless_decode_bound_ms=round(b_ms, 3),
+                   s=round(time.perf_counter() - t_all, 1))
+    del params, served
+    free_card(torch)
+    log(f"[17] summary: {json.dumps(summary)}")
     return summary
 
 
@@ -4731,6 +5065,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase16_attention_moe(args.seed, card)
     log(f"[16] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase17_hybrid(args.seed, card)
+    log(f"[17] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase9_kernel_line(launches_by_step, records,
                        nl_rows + grid_rows + pair_rows + halo_rows + pred_rows

@@ -1,9 +1,7 @@
 """Model/run configuration; port of ``repro/configs/base.py``, the same
 frozen dataclasses field for field (the port keeps its own copy). One
-config drives model construction and the train and serve entry points; the
-port builds every kind but ``cross`` and the Mamba ones, for which
-``repro_torch.models.lm.model_spec`` raises (ROADMAP A14 (c), (d)), as
-it does for an encoder or a frontend.
+config drives model construction and the train and serve entry points,
+for every block kind below, an encoder and a modality frontend.
 
 Block patterns: a model is ``n_layers`` layers arranged as ``n_layers //
 len(block_pattern)`` repeats of ``block_pattern`` (scanned groups). Entries:

@@ -51,11 +51,10 @@ class SyntheticTokens:
 
     def batch_at(self, step: int, host_index: int = 0, host_count: int = 1) -> dict:
         """Global batch for a step (or this host's rows): tokens and labels
-        (rows, seq_len) int32 and an all-true loss mask."""
+        (rows, seq_len) int32 and an all-true loss mask; with a frontend,
+        its stub's embeddings (rows, frontend_tokens, frontend_dim) f32,
+        one tensor under both ``frames`` and ``vision``."""
         cfg = self.cfg
-        if cfg.frontend_dim:
-            raise NotImplementedError(
-                "frontend inputs are not ported yet (ROADMAP A14 (d))")
         start, rows = self._host_slice(host_index, host_count)
         toks = np.empty((rows, cfg.seq_len + 1), np.int32)
         for r in range(rows):
@@ -67,9 +66,16 @@ class SyntheticTokens:
             base[1:] = np.where(mask, nxt, base[1:])
             toks[r] = base
         toks = torch.from_numpy(toks).to(self.device)
-        return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
-                "loss_mask": torch.ones((rows, cfg.seq_len), dtype=torch.bool,
-                                        device=self.device)}
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                 "loss_mask": torch.ones((rows, cfg.seq_len), dtype=torch.bool,
+                                         device=self.device)}
+        if cfg.frontend_dim:
+            frng = np.random.default_rng((cfg.seed, step, 77))
+            emb = frng.standard_normal(
+                (rows, cfg.frontend_tokens, cfg.frontend_dim), np.float32)
+            batch["frames"] = torch.from_numpy(emb).to(self.device)
+            batch["vision"] = batch["frames"]
+        return batch
 
 
 def make_clustered_points(rng: np.random.Generator, n: int, d: int = 3,

@@ -6,11 +6,14 @@ into a shared cache, and decode in lock-step batches, on the card.
       --requests 4 --gen-tokens 16 [--smoke] [--device cpu]
 
 ``main`` returns the generated tokens, (requests, gen-tokens), with the
-prefill's time and the decode's time per step.
+prefill's time and the decode's time per step. Called as a function, it
+also takes a ``config`` in place of ``--arch``'s (the same model with
+fewer groups or experts, say) and ``params`` in place of the seeded
+weights (a trained model's, say).
 
-Every architecture with attention, dense or MoE FFNs or xLSTM blocks
-serves; jamba-1.5-large raises naming ROADMAP A14 (c), llama-3.2-vision-11b
-and seamless-m4t-large-v2 A14 (d).
+Every architecture serves. The frontend's stub embeddings (vision
+patches, or audio frames for the encoder) are drawn after the prompts
+from the same seeded generator, as the reference draws them.
 """
 from __future__ import annotations
 
@@ -32,7 +35,11 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def main(argv=None) -> dict:
+def main(argv=None, *, config=None, params=None) -> dict:
+    """``config`` (a ``ModelConfig``) replaces ``--arch``'s config, and
+    ``--smoke`` still reduces it. ``params`` (a tree of tensors on the
+    device, of the config's spec) replaces the weights drawn from
+    ``--seed``; the prompts are drawn from it all the same."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="xlstm-350m")
     ap.add_argument("--smoke", action="store_true")
@@ -45,17 +52,25 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    cfg = get_config(args.arch)
+    cfg = config if config is not None else get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
-    params = init_params(lm.model_spec(cfg), args.seed,
-                         torch.float32 if args.smoke else torch.bfloat16, dev)
+    if params is None:
+        params = init_params(lm.model_spec(cfg), args.seed,
+                             torch.float32 if args.smoke else torch.bfloat16, dev)
 
     rng = np.random.default_rng(args.seed)
     b, s = args.requests, args.prompt_len
     cache_len = s + args.gen_tokens
     batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab, (b, s)),
                                     dtype=torch.int32, device=dev)}
+    emb_shape = (b, cfg.frontend_tokens, cfg.frontend_dim)
+    if cfg.frontend_dim and not cfg.encoder_layers:
+        batch["vision"] = torch.tensor(rng.standard_normal(emb_shape),
+                                       dtype=torch.float32, device=dev)
+    if cfg.encoder_layers:
+        batch["frames"] = torch.tensor(rng.standard_normal(emb_shape),
+                                       dtype=torch.float32, device=dev)
 
     _sync(dev)                      # the weights' initialisation done
     t0 = time.time()

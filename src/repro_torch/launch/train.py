@@ -15,10 +15,8 @@ a span tracer for the analyses and a ``config`` in place of ``--arch``'s
 the logged losses, the analyses' history and the supervisor (its
 per-step times are in ``supervisor.stats``).
 
-Every architecture with attention, dense or MoE FFNs or xLSTM blocks
-trains; jamba-1.5-large raises naming ROADMAP A14 (c) (Mamba),
-llama-3.2-vision-11b and seamless-m4t-large-v2 A14 (d) (cross-attention,
-the encoder, the frontends).
+Every architecture trains; the batches of those with a frontend carry
+its stub's embeddings (``SyntheticTokens``' frames).
 """
 from __future__ import annotations
 
@@ -78,7 +76,8 @@ def main(argv=None, *, fault_hook=None, tracer=None, config=None) -> dict:
                               total_steps=args.steps, moment_dtype="float32")
     data = SyntheticTokens(DataConfig(
         vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
-        seed=args.seed), device=dev)
+        seed=args.seed, frontend_tokens=cfg.frontend_tokens,
+        frontend_dim=cfg.frontend_dim), device=dev)
 
     def init_state():
         params = init_params(spec, args.seed,

@@ -1,5 +1,5 @@
 """GQA/MQA/MHA self-attention with RoPE, sliding windows, softcapping,
-QK-norm and the KV caches of prefill and decode; port of
+QK-norm, cross-attention and the KV caches of prefill and decode; port of
 ``repro/models/attention.py``.
 
 KV cache contract (decode): the cache holds ``S`` slots; the new token is
@@ -14,8 +14,9 @@ probabilities are cast back before the value product. Sequences of
 (``_sdpa_chunked``, an online softmax over (``Q_CHUNK``, ``KV_CHUNK``)
 tiles), so the (S, S) scores never materialize; it visits its tiles by
 position, where the reference's misses keys (ROADMAP C14).
-``cross_attention`` and ``encode_memory`` are not ported yet (ROADMAP
-A14 (d)).
+Cross-attention reads K and V that ``encode_memory`` projects once from
+the encoder's output or the frontend's embeddings, unmasked and without
+RoPE, as the reference's does.
 """
 from __future__ import annotations
 
@@ -220,11 +221,28 @@ def self_attention(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     return out, new_cache
 
 
-def cross_attention(p: dict, cfg: ModelConfig, x: torch.Tensor, memory_kv: KvCache):
-    raise NotImplementedError(
-        "cross-attention is not ported yet (ROADMAP A14 (d))")
+def cross_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                    memory_kv: KvCache) -> torch.Tensor:
+    """Cross-attention to precomputed encoder/frontend K,V (no mask): the
+    query gets no bias and no RoPE, only the QK-norm, as in the
+    reference."""
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    if cfg.qk_norm:
+        q = L.rmsnorm(p["q_norm"], q, cfg.norm_eps)
+    out = _sdpa(cfg, q, memory_kv.k, memory_kv.v, None)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
 
 
 def encode_memory(p: dict, cfg: ModelConfig, memory: torch.Tensor) -> KvCache:
-    raise NotImplementedError(
-        "the cross-attention memory is not ported yet (ROADMAP A14 (d))")
+    """Project encoder output / modality-frontend embeddings (B, T, D) to
+    the cross-attention K,V (B, T, kv, hd), in the memory's dtype."""
+    dt = memory.dtype
+    k = torch.einsum("btd,dhk->bthk", memory, p["wk"].to(dt))
+    v = torch.einsum("btd,dhk->bthk", memory, p["wv"].to(dt))
+    if cfg.attn_bias:
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    if cfg.qk_norm:
+        k = L.rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    return KvCache(k=k, v=v)

@@ -1,13 +1,13 @@
 """Sublayer/group assembly; port of ``repro/models/blocks.py``: every
 architecture is n_groups repeats of a block_pattern of sublayers.
 
-The port builds the attention kinds (``attn``, ``attn_local`` and their
-``*_moe`` forms, with a dense FFN when ``d_ff > 0``), the sandwich norms
-and the xLSTM kinds (``mlstm``, ``slstm``). The Mamba kinds raise
-``NotImplementedError`` naming ROADMAP A14 (c), cross-attention A14 (d).
-The reference's ``constrain_*`` calls are sharding constraints, the
-identity without a mesh (``parallel/sharding.py:165-262``), so the port
-has none.
+Every kind of the reference: self-attention (``attn``, ``attn_local``),
+cross-attention to the encoder's or the frontend's memory (``cross``),
+Mamba and the xLSTM pair (``mamba``, ``mlstm``, ``slstm``), each with a
+dense FFN when ``d_ff > 0`` or an MoE FFN in its ``*_moe`` form, and the
+sandwich norms. An unknown kind raises ``ValueError``. The reference's
+``constrain_*`` calls are sharding constraints, the identity without a
+mesh (``parallel/sharding.py:165-262``), so the port has none.
 """
 from __future__ import annotations
 
@@ -19,23 +19,14 @@ from repro_torch.models import layers as L
 from repro_torch.models import mlp as M
 from repro_torch.models import ssm as S
 
-PORTED_KINDS = ("attn", "attn_local", "mlstm", "slstm")
-_NOT_YET = {"mamba": "the Mamba block (ROADMAP A14 (c))",
-            "cross": "cross-attention (ROADMAP A14 (d))"}
-
-
-def unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet")
+KINDS = ("attn", "attn_local", "cross", "mamba", "mlstm", "slstm")
 
 
 def _base(kind: str) -> str:
-    """The sublayer kind without its ``_moe`` suffix; raises for a kind
-    the port does not build yet, and ``ValueError`` for an unknown one,
-    as the reference does."""
+    """The sublayer kind without its ``_moe`` suffix; ``ValueError`` for an
+    unknown one, as the reference raises."""
     base = kind.removesuffix("_moe")
-    if base in _NOT_YET:
-        raise unported(_NOT_YET[base])
-    if base not in PORTED_KINDS:
+    if base not in KINDS:
         raise ValueError(kind)
     return base
 
@@ -53,8 +44,11 @@ def sublayer_spec(cfg: ModelConfig, kind: str, layer_in_group: int = 0) -> dict:
     base = _base(kind)
     d = cfg.d_model
     spec: dict = {"norm1": L.rmsnorm_spec(d)}
-    if base in ("attn", "attn_local"):
+    if base in ("attn", "attn_local", "cross"):
+        # cross K/V read the memory, pre-projected to d_model: same spec
         spec["attn"] = A.attn_spec(cfg)
+    elif base == "mamba":
+        spec["mamba"] = S.mamba_spec(cfg)
     elif base == "mlstm":
         spec["mlstm"] = S.mlstm_spec(cfg)
     else:
@@ -74,15 +68,24 @@ def sublayer_spec(cfg: ModelConfig, kind: str, layer_in_group: int = 0) -> dict:
 def sublayer_cache_shape(cfg: ModelConfig, kind: str, batch: int, cache_len: int):
     """Zero-initialized decode cache for one sublayer: {name: (shape,
     dtype)}. Attention keeps K and V of ``cache_len`` slots in the
-    activations' dtype; the recurrent states are f32 and do not grow with
+    activations' dtype, cross-attention the memory's K and V of
+    ``max(frontend_tokens, 1)`` slots; the recurrent states are f32 (but
+    Mamba's conv window, in the activations' dtype) and do not grow with
     ``cache_len``."""
     base = _base(kind)
     kv, hd, h = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_heads
+    di = cfg.ssm_expand * cfg.d_model
     f32 = torch.float32
     act = torch.bfloat16 if cfg.dtype == "bfloat16" else f32
     if base in ("attn", "attn_local"):
         return {"k": ((batch, cache_len, kv, hd), act),
                 "v": ((batch, cache_len, kv, hd), act)}
+    if base == "cross":
+        t = max(cfg.frontend_tokens, 1)
+        return {"mk": ((batch, t, kv, hd), act), "mv": ((batch, t, kv, hd), act)}
+    if base == "mamba":
+        return {"state": ((batch, di, cfg.ssm_state), f32),
+                "conv": ((batch, cfg.ssm_conv - 1, di), act)}
     if base == "mlstm":
         return {"C": ((batch, h, hd, hd), f32), "n": ((batch, h, hd), f32)}
     return {"h": ((batch, h, hd), f32), "c": ((batch, h, hd), f32),
@@ -93,7 +96,8 @@ def sublayer_apply(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
                    ctx: dict, cache: dict | None):
     """Returns (x, new_cache, aux_loss). ctx keys: positions (B,S) or
     (B,1) absolute positions; mode ("train" | "prefill" | "decode");
-    cache_pos (decode); causal (optional, default True)."""
+    cache_pos (decode); causal (optional, default True); memory (B,T,D),
+    the cross-attention memory (train and prefill)."""
     base = _base(kind)
     mode = ctx["mode"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -117,6 +121,23 @@ def sublayer_apply(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
                     name: torch.cat([new.to(old.dtype), old[:, s:]], dim=1)
                     for name, new, old in (("k", kvc.k, cache["k"]),
                                            ("v", kvc.v, cache["v"]))}
+    elif base == "cross":
+        if mode == "decode":
+            mem_kv = A.KvCache(cache["mk"], cache["mv"])
+            new_cache = dict(cache)
+        else:
+            mem_kv = A.encode_memory(p["attn"], cfg, ctx["memory"])
+            if mode == "prefill":
+                new_cache = {"mk": mem_kv.k, "mv": mem_kv.v}
+        out = A.cross_attention(p["attn"], cfg, h, mem_kv)
+    elif base == "mamba":
+        if mode == "decode":
+            out, (st, cv) = S.mamba(p["mamba"], cfg, h, state=cache["state"],
+                                    conv_state=cache["conv"])
+        else:
+            out, (st, cv) = S.mamba(p["mamba"], cfg, h)
+        if mode != "train":
+            new_cache = {"state": st, "conv": cv}
     elif base == "mlstm":
         if mode == "decode":
             out, (C, n) = S.mlstm(p["mlstm"], cfg, h, state=(cache["C"], cache["n"]))

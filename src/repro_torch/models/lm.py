@@ -1,7 +1,6 @@
-"""The decoder LM and its train / prefill / decode entry points; port of
-``repro/models/lm.py`` for the architectures whose blocks are ported:
-attention (with a dense or MoE FFN, and deepseek's dense layer 0) and
-xLSTM.
+"""The decoder LM (all ten architectures), its optional bidirectional
+encoder (enc-dec) and modality frontend, and the train / prefill / decode
+entry points; port of ``repro/models/lm.py``.
 
 Parameters for the repeated block group are stacked on a leading
 ``n_groups`` axis, as in the reference; the reference's ``lax.scan``
@@ -10,8 +9,10 @@ recomputed in the backward (``layers.remat``, as the reference's
 ``nothing_saveable`` remat), so only the groups' inputs are kept. The loss is chunked over the sequence (``LOSS_CHUNK``) and each
 chunk is recomputed in the backward too (the reference's
 ``jax.checkpoint(chunk)``), so the (B, S, vocab) logits never
-materialize, in training either. An encoder or a modality frontend
-raises (ROADMAP A14 (d)).
+materialize, in training either. The cross-attention memory is the
+encoder's output over the frames (seamless) or the projected patch
+embeddings (llama-3.2-vision); train and prefill compute it, and decode
+reads its K and V from the cache.
 """
 from __future__ import annotations
 
@@ -43,11 +44,12 @@ def _dense_cfg(cfg: ModelConfig) -> ModelConfig:
                       n_experts=0)
 
 
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The encoder's layers: ``attn`` groups without experts."""
+    return cfg.scaled(block_pattern=("attn",), n_experts=0)
+
+
 def model_spec(cfg: ModelConfig) -> dict:
-    if cfg.frontend_dim:
-        raise B.unported("the modality frontend (ROADMAP A14 (d))")
-    if cfg.encoder_layers:
-        raise B.unported("the encoder (ROADMAP A14 (d))")
     d = cfg.d_model
     spec: dict = {
         # std 1/sqrt(d): tied logits land at O(1); gemma-style scale_embed
@@ -61,6 +63,13 @@ def model_spec(cfg: ModelConfig) -> dict:
         spec["lm_head"] = TensorSpec((d, cfg.padded_vocab), ("embed", "vocab"))
     if cfg.first_layer_dense_ff:  # deepseek: dense layer 0
         spec["layer0"] = B.group_spec(_dense_cfg(cfg))
+    if cfg.frontend_dim:
+        spec["frontend_proj"] = TensorSpec((cfg.frontend_dim, d), (None, "embed"))
+    if cfg.encoder_layers:
+        spec["encoder"] = {
+            "layers": stack_specs(B.group_spec(_encoder_cfg(cfg)), cfg.encoder_layers),
+            "final_norm": L.rmsnorm_spec(d),
+        }
     return spec
 
 
@@ -97,6 +106,51 @@ def _logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 def _group(tree, g: int):
     """Group ``g``'s slice of a tree stacked on the leading groups axis."""
     return tree_map(lambda x: x[g], tree)
+
+
+def _frontend(params, cfg: ModelConfig, emb: torch.Tensor) -> torch.Tensor:
+    """Frontend embeddings (B, T, frontend_dim) projected to d_model."""
+    dt = _dtype(cfg)
+    return torch.einsum("btf,fd->btd", emb.to(dt), params["frontend_proj"].to(dt))
+
+
+def _run_encoder(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """Bidirectional encoder over frontend embeddings (B, T, frontend_dim):
+    positions 0..T-1, no causal mask, each layer recomputed in the
+    backward as the decoder's groups are."""
+    enc_cfg = _encoder_cfg(cfg)
+    h = _frontend(params, cfg, frames)
+    b, t = h.shape[:2]
+    pos = torch.arange(t, device=h.device)[None].expand(b, t)
+    ctx = {"mode": "train", "positions": pos, "causal": False}
+    enc = params["encoder"]
+    for g in range(cfg.encoder_layers):
+        h, _, _ = L.remat(B.group_apply, enc_cfg, _group(enc["layers"], g), h, ctx, None)
+    return L.rmsnorm(enc["final_norm"], h, cfg.norm_eps)
+
+
+def _memory(params, cfg: ModelConfig, batch: dict) -> torch.Tensor | None:
+    """Cross-attention memory: the encoder's output (audio) or the
+    projected patch embeddings (vlm); None without a frontend. The
+    modality frontend itself is a stub: the batch carries its
+    embeddings."""
+    if cfg.encoder_layers:
+        return _run_encoder(params, cfg, batch["frames"])
+    if cfg.frontend_dim:
+        return _frontend(params, cfg, batch["vision"])
+    return None
+
+
+def _context(params, cfg: ModelConfig, batch: dict, mode: str) -> dict:
+    """The stack's context of a full sequence (train or prefill)."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    ctx = {"mode": mode,
+           "positions": torch.arange(s, device=tokens.device)[None].expand(b, s)}
+    mem = _memory(params, cfg, batch)
+    if mem is not None:
+        ctx["memory"] = mem
+    return ctx
 
 
 def _run_stack(params, cfg: ModelConfig, h: torch.Tensor, ctx: dict, cache=None):
@@ -153,14 +207,11 @@ def _chunked_xent(params, cfg: ModelConfig, h: torch.Tensor, labels: torch.Tenso
 
 
 def train_loss(params, cfg: ModelConfig, batch: dict):
-    """batch: tokens (B,S) int, labels (B,S) int, loss_mask (B,S) bool.
+    """batch: tokens (B,S) int, labels (B,S) int, loss_mask (B,S) bool,
+    plus frames (B,T,F) for an encoder or vision (B,T,F) for a frontend.
     Returns (total, {"loss", "aux_loss", "tokens"})."""
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    h = _embed(params, cfg, tokens)
-    pos = torch.arange(s, device=tokens.device)[None].expand(b, s)
-    ctx = {"mode": "train", "positions": pos}
-    h, _, aux = _run_stack(params, cfg, h, ctx)
+    h = _embed(params, cfg, batch["tokens"])
+    h, _, aux = _run_stack(params, cfg, h, _context(params, cfg, batch, "train"))
     loss = _chunked_xent(params, cfg, h, batch["labels"], batch["loss_mask"])
     total = loss + 0.01 * aux
     return total, {"loss": loss, "aux_loss": aux,
@@ -194,14 +245,14 @@ def prefill(params, cfg: ModelConfig, batch: dict, cache_len: int | None = None)
     """Run the full prompt; returns (last-position logits, cache). The
     cache is allocated at ``cache_len`` (>= prompt length) so decode can
     append: attention writes the prompt's K/V into slots [0, s), the
-    recurrent blocks keep only their final states."""
+    recurrent blocks keep only their final states, cross-attention the
+    memory's K/V."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     h = _embed(params, cfg, tokens)
-    pos = torch.arange(s, device=tokens.device)[None].expand(b, s)
-    ctx = {"mode": "prefill", "positions": pos}
     cache0 = init_cache(cfg, b, cache_len or s, device=tokens.device)
-    h, new_cache, _ = _run_stack(params, cfg, h, ctx, cache0)
+    h, new_cache, _ = _run_stack(params, cfg, h, _context(params, cfg, batch, "prefill"),
+                                 cache0)
     return _logits(params, cfg, h[:, -1:, :]), new_cache
 
 

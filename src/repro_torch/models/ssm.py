@@ -1,7 +1,7 @@
-"""The xLSTM pair: mLSTM (matrix memory, chunkwise parallel) and sLSTM
-(scalar memory, sequential recurrence); port of ``repro/models/ssm.py``
-(``:157-404``). Mamba, the file's third block, is not ported yet
-(ROADMAP A14 (c)).
+"""State-space and recurrent blocks; port of ``repro/models/ssm.py``:
+Mamba (selective SSM, ``:35-150``), and the xLSTM pair, mLSTM (matrix
+memory, chunkwise parallel) and sLSTM (scalar memory, sequential
+recurrence, ``:157-404``).
 
 Precision follows the reference: where it asks a product of bf16
 operands for an f32 result (``preferred_element_type=f32``), the port
@@ -9,21 +9,29 @@ upcasts the operands to f32 before the product, since a bf16 matmul in
 torch rounds its result to bf16. In float32 the upcasts are no-ops.
 Keep TF32 off on the card (``torch.backends.cuda.matmul.allow_tf32``).
 
-Both run in torch ops: the reference computes them outside any Pallas
-kernel. sLSTM's backward is hand-written (``SlstmScan``), as the
-reference's ``jax.custom_vjp`` is; ``slstm_scan_plain`` is the same
-recurrence under torch's own autograd, the yardstick of its tests.
+All three run in torch ops: the reference computes them outside any
+Pallas kernel. Mamba's chunk scan is ``associative_scan``, a copy of
+``jax.lax.associative_scan``'s odd/even recursion, so it combines the
+elements in the reference's order in 2 log2(c) levels of whole-tensor
+ops (no loop over tokens); the chunks run in a loop, each recomputed in
+the backward as the reference's ``jax.checkpoint(chunk_step)`` is.
+sLSTM's backward is hand-written (``SlstmScan``), as the reference's
+``jax.custom_vjp`` is; ``slstm_scan_plain`` is the same recurrence under
+torch's own autograd, the yardstick of its tests.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
 from repro_torch.models.spec import TensorSpec
 
-__all__ = ["mlstm_spec", "mlstm", "slstm_spec", "slstm", "slstm_scan",
-           "slstm_scan_plain", "SlstmScan"]
+__all__ = ["mamba_spec", "mamba", "associative_scan", "mlstm_spec", "mlstm",
+           "slstm_spec", "slstm", "slstm_scan", "slstm_scan_plain", "SlstmScan"]
 
 F32 = torch.float32
 
@@ -40,6 +48,189 @@ def _up(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``x`` rounded to ``dtype`` and read back as f32: a bf16 operand of
     a product whose result the reference keeps in f32."""
     return x.to(dtype).float()
+
+
+# ---------------------------------------------------------------------------
+# Mamba
+# ---------------------------------------------------------------------------
+
+def _dt_rank(cfg: ModelConfig) -> int:
+    return max(1, math.ceil(cfg.d_model / 16))
+
+
+def mamba_spec(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    di = cfg.ssm_expand * d
+    ds = cfg.ssm_state
+    dtr = _dt_rank(cfg)
+    return {
+        "in_proj": TensorSpec((d, 2 * di), ("embed", "mlp")),
+        "conv_w": TensorSpec((cfg.ssm_conv, di), (None, "mlp"), scale=cfg.ssm_conv ** -0.5),
+        "conv_b": TensorSpec((di,), ("mlp",), init="zeros"),
+        "x_proj": TensorSpec((di, dtr + 2 * ds), ("mlp", None)),
+        "dt_proj": TensorSpec((dtr, di), (None, "mlp"), scale=dtr ** -0.5),
+        "dt_bias": TensorSpec((di,), ("mlp",), init="zeros"),
+        "a_log": TensorSpec((di, ds), ("mlp", None), init="ones"),
+        "d_skip": TensorSpec((di,), ("mlp",), init="ones"),
+        "out_proj": TensorSpec((di, d), ("mlp", "embed")),
+    }
+
+
+class _Softplus(torch.autograd.Function):
+    """``jax.nn.softplus``, which is ``jnp.logaddexp(x, 0)``: max(x, 0) +
+    log1p(exp(-|x|)) in ``x``'s dtype (``F.softplus`` returns ``x`` past
+    a threshold and rounds otherwise below it), with ``logaddexp``'s
+    custom JVP as its backward: the cotangent times exp(x - out)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g * torch.exp(x - out)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    return _Softplus.apply(x)
+
+
+def _slice(t: torch.Tensor, axis: int, start: int, stop: int | None,
+           step: int = 1) -> torch.Tensor:
+    return t[(slice(None),) * axis + (slice(start, stop, step),)]
+
+
+def _interleave(a: torch.Tensor, b: torch.Tensor, axis: int) -> torch.Tensor:
+    """``a[0], b[0], a[1], b[1], ...`` along ``axis``; ``a`` is as long as
+    ``b`` or one longer."""
+    nb = b.shape[axis]
+    out = torch.stack([_slice(a, axis, 0, nb), b], dim=axis + 1).flatten(axis, axis + 1)
+    if a.shape[axis] > nb:
+        out = torch.cat([out, _slice(a, axis, nb, None)], dim=axis)
+    return out
+
+
+def associative_scan(fn, elems: list, axis: int = 0) -> list:
+    """Inclusive scan of ``fn`` over ``axis`` of every tensor of ``elems``
+    (a list of tensors of one length along ``axis``), with
+    ``jax.lax.associative_scan``'s recursion, so its combines are the
+    reference's, in its order: combine adjacent pairs, scan those
+    recursively (the odd elements of the result), combine each with the
+    next even element of the input (the even ones), interleave. ``fn``
+    takes and returns lists of tensors."""
+    n = elems[0].shape[axis]
+    if n < 2:
+        return elems
+    reduced = fn([_slice(e, axis, 0, -1, 2) for e in elems],
+                 [_slice(e, axis, 1, None, 2) for e in elems])
+    odd = associative_scan(fn, reduced, axis)
+    if n % 2 == 0:
+        even = fn([_slice(e, axis, 0, -1) for e in odd],
+                  [_slice(e, axis, 2, None, 2) for e in elems])
+    else:
+        even = fn(odd, [_slice(e, axis, 2, None, 2) for e in elems])
+    even = [torch.cat([_slice(e, axis, 0, 1), r], dim=axis) for e, r in zip(elems, even)]
+    return [_interleave(e, o, axis) for e, o in zip(even, odd)]
+
+
+def _combine(e1: list, e2: list) -> list:
+    """The linear recurrence's combine: (a1, b1) then (a2, b2) is
+    (a1 a2, b1 a2 + b2)."""
+    a1, b1 = e1
+    a2, b2 = e2
+    return [a1 * a2, b1 * a2 + b2]
+
+
+def _mamba_gates(p: dict, cfg: ModelConfig, xz: torch.Tensor, conv_state=None):
+    """Shared front half: split, causal depthwise conv, selective params.
+    xz: (B, S, 2*di). Returns (x, z, dt, bsel, csel, new_conv_state)."""
+    di = cfg.ssm_expand * cfg.d_model
+    ds = cfg.ssm_state
+    dtr = _dt_rank(cfg)
+    x, z = xz[..., :di], xz[..., di:]
+    dt_ = x.dtype
+
+    k = cfg.ssm_conv
+    if conv_state is None:  # full-sequence causal depthwise conv
+        b, s = x.shape[:2]
+        pad = torch.zeros((b, k - 1, di), dtype=dt_, device=x.device)
+        xp = torch.cat([pad, x], dim=1)
+        new_conv_state = xp[:, xp.shape[1] - (k - 1):] if k > 1 else pad
+        w = p["conv_w"].to(dt_)
+        acc = xp[:, 0:s] * w[0]
+        for i in range(1, k):       # the reference's sum(), in its order
+            acc = acc + xp[:, i:i + s] * w[i]
+        x = acc
+    else:  # single step: conv_state (B, k-1, di)
+        window = torch.cat([conv_state, x], dim=1)            # (B, k, di)
+        new_conv_state = window[:, 1:]
+        x = torch.einsum("bkd,kd->bd", window, p["conv_w"].to(dt_))[:, None, :]
+    x = F.silu(x + p["conv_b"].to(dt_))
+
+    sel = torch.einsum("bsd,dr->bsr", x, p["x_proj"].to(dt_))
+    dt = _softplus(torch.einsum("bsr,rd->bsd", sel[..., :dtr], p["dt_proj"].to(dt_))
+                   + p["dt_bias"].to(dt_))                     # (B,S,di)
+    bsel = sel[..., dtr:dtr + ds]                              # (B,S,ds)
+    csel = sel[..., dtr + ds:]                                 # (B,S,ds)
+    return x, z, dt, bsel, csel, new_conv_state
+
+
+def _mamba_chunk(a: torch.Tensor, h0: torch.Tensor, dt_c: torch.Tensor,
+                 x_c: torch.Tensor, b_c: torch.Tensor, c_c: torch.Tensor):
+    """One chunk of the scan, all f32: the (B, c, di, ds) decay and drive,
+    their associative scan along the chunk, the carried-in state ``h0``
+    applied. Returns (the chunk's last state, y (B, c, di))."""
+    dec = torch.exp(dt_c[..., None] * a)                       # (B,c,di,ds)
+    drv = (dt_c * x_c)[..., None] * b_c[:, :, None, :]
+    acum, hloc = associative_scan(_combine, [dec, drv], axis=1)
+    hs = hloc + acum * h0[:, None]                             # (B,c,di,ds)
+    y_c = torch.einsum("bcdn,bcn->bcd", hs, c_c)               # (B,c,di)
+    return hs[:, -1], y_c
+
+
+def mamba(p: dict, cfg: ModelConfig, h_in: torch.Tensor, *, state=None,
+          conv_state=None):
+    """Mamba block. Full-sequence mode (state=None) or decode mode (state
+    (B, di, ds) f32, conv_state (B, k-1, di), h_in (B, 1, D)). Returns
+    (out, (state, conv_state)). The full sequence runs in chunks of
+    ``_chunk_len(s, ssm_chunk)`` tokens, so only one chunk's (B, c, di,
+    ds) tensors exist at a time (in the backward too: each chunk is
+    recomputed there)."""
+    di = cfg.ssm_expand * cfg.d_model
+    ds = cfg.ssm_state
+    dt_ = h_in.dtype
+    xz = torch.einsum("bsd,de->bse", h_in, p["in_proj"].to(dt_))
+    a = -torch.exp(p["a_log"].float())                         # (di, ds)
+
+    if state is None:
+        x, z, dt, bsel, csel, conv_out = _mamba_gates(p, cfg, xz)
+        b, s, _ = x.shape
+        c = _chunk_len(s, cfg.ssm_chunk)
+        dt32, x32, b32, c32 = dt.float(), x.float(), bsel.float(), csel.float()
+        h = torch.zeros((b, di, ds), dtype=F32, device=h_in.device)
+        ys = []
+        for j in range(s // c):
+            sl = slice(j * c, (j + 1) * c)
+            h, y_c = L.remat(_mamba_chunk, a, h, dt32[:, sl], x32[:, sl],
+                             b32[:, sl], c32[:, sl])
+            ys.append(y_c)
+        y = torch.cat(ys, dim=1)                               # (B,S,di)
+        new_state = h
+    else:
+        x, z, dt, bsel, csel, conv_out = _mamba_gates(p, cfg, xz, conv_state)
+        dta = dt[:, 0].float()                                 # (B,di)
+        decay = torch.exp(dta[..., None] * a)                  # (B,di,ds)
+        drive = (dta * x[:, 0].float())[..., None] * bsel[:, 0].float()[:, None, :]
+        new_state = decay * state + drive
+        y = torch.einsum("bdn,bn->bd", new_state, csel[:, 0].float())[:, None]
+
+    y = y.to(dt_) + x * p["d_skip"].to(dt_)
+    y = y * F.silu(z)
+    out = torch.einsum("bse,ed->bsd", y, p["out_proj"].to(dt_))
+    return out, (new_state, conv_out)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 JAX reference's (``repro/models/attention.py``) on the same weights and
 inputs: train, prefill and decode over GQA rep 1, 2 and 4 and MQA, with
 QKV bias, QK-norm, a softcap and a sliding window; the blockwise path
-with its chunks shrunk so that several chunks and a window's span run.
+with its chunks shrunk so that several chunks and a window's span run;
+cross-attention to a memory's K and V.
 
 Tolerances (float32): the packages sum in different orders (XLA's dots
 against torch's), so outputs agree within rtol 1e-5 and atol 2e-6 of
@@ -250,9 +251,42 @@ def test_chunked_self_attention_and_gradients_match_reference(monkeypatch):
         close(g, w, 1e-4, 1e-6 * scale, f"d{name}")
 
 
-def test_cross_attention_raises_naming_a14_d():
-    cfg, _, _, p = _layer(8, features=False)
-    with pytest.raises(NotImplementedError, match=r"A14 \(d\)"):
-        A.cross_attention(p, cfg, torch.zeros(1, 1, 32), None)
-    with pytest.raises(NotImplementedError, match=r"A14 \(d\)"):
-        A.encode_memory(p, cfg, torch.zeros(1, 1, 32))
+@pytest.mark.parametrize("n_kv", [8, 2])
+@pytest.mark.parametrize("features", [False, True])
+def test_cross_attention_and_encode_memory_match_reference(n_kv, features):
+    """``encode_memory`` projects a memory of 7 positions (another length
+    than the 12 queries) to K and V, with the KV bias and the K-norm when
+    ``features`` is on; ``cross_attention`` attends to them unmasked with
+    the Q-norm (no query bias, no RoPE), at GQA rep 1 and 4. Outputs
+    within the module's tolerance, gradients of every weight, the queries
+    and the memory within rtol 1e-4, atol 1e-6 of their largest entry."""
+    cfg, jcfg, jp, p = _layer(n_kv, features, seed=3 + n_kv)
+    x, mem = _x(), _x(7, seed=4)
+    cot = np.random.default_rng(5).standard_normal((B, S, 32)).astype(np.float32)
+
+    def jloss(q, xx, mm):
+        kv = JA.encode_memory(q, jcfg, mm)
+        out = JA.cross_attention(q, jcfg, xx, kv)
+        return (out * cot).sum() + 0.1 * (kv.k.sum() + kv.v.sum()), (out, kv)
+
+    (_, (jout, jkv)), jg = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1, 2), has_aux=True))(jp, jnp.asarray(x), jnp.asarray(mem))
+    names = sorted(p)
+    ins = [p[k].clone().requires_grad_(True) for k in names] + \
+        [torch.tensor(x, requires_grad=True), torch.tensor(mem, requires_grad=True)]
+    q = dict(zip(names, ins[:-2]))
+    kv = A.encode_memory(q, cfg, ins[-1])
+    out = A.cross_attention(q, cfg, ins[-2], kv)
+    assert tuple(kv.k.shape) == (B, 7, n_kv, HD)
+    close(out, jout, what="out")
+    close(kv.k, jkv.k, what="k")
+    close(kv.v, jkv.v, what="v")
+    loss = (out * torch.tensor(cot)).sum() + 0.1 * (kv.k.sum() + kv.v.sum())
+    want = [jg[0][k] for k in names] + [jg[1], jg[2]]
+    grads = torch.autograd.grad(loss, ins, allow_unused=True)
+    for name, g, w in zip(names + ["x", "memory"], grads, want):
+        if name == "bq":      # cross-attention applies no query bias
+            assert g is None and float(jnp.abs(w).max()) == 0
+            continue
+        scale = max(float(np.abs(_np(w)).max()), 1.0)
+        close(g, w, 1e-4, 1e-6 * scale, f"d{name}")

@@ -311,7 +311,7 @@ def _bf16_layer(kind):
     entries by one unit in the last place, which is not what is tested."""
     cfg, jcfg = get_config(ARCH).smoke().scaled(head_dim=32, **BF16), \
         jax_get_config(ARCH).smoke().scaled(head_dim=32, **BF16)
-    spec = (JS.mlstm_spec if kind == "mlstm" else JS.slstm_spec)(jcfg)
+    spec = getattr(JS, f"{kind}_spec")(jcfg)
     jp = jax.tree.map(lambda x: x.astype(jnp.bfloat16),
                       jax_init_params(spec, jax.random.PRNGKey(1), jnp.float32))
     if kind == "mlstm":
@@ -322,18 +322,28 @@ def _bf16_layer(kind):
     return cfg, jcfg, jp, p, jh, torch.tensor(_f32(jh)).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
-def test_bf16_layer_forward_rounds_where_the_reference_does(kind):
+@pytest.mark.parametrize("kind", ["mlstm", "slstm", "mamba"])
+def test_bf16_layer_forward_rounds_where_the_reference_does(monkeypatch, kind):
     """Output within 5e-4 and every state within 1e-5 (the port: at most
-    1e-4 and 1.1e-7)."""
+    1e-4 and 1.1e-7). Mamba's state is f32 and its conv window bf16. Its
+    reference runs ``jax.nn.silu`` in f32 with one rounding, as torch's
+    kernel computes it (a monkeypatch, no file changed): XLA's CPU backend
+    rounds a bf16 SiLU op by op, which moves the output by 9.1e-3 of its
+    norm and the state by 7.7e-3; patched, the port's output and conv
+    window are bit-equal and its state within 6.9e-9 (the softplus, op by
+    op in bf16 in both packages, needs no patch)."""
     cfg, jcfg, jp, p, jh, h = _bf16_layer(kind)
     fn, jfn = getattr(S, kind), getattr(JS, kind)
+    if kind == "mamba":
+        silu = jax.nn.silu
+        monkeypatch.setattr(jax.nn, "silu",
+                            lambda x: silu(x.astype(jnp.float32)).astype(x.dtype))
     out, state = fn(p, cfg, h)
     jout, jstate = _exact_jit(lambda q, x: jfn(q, jcfg, x), jp, jh)
     assert out.dtype == torch.bfloat16
     assert _rel(out, jout) <= 5e-4, f"{kind} out: {_rel(out, jout):.3g}"
     for i, (a, b) in enumerate(zip(state, jstate)):
-        assert a.dtype == torch.float32
+        assert a.dtype == (torch.bfloat16 if (kind, i) == ("mamba", 1) else torch.float32)
         assert _rel(a, b) <= 1e-5, f"{kind} state {i}: {_rel(a, b):.3g}"
 
 

@@ -71,6 +71,26 @@ def test_synthetic_batches_are_the_reference_batches(step):
     np.testing.assert_array_equal(half["tokens"].numpy(), np.asarray(want["tokens"])[3:])
 
 
+@pytest.mark.parametrize("step", [0, 5])
+def test_synthetic_frames_are_the_reference_frames(step):
+    """With a frontend, the batches carry its stub's embeddings under both
+    ``frames`` and ``vision``, bit-equal to the reference's, float32 from
+    their own generator (seed, step, 77): the same for a host's rows."""
+    kw = dict(vocab=256, seq_len=12, global_batch=4, seed=5, frontend_tokens=6,
+              frontend_dim=10)
+    got = SyntheticTokens(DataConfig(**kw), device="cpu").batch_at(step)
+    want = JaxTokens(JaxDataConfig(**kw)).batch_at(step)
+    assert got.keys() == want.keys() == {"tokens", "labels", "loss_mask", "frames",
+                                         "vision"}
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    assert got["frames"].dtype == torch.float32 and got["vision"] is got["frames"]
+    half = SyntheticTokens(DataConfig(**kw), device="cpu").batch_at(step, 1, 2)
+    np.testing.assert_array_equal(half["frames"].numpy(),
+                                  np.asarray(JaxTokens(JaxDataConfig(**kw)).batch_at(
+                                      step, 1, 2)["frames"]))
+
+
 def test_training_reduces_loss():
     """The reference test's run (``tests/test_e2e.py:22-39``) on the port."""
     cfg = _cfg()
@@ -326,13 +346,77 @@ def test_train_cli_resumes_through_a_fault_bit_for_bit(tmp_path):
     assert [e["args"]["step"] for e in tracer.events if e["name"] == "insitu"] == [0, 5, 5, 10]
 
 
-@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "jamba-1.5-large-398b"])
-def test_entry_points_raise_naming_a14_for_unported_archs(arch, tmp_path):
-    with pytest.raises(NotImplementedError, match="A14"):
-        train_cli.main(["--arch", arch, "--smoke", "--device", "cpu",
-                           "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="A14"):
-        serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu"])
+HYBRID_ARCHS = ["jamba-1.5-large-398b", "llama-3.2-vision-11b", "seamless-m4t-large-v2"]
+
+
+@pytest.mark.parametrize("arch", HYBRID_ARCHS)
+def test_serve_cli_serves_hybrid_archs(arch, monkeypatch):
+    """Mamba (jamba, with ``config=`` at 4 experts, which ``--smoke``
+    keeps), the vision frontend (llama) and the encoder (seamless) serve
+    at smoke size; the prefill gets the prompts and then the frontend's
+    embeddings, drawn from one generator in the reference's order
+    (``repro/launch/serve.py:45-53``)."""
+    seen = []
+    prefill = steps.prefill_step
+    monkeypatch.setattr(steps, "prefill_step", lambda params, batch, **kw: (
+        seen.append(batch), prefill(params, batch, **kw))[1])
+    cfg = get_config(arch)
+    config = cfg.scaled(n_experts=4) if cfg.n_experts else None
+    out = serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "2",
+                          "--prompt-len", "10", "--gen-tokens", "4", "--seed", "3"],
+                         config=config)
+    gen = out["tokens"]
+    assert gen.shape == (2, 4) and (gen >= 0).all() and (gen < 256).all()
+    cfg = (config or cfg).smoke()
+    rng = np.random.default_rng(3)
+    want = {"tokens": rng.integers(0, cfg.vocab, (2, 10))}
+    emb = (2, cfg.frontend_tokens, cfg.frontend_dim)
+    if cfg.frontend_dim and not cfg.encoder_layers:
+        want["vision"] = rng.standard_normal(emb).astype(np.float32)
+    if cfg.encoder_layers:
+        want["frames"] = rng.standard_normal(emb).astype(np.float32)
+    batch, = seen
+    assert batch.keys() == want.keys()
+    for k, v in want.items():
+        np.testing.assert_array_equal(batch[k].numpy(), v)
+    if config is not None:
+        assert cfg.n_experts == 4
+
+
+def test_train_cli_trains_seamless_with_its_encoder(tmp_path):
+    """seamless at smoke size (the encoder over ``SyntheticTokens``'
+    frames, cross-attention in every other decoder layer): the loss falls
+    (``main`` asserts it) and the analysis runs at its cadence."""
+    out = train_cli.main(["--arch", "seamless-m4t-large-v2", "--smoke", "--device", "cpu",
+                          "--steps", "8", "--batch", "4", "--seq", "16",
+                          "--ckpt-dir", str(tmp_path), "--insitu-every", "4",
+                          "--log-every", "1"])
+    assert len(out["losses"]) == 8 and out["losses"][-1] < out["losses"][0]
+    assert [s for s, _ in out["insitu"]] == [0, 4]
+    assert "frontend_proj" in out["state"].params
+    assert out["state"].params["encoder"]["layers"]["sub0_attn"]["attn"]["wq"].shape[0] == 2
+
+
+def test_serve_cli_serves_given_weights():
+    """``main(params=)`` serves those weights in place of the seeded ones,
+    on the prompts and frames drawn from ``--seed``: the tokens of a
+    prefill and greedy decode by hand on the same weights and draws."""
+    cfg = get_config("seamless-m4t-large-v2").smoke()
+    params = init_params(lm.model_spec(cfg), 7, torch.float32, "cpu")
+    out = serve_cli.main(["--arch", "seamless-m4t-large-v2", "--smoke", "--device", "cpu",
+                          "--requests", "2", "--prompt-len", "10", "--gen-tokens", "4",
+                          "--seed", "3"], params=params)
+    rng = np.random.default_rng(3)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab, (2, 10)), dtype=torch.int32)
+    frames = torch.tensor(rng.standard_normal((2, cfg.frontend_tokens, cfg.frontend_dim)),
+                          dtype=torch.float32)
+    logits, cache = steps.prefill_step(params, {"tokens": prompt, "frames": frames},
+                                       cfg=cfg, cache_len=14)
+    want = [torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]]
+    for i in range(3):
+        tok, _, cache = steps.serve_step(params, cache, want[-1], 10 + i, cfg=cfg)
+        want.append(tok)
+    np.testing.assert_array_equal(out["tokens"], torch.cat(want, 1).numpy())
 
 
 @pytest.mark.parametrize("arch", ["gemma2-9b", "deepseek-moe-16b"])

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Where a train step of xlstm-350m goes on the card.
+"""Where a train step of an LM (xlstm-350m by default) goes on the card.
 
-    python3 tools/profile_lm_step.py [--seed 0] [--batch 8] [--seq 128]
+    python3 tools/profile_lm_step.py [--arch xlstm-350m] [--seed 0] [--batch 8]
+        [--seq 128]
 
-Builds xlstm-350m at full width and depth in bf16 with float32 moments,
-as ``repro_torch.launch.train`` does, runs two warm-up steps on one
-``SyntheticTokens`` batch, then prints the step's, ``value_and_grad``'s
+Builds the architecture at full width and depth in bf16 with float32
+moments, as ``repro_torch.launch.train`` does, runs two warm-up steps on
+one ``SyntheticTokens`` batch (with the frontend's frames where the
+architecture has one), then prints the step's, ``value_and_grad``'s
 and the forward's host-clock times, and one step under
 ``torch.profiler``: its wall time, the summed device time and the
 device's idle share, the kernel launches (``cudaLaunchKernel`` calls),
@@ -24,6 +26,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="xlstm-350m")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -45,13 +48,15 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config("xlstm-350m")
+    cfg = get_config(args.arch)
     opt_cfg = adamw.OptConfig(lr=1e-3, warmup_steps=5, total_steps=30,
                               moment_dtype="float32")
     params = init_params(lm.model_spec(cfg), args.seed, torch.bfloat16, "cuda")
     state = steps.TrainState(params, adamw.init_opt_state(opt_cfg, params))
     batch = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
-                                       global_batch=args.batch, seed=args.seed),
+                                       global_batch=args.batch, seed=args.seed,
+                                       frontend_tokens=cfg.frontend_tokens,
+                                       frontend_dim=cfg.frontend_dim),
                             device="cuda").batch_at(0)
 
     def step():
