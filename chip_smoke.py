@@ -20,7 +20,9 @@ router clustering on its own routers, gemma2-9b served an 8192-token
 prompt at full size; Mamba, cross-attention and the encoder: one group
 of jamba-1.5-large served at full width (and an 8192-token prompt),
 llama-3.2-vision-11b served at full size, seamless-m4t-v2 trained at full
-size with the in-situ analysis and served.
+size with the in-situ analysis and served; and the dry run's plan
+(sharding rules, meshes, memory per device, op counts) held against
+what the card measures.
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. Phases, each of which must pass:
@@ -295,6 +297,20 @@ CUDA toolkit. Phases, each of which must pass:
    backward runs on the card only in phase 3. Printed with the card:
    prefill, decode ms a step with its bound, the train step in ms and
    tokens/s, each analysis with its launches, peak memory.
+18. The sharding rules, the meshes and the dry run's plan against the
+   card (run after phase 17, before phase 9's line; reads phases 15-17's
+   records): ``make_host_mesh()`` is a (1, 1) NCCL ``DeviceMesh`` on the
+   card; every xlstm-350m parameter placed by ``param_placements`` with
+   ``distribute_tensor`` comes back bit-equal through ``to_local()``;
+   ``memory_model``'s ``params`` at phase 15's shape equals the bytes of
+   the bf16 parameters phase 15 trained; ``op_cost`` counts one
+   xlstm-350m train step (the dry run's ``build_cell`` at batch 8 x 32)
+   on ``meta`` and on the card, with equal FLOPs; every (arch x
+   ``shapes_for`` x single/multi) cell of the plan computes at the
+   card's ``total_memory``, one line each (``fits_hbm``, GB a device,
+   the plan's dominant term). Printed beside them: the plan's total
+   against phases 15-17's measured peaks, and the model FLOPs of phases
+   15 and 17's train steps as TFLOP/s and their share of 989.
 9. One JSON line with each kernel's launches on its path, time per launch
    at that path's inputs, bound with the card's name and power limit
    beside it, plain version's time and library yardstick. The traversal
@@ -835,9 +851,11 @@ def phase2_kernels(seed: int, n_tree: int = 1 << 20, n_rows: int = 1 << 24):
 
 
 def bits_equal(torch, a, b) -> bool:
-    """Same shape and the same bits (floats compared as int32)."""
-    if a.dtype == torch.float32:
-        a, b = a.view(torch.int32), b.view(torch.int32)
+    """Same shape and the same bits (float32 and bfloat16 compared as the
+    integers of their width)."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    if a.dtype in ints:
+        a, b = a.view(ints[a.dtype]), b.view(ints[a.dtype])
     return torch.equal(a, b)
 
 
@@ -4244,6 +4262,7 @@ def phase15_lm(seed: int, card: str, smoke: bool = False, batch: int = 8,
         f"moments, step) bit-equal to the uninterrupted run, analyses equal")
     del got
     params = ref["state"].params
+    param_bytes = sum(x.numel() * x.element_size() for x in leaves(params))
 
     # Collapse: 80% of the embedding rows onto row 0.
     icfg = insitu.InsituConfig(eps_quantile=0.005)
@@ -4315,7 +4334,8 @@ def phase15_lm(seed: int, card: str, smoke: bool = False, batch: int = 8,
             f"decode logits vs full forward at float32: max error {err}")
     log(f"[15] float32: last decode step's logits == the full forward over "
         f"{seq_all.shape[1]} tokens within atol 2e-3, rtol 1e-3 (max error {err:.3g})")
-    summary = {"params": n_params, "train_step_ms": round(med * 1e3, 2),
+    summary = {"params": n_params, "param_bytes": param_bytes,
+               "train_step_ms": round(med * 1e3, 2),
                "tokens_per_s": round(batch * seq / med),
                "analysis_ms": [a[1] for a in got_ana],
                "analysis_launches": got_ana[0][2], "prefill_ms": round(pre_ms, 2),
@@ -4931,12 +4951,238 @@ def phase17_hybrid(seed: int, card: str, smoke: bool = False):
         f"ms a step; bytes bound {nbytes / 1e9:.2f} GB = {b_ms:.2f} ms; peak memory "
         f"{s_peak / 2**30:.2f} GiB ({card})")
     summary.update(seamless_prefill_ms=round(pre_ms, 2),
+                   seamless_serve_peak_gib=round(s_peak / 2**30, 2),
                    seamless_decode_ms_per_step=round(dec_ms, 3),
                    seamless_decode_bound_ms=round(b_ms, 3),
                    s=round(time.perf_counter() - t_all, 1))
     del params, served
     free_card(torch)
     log(f"[17] summary: {json.dumps(summary)}")
+    return summary
+
+
+COUNT_SEQ = 32
+
+
+def dict_leaves(tree) -> list:
+    """The leaves of a nested dict in sorted-key order (a leaf may be a
+    tuple, as a parameter's placements are)."""
+    if not isinstance(tree, dict):
+        return [tree]
+    return [x for k in sorted(tree) for x in dict_leaves(tree[k])]
+
+
+def phase18_plan(seed: int, card: str, records: dict, smoke: bool = False):
+    """Phase 18: the sharding rules, the meshes and the dry run's plan,
+    held against what the card measures. Checks: (1) ``make_host_mesh()``
+    builds a (1, 1) NCCL ``DeviceMesh`` on the card; (2) every
+    xlstm-350m parameter, placed by ``param_placements`` with
+    ``distribute_tensor``, comes back bit-equal through ``to_local()``;
+    (3) ``memory_model``'s ``params`` on that mesh at phase 15's training
+    shape equals the bytes of the bf16 parameters phase 15 trained; (4)
+    ``op_cost`` counts one xlstm-350m training step (the dry run's
+    ``build_cell`` at batch 8 x ``COUNT_SEQ``) on ``meta`` and around the
+    same step on the card, and the two counts are equal op by op
+    (FLOPs, bytes and calls of every op and output shape); (5) every (arch x
+    ``shapes_for`` x single/multi) cell of the plan computes at the
+    card's memory, one line each with ``fits_hbm`` and GB a device. Reported beside them: the plan's
+    total against phases 15-17's measured peaks, and the model FLOPs of
+    phases 15 and 17's train steps as achieved TFLOP/s. ``records``
+    holds phases 15, 16 and 17's summaries; without them (the phase run
+    alone) (3) compares with the parameters of (2) and nothing is
+    reported."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs import ARCH_IDS, get_config, shapes_for
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import (AbstractMesh, make_host_mesh,
+                                         make_production_mesh)
+    from repro_torch.launch.op_cost import OpCounter
+    from repro_torch.models import lm
+    from repro_torch.models.spec import init_params
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.tree import leaves, leaves_with_path, tree_map
+
+    t_all = time.perf_counter()
+    reduce = (lambda c: c.smoke()) if smoke else (lambda c: c)
+    hbm = float(torch.cuda.get_device_properties(0).total_memory)
+    summary = {"card": card, "hbm_bytes": hbm}
+    try:
+        # (1) the host mesh
+        mesh = make_host_mesh(DEV)
+        require(tuple(mesh.shape) == (1, 1) and mesh.mesh_dim_names == ("data", "model")
+                and mesh.device_type == torch.device(DEV).type
+                and dist.get_backend() == ("nccl" if DEV == "cuda" else "gloo"),
+                f"host mesh {mesh}, backend {dist.get_backend()}")
+        log(f"[18] (1) make_host_mesh(): {mesh}, backend {dist.get_backend()}")
+
+        # (2) placements round-trip
+        cfg = reduce(get_config(LM_ARCH))
+        spec = lm.model_spec(cfg)
+        params = init_params(spec, seed, torch.bfloat16, DEV)
+        places = shd.param_placements(spec, mesh)
+        kinds: dict = {}
+        for (path, x), pl in zip(leaves_with_path(params), dict_leaves(places)):
+            back = distribute_tensor(x, mesh, list(pl)).to_local()
+            require(back.dtype == x.dtype and bits_equal(torch, back, x),
+                    f"placement {pl} of {path}")
+            kinds[str(pl)] = kinds.get(str(pl), 0) + 1
+        log(f"[18] (2) {len(leaves(params))} {LM_ARCH} parameters placed by "
+            f"param_placements and back through to_local(), bit-equal; placements "
+            f"{json.dumps(kinds)}")
+
+        # (3) the params term
+        train15 = ShapeConfig("phase15", "train", 128, 8)
+        mm = dr.memory_model(cfg, train15, mesh, hbm)
+        allocated = sum(x.numel() * x.element_size() for x in leaves(params))
+        trained = records[15]["param_bytes"] if records else allocated
+        require(mm["params"] == allocated == trained,
+                f"memory_model params {mm['params']} vs allocated {allocated} "
+                f"vs phase 15's {trained}")
+        log(f"[18] (3) memory_model(...)['params'] on the host mesh at batch 8 x 128 = "
+            f"{mm['params']:.0f} bytes == the bf16 parameters "
+            + ("phase 15 trained" if records else "placed in (2)"))
+        del params
+
+        # (4) meta counts what the card runs
+        cell = ShapeConfig("phase18", "train", COUNT_SEQ, 8)
+        fn, meta_args = dr.build_cell(cfg, cell, mesh, hbm)
+        t0 = time.perf_counter()
+        with OpCounter() as meta_count:
+            fn(*meta_args)
+        meta_s = time.perf_counter() - t0
+        real = tree_map(lambda x: torch.zeros(x.shape, dtype=x.dtype, device=DEV), meta_args)
+        real = (real[0]._replace(params=init_params(spec, seed, torch.bfloat16, DEV)),
+                real[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with OpCounter() as card_count:
+            fn(*real)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        del real
+        free_card(torch)
+        on_meta, on_card = meta_count.result(), card_count.result()
+        # The ops (name, output shape) whose FLOPs, bytes or calls differ.
+        differ = {f"{op} {shape}": {"meta": meta_count.detail.get((op, shape)),
+                                      DEV: card_count.detail.get((op, shape))}
+                    for op, shape in set(meta_count.detail) | set(card_count.detail)
+                    if meta_count.detail.get((op, shape)) != card_count.detail.get((op, shape))}
+        require(on_meta == on_card and on_meta["flops"] > 0 and not differ,
+                f"op_cost on meta {on_meta} vs on the card {on_card}; [op, output shape] "
+                f"-> [FLOPs, bytes, calls] where the two differ: {json.dumps(differ)}")
+        roof = dr.roofline(on_meta, 1, cfg, cell)
+        log(f"[18] (4) op_cost of one {LM_ARCH} train step at batch 8 x {COUNT_SEQ}: "
+            f"{on_meta['flops']:.12g} FLOPs, {on_meta['ops']} ops and "
+            f"{on_meta['traffic']:.12g} bytes of traffic on meta ({meta_s:.1f} s), equal "
+            f"on the card ({card_s:.1f} s), op by op; model FLOPs "
+            f"{dr.model_flops(cfg, cell):.6g}; roofline of the count: dominant "
+            f"{roof['dominant']} (compute {roof['t_compute_s'] * 1e3:.4g} ms, memory "
+            f"{roof['t_memory_s'] * 1e3:.4g} ms)")
+        summary.update(count_flops=on_meta["flops"], count_ops=on_meta["ops"],
+                       count_traffic=on_meta["traffic"], count_dominant=roof["dominant"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+    # (5) the sweep
+    t0 = time.perf_counter()
+    n_cells = 0
+    for multi in (False, True):
+        pmesh = make_production_mesh(multi_pod=multi)
+        for arch in ARCH_IDS:
+            acfg = get_config(arch)
+            for shape in shapes_for(acfg):
+                sp = acfg.prefer_sp and shape.kind == "train"
+                dr._set_constraints(pmesh, shape, sp, acfg)
+                m = dr.memory_model(acfg, shape, pmesh, hbm)
+                plan = dr.train_plan(acfg, shape, pmesh, sp, hbm) if shape.kind == "train" else {}
+                dr._set_constraints(pmesh, shape, False)
+                require(m["total"] > 0 and dr.model_flops(acfg, shape) > 0,
+                        f"{arch} {shape.name} {pmesh}: {m}")
+                n_cells += 1
+                log(f"[18] (5) {arch} x {shape.name} x {'multi' if multi else 'single'} "
+                    f"({pmesh.size} H100s): fits_hbm {m['fits_hbm']}, "
+                    f"{m['total'] / 1e9:.3f} GB/device of {hbm / 1e9:.1f}"
+                    + (f", accum {plan['accum']}, {plan['grad_dtype']} grads" if plan else ""))
+    summary["sweep_cells"] = n_cells
+    log(f"[18] (5) {n_cells} cells planned in {time.perf_counter() - t0:.1f} s")
+    if not records:
+        summary["s"] = round(time.perf_counter() - t_all, 1)
+        log(f"[18] summary: {json.dumps(summary)}")
+        return summary
+
+    # Reported: the plan against the measured peaks ...
+    p15, p16, p17 = records[15], records[16], records[17]
+    gib = 2**30
+    rows = [  # (what, config, shape, measured peak GiB, phase)
+        ("train", cfg, train15, p15["train_peak_gib"], 15),
+        ("train", reduce(get_config(MOE_ARCH).scaled(n_layers=4)), train15,
+         p16["moe_train_peak_gib"], 16),
+        ("train", reduce(get_config(SEAMLESS_ARCH)),
+         ShapeConfig("p17", "train", TRAIN_SEQ, TRAIN_BATCH), p17["seamless_train_peak_gib"], 17),
+        ("serve", cfg, ShapeConfig("p15", "prefill", 32 + 16, 4), p15["serve_peak_gib"], 15),
+        ("serve", reduce(get_config(MOE_ARCH)), ShapeConfig("p16", "prefill", 48, 4),
+         p16["moe_serve_peak_gib"], 16),
+        ("serve", reduce(get_config(GEMMA_ARCH)), ShapeConfig("p16", "prefill", 8192 + 16, 1),
+         p16["gemma_serve_peak_gib"], 16),
+        ("serve", reduce(get_config(JAMBA_ARCH).scaled(n_layers=8, n_experts=JAMBA_EXPERTS)),
+         ShapeConfig("p17", "prefill", SERVE_LEN + SERVE_GEN, SERVE_PROMPTS),
+         p17["jamba_serve_peak_gib"], 17),
+        ("serve", reduce(get_config(VISION_ARCH)),
+         ShapeConfig("p17", "prefill", SERVE_LEN + SERVE_GEN, SERVE_PROMPTS),
+         p17["vision_serve_peak_gib"], 17),
+        ("serve", reduce(get_config(SEAMLESS_ARCH)),
+         ShapeConfig("p17", "prefill", SERVE_LEN + SERVE_GEN, SERVE_PROMPTS),
+         p17["seamless_serve_peak_gib"], 17),
+    ]
+    one = AbstractMesh(("data", "model"), (1, 1))
+    compared = []
+    for what, c, shape, peak, phase in rows:
+        m = dr.memory_model(c, shape, one, hbm)
+        terms = {k: round(v / gib, 3) for k, v in m.items()
+                 if isinstance(v, float) and k not in ("total", "hbm_bytes")}
+        row = {"arch": c.name, "what": what, "phase": phase,
+               "batch": shape.global_batch, "seq": shape.seq_len,
+               "plan_gib": round(m["total"] / gib, 3), "peak_gib": peak,
+               "peak_over_plan": round(peak * gib / m["total"], 3)}
+        named = ""
+        if what == "train":
+            # The port's launcher against the plan: f32 moments (the plan
+            # counts bf16), gradients in the parameters' bf16 (the plan
+            # counts f32), and the functional AdamW's new parameters and
+            # moments beside the old ones during the update.
+            p = m["params"]
+            gaps = {"f32_moments": 2 * p, "bf16_grads": -p, "second_state": p + 4 * p}
+            port = m["total"] + sum(gaps.values())
+            row.update({k: round(v / gib, 3) for k, v in gaps.items()},
+                       port_state_gib=round(port / gib, 3),
+                       unexplained_gib=round(peak - port / gib, 3))
+            named = (f"; the port's launcher adds {json.dumps({k: round(v / gib, 2) for k, v in gaps.items()})}"
+                     f" GiB = {port / gib:.2f} GiB, {peak - port / gib:+.2f} GiB left")
+        compared.append(row)
+        log(f"[18] plan vs measured: {c.name} {what} (phase {phase}) at "
+            f"{shape.global_batch} x {shape.seq_len}: plan {m['total'] / gib:.2f} GiB "
+            f"{json.dumps(terms)}, measured peak {peak:.2f} GiB{named} ({card})")
+    summary["plan_vs_peak"] = compared
+
+    # ... and the model FLOPs of the measured train steps.
+    achieved = {}
+    for name, c, shape, ms in (
+            (LM_ARCH, cfg, train15, p15["train_step_ms"]),
+            (SEAMLESS_ARCH, reduce(get_config(SEAMLESS_ARCH)),
+             ShapeConfig("p17", "train", TRAIN_SEQ, TRAIN_BATCH), p17["seamless_train_step_ms"])):
+        mf = dr.model_flops(c, shape)
+        tflops = mf / (ms / 1e3) / 1e12
+        achieved[name] = {"model_flops": mf, "step_ms": ms, "tflops": round(tflops, 3),
+                          "share_of_989": round(tflops * 1e12 / dr.PEAK_FLOPS, 5)}
+        log(f"[18] model FLOPs of a {name} train step at {shape.global_batch} x "
+            f"{shape.seq_len}: {mf:.6g} in {ms} ms = {tflops:.3f} TFLOP/s, "
+            f"{tflops * 1e12 / dr.PEAK_FLOPS:.4f} of 989 TFLOP/s ({card})")
+    summary.update(achieved=achieved, s=round(time.perf_counter() - t_all, 1))
+    log(f"[18] summary: {json.dumps(summary)}")
     return summary
 
 
@@ -5060,14 +5306,17 @@ def main(argv=None) -> int:
     nearest_rows = phase14_nearest(args.seed, 1 << args.n_log2, card, near)
     log(f"[14] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase15_lm(args.seed, card)
+    lm_records = {15: phase15_lm(args.seed, card)}
     log(f"[15] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase16_attention_moe(args.seed, card)
+    lm_records[16] = phase16_attention_moe(args.seed, card)
     log(f"[16] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase17_hybrid(args.seed, card)
+    lm_records[17] = phase17_hybrid(args.seed, card)
     log(f"[17] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase18_plan(args.seed, card, lm_records)
+    log(f"[18] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase9_kernel_line(launches_by_step, records,
                        nl_rows + grid_rows + pair_rows + halo_rows + pred_rows

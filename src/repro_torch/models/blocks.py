@@ -6,8 +6,10 @@ cross-attention to the encoder's or the frontend's memory (``cross``),
 Mamba and the xLSTM pair (``mamba``, ``mlstm``, ``slstm``), each with a
 dense FFN when ``d_ff > 0`` or an MoE FFN in its ``*_moe`` form, and the
 sandwich norms. An unknown kind raises ``ValueError``. The reference's
-``constrain_*`` calls are sharding constraints, the identity without a
-mesh (``parallel/sharding.py:165-262``), so the port has none.
+``constrain_*`` calls are sharding constraints for its partitioner. The
+port has the rules and the pins they read
+(``repro_torch.parallel.sharding``, set by the dry run), but its models
+run on one device, so no block reads them.
 """
 from __future__ import annotations
 

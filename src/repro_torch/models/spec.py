@@ -3,11 +3,11 @@ of truth for shapes, logical axes and initializers.
 
 Every model module builds a nested dict of ``TensorSpec`` leaves, and
 from that one tree come ``init_params`` (materialized parameters),
-``count_params`` and ``param_axes``. The logical axis names are the
-reference's ("embed", "mlp", "heads", "kv", "qkv", "vocab", "experts",
-"layers", None); the port has no mesh yet, so they are carried, not used.
-The reference's ``abstract_params`` belongs to its dry run and is not
-ported.
+``abstract_params`` (``meta`` tensors: the dry run's stand-ins, no memory
+at any size), ``count_params`` and ``param_axes``. The logical axis names
+are the reference's ("embed", "mlp", "heads", "kv", "qkv", "vocab",
+"experts", "layers", None); ``repro_torch.parallel.sharding`` maps them
+onto mesh axes.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.tree import keystr
 
-__all__ = ["TensorSpec", "is_spec", "init_params", "param_axes",
+__all__ = ["TensorSpec", "is_spec", "init_params", "abstract_params", "param_axes",
            "count_params", "stack_specs", "spec_map"]
 
 
@@ -97,6 +97,13 @@ def init_params(spec_tree, seed: int = 0, dtype=torch.float32, device=None):
             node = node.setdefault(k, {})
         node[keys[-1]] = _init_leaf(spec, gen, dtype, device)
     return out
+
+
+def abstract_params(spec_tree, dtype=torch.float32):
+    """``meta`` tensors of the specs' shapes: dry-run stand-ins that
+    allocate nothing."""
+    return spec_map(lambda s: torch.empty(s.shape, dtype=dtype, device="meta"),
+                    spec_tree)
 
 
 def param_axes(spec_tree):

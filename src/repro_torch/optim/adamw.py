@@ -62,6 +62,12 @@ def init_opt_state(cfg: OptConfig, params) -> OptState:
                     error=tree_map(zeros(F32), params) if cfg.compress_grads else None)
 
 
+def abstract_opt_state(cfg: OptConfig, abstract_params) -> OptState:
+    """``init_opt_state`` of ``meta`` parameters: ``meta`` moments, no
+    allocation at any size (dry run)."""
+    return init_opt_state(cfg, abstract_params)
+
+
 def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     stepf = step.to(F32)
     warm = torch.clamp(stepf / max(cfg.warmup_steps, 1), max=1.0)
