@@ -20,9 +20,10 @@ router clustering on its own routers, gemma2-9b served an 8192-token
 prompt at full size; Mamba, cross-attention and the encoder: one group
 of jamba-1.5-large served at full width (and an 8192-token prompt),
 llama-3.2-vision-11b served at full size, seamless-m4t-v2 trained at full
-size with the in-situ analysis and served; and the dry run's plan
+size with the in-situ analysis and served; the dry run's plan
 (sharding rules, meshes, memory per device, op counts) held against
-what the card measures.
+what the card measures; and the static checks (the op audits, host syncs
+held to the card's own sync warnings) and the example twins.
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. Phases, each of which must pass:
@@ -69,7 +70,13 @@ CUDA toolkit. Phases, each of which must pass:
    same tree and on a box-leaf tree of its points' eps-boxes, with
    2^14 boxes (a quarter degenerate) and 2^12 rays (axis-aligned ones,
    components in (-1e-12, 0), origins on leaf-box faces), from the root
-   and from random start nodes, bit for bit; the segment
+   and from random start nodes, bit for bit, each kind against one plain
+   walk (FIXED's with the counter rows, the queries twice in one lockstep,
+   from the root and from the start nodes, whose rows and counts give
+   COUNT's, FILL's and FIXED's plain outputs), and on the box-leaf tree a
+   random sample of 2^12 boxes and
+   spheres and 2^10 rays (kernel and plain walk on the same sample); the
+   segment
    reductions at the catalog's shapes, 2^24 x 8 and 2^24 x 1, on the
    catalog's shape of ids (360,001 runs: 300,000 of 2-9 rows, 60,000 of
    Pareto sizes, one of 300,000 rows, then a neutral tail of a fifth of
@@ -311,6 +318,19 @@ CUDA toolkit. Phases, each of which must pass:
    the plan's dominant term). Printed beside them: the plan's total
    against phases 15-17's measured peaks, and the model FLOPs of phases
    15 and 17's train steps as TFLOP/s and their share of 989.
+19. The static checks on the card (run after phase 18, before phase 9's
+   line): every registered op audit of ``repro_torch.staticcheck`` at its
+   full size returns no finding; each audited call's host syncs, as the
+   dispatch rule counts them, equal the card's warnings under
+   ``torch.cuda.set_sync_debug_mode("warn")`` op by op and stay within
+   the allowance the registry counts from the code's loops, and the calls
+   allowed none (``query_csr_device``, the wavefront backend,
+   ``eps_neighbor_counts``) run clean under ``"error"``; one in-situ step
+   of phase 4's cloud under the trace, its host syncs by op, source line
+   and stage held to the card's warnings, its largest intermediate
+   against n^2; the example twins' ``main`` (galaxy finding, distributed
+   halo finding on 8 shards, the quickstart), and galaxy finding at full
+   size on phase 4's cloud.
 9. One JSON line with each kernel's launches on its path, time per launch
    at that path's inputs, bound with the card's name and power limit
    beside it, plain version's time and library yardstick. The traversal
@@ -986,6 +1006,12 @@ def skewers(torch, seed: int, m: int, lo, hi, pts):
     return torch.from_numpy(o).to(DEV), torch.from_numpy(d).to(DEV)
 
 
+# Phase 2's sample on the box-leaf tree, whose walks are the longest:
+# boxes and spheres, and rays.
+Q_BOX_ON_BOXES = 1 << 12
+Q_RAY_ON_BOXES = 1 << 10
+
+
 def phase2_predicates(seed, bvh, pts, eps, q_box: int = 1 << 14,
                       q_ray: int = 1 << 12):
     """B1 (a)-(c) on the card against the plain versions, bit for bit:
@@ -1000,7 +1026,11 @@ def phase2_predicates(seed, bvh, pts, eps, q_box: int = 1 << 14,
     long as its longest query's (one torch iteration a hop), so the query
     counts are small and each plain run is held against several kernel
     outputs: COUNT with early exit against the saturated plain counts, the
-    exact FILL against FIXED's plain rows, wide enough for every hit."""
+    exact FILL against FIXED's plain rows, wide enough for every hit. On
+    the box-leaf tree, whose walks are the longest, the kinds run on a
+    random sample of the queries (``Q_BOX_ON_BOXES`` boxes and spheres,
+    ``Q_RAY_ON_BOXES`` rays; kernel and plain version on the same sample,
+    every sampled query bit for bit)."""
     import torch
     tq = importlib.import_module("repro_torch.core.query")
     from repro_torch.core.bvh import build_bvh_objects
@@ -1035,51 +1065,84 @@ def phase2_predicates(seed, bvh, pts, eps, q_box: int = 1 << 14,
            "ray": (o, safe_inv(d)),
            "sphere": (pts[sel].contiguous(),
                       torch.full((q_box,), eps, device=DEV) ** 2)}
+    on_boxes = {"box": Q_BOX_ON_BOXES, "sphere": Q_BOX_ON_BOXES,
+                "ray": Q_RAY_ON_BOXES}
+    sample_rng = np.random.default_rng(seed + 22)
     for pred, leaf in NEW_KINDS:
         t0 = time.perf_counter()
         b = trees[leaf]
         qa, qb = geo[pred]
+        if leaf == "box" and on_boxes[pred] < qa.shape[0]:
+            keep = torch.from_numpy(np.sort(sample_rng.choice(
+                qa.shape[0], on_boxes[pred], replace=False))).to(DEV)
+            qa, qb = qa[keep].contiguous(), qb[keep].contiguous()
         q = qa.shape[0]
         depths = tq.node_depths(b)
         start = torch.from_numpy(rng.integers(0, 2 * n - 1, q).astype(np.int32)).to(DEV)
         start[torch.from_numpy(rng.random(q) < 0.25).to(DEV)] = -1
-        for st in (None, start):
-            got = kw.wavefront_count(b, qa, qb, pred=pred, start=st, depths=depths)
-            want = kw.wavefront_count_plain(b, qa, qb, None, st, depths, pred=pred)
+        got = {st is None: kw.wavefront_count(b, qa, qb, pred=pred, start=st,
+                                              depths=depths)
+               for st in (None, start)}
+        width = 1 << max(max(int(g[0].max()) for g in got.values()) - 1,
+                         0).bit_length()
+        # One plain walk serves both start settings: the queries twice in
+        # one lockstep, the first copy from the root, the second from the
+        # start nodes.
+        rows, counts, stats = plain_fixed_walk(
+            kw, b, torch.cat([qa, qa]), torch.cat([qb, qb]),
+            torch.cat([torch.zeros_like(start), start]), depths, pred, width)
+        walks = {}
+        for part, st in ((slice(0, q), None), (slice(q, 2 * q), start)):
+            g, want = got[st is None], counts[part]
             # With early exit a count saturates at stop_at: min(count, 2).
-            require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            require(torch.equal(g[0], want) and torch.equal(g[1], stats[:, part])
                     and torch.equal(kw.wavefront_count(b, qa, qb, pred=pred,
-                                                       start=st), want[0])
+                                                       start=st), want)
                     and torch.equal(kw.wavefront_count(b, qa, qb, pred=pred,
                                                        start=st, stop_at=2),
-                                    want[0].clamp(max=2)),
+                                    want.clamp(max=2)),
                     f"COUNT and its counters {pred}/{leaf}, start={st is not None}")
-            if st is None:
-                root = want[0]
-        counts = want[0]
-        offsets = exclusive_scan(torch, counts, torch.int64)
+            fixed = kw.wavefront_fixed(b, qa, qb, width, pred=pred, start=st)
+            require(torch.equal(fixed[0], rows[part]) and torch.equal(fixed[1], want),
+                    f"FIXED {pred}/{leaf} (width {width}), start={st is not None}")
+            walks[st is None] = rows[part], want
+        # FIXED rows wide enough for every hit hold each query's hits in
+        # walk order: compacted, they are FILL's plain output, whole from
+        # the root (int32 offsets) and cut at half the total from the start
+        # nodes (int64 offsets).
+        rows, counts = walks[False]
+        offsets, want = tq._compact_csr(rows, counts, torch.int64)
         cap = int(offsets[-1]) // 2
         require(torch.equal(
             kw.wavefront_fill(b, qa, qb, offsets, cap, pred=pred, start=start),
-            kw.wavefront_fill_plain(b, qa, qb, offsets, cap, start, pred=pred)),
+            want[:cap]),
             f"FILL {pred}/{leaf}, int64 offsets at half capacity, from start nodes")
-        # FIXED rows wide enough for every hit hold each query's hits in
-        # walk order: compacted, they are the exact FILL from the root.
-        width = 1 << max(int(root.max()) - 1, 0).bit_length()
-        got = kw.wavefront_fixed(b, qa, qb, width, pred=pred)
-        want = kw.wavefront_fixed_plain(b, qa, qb, width, pred=pred)
-        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-                and torch.equal(got[1], root), f"FIXED {pred}/{leaf}")
-        offsets, rows = tq._compact_csr(want[0], root)
+        rows, root = walks[True]
+        offsets, want = tq._compact_csr(rows, root)
         require(torch.equal(kw.wavefront_fill(b, qa, qb, offsets, int(offsets[-1]),
-                                              pred=pred), rows),
+                                              pred=pred), want),
                 f"FILL {pred}/{leaf}, int32 offsets, exact capacity")
         log(f"[2] {pred} queries on {leaf} leaves ({q} queries, {int(root.sum())} "
             f"hits from the root, {int(counts.sum())} from start nodes, "
             f"{int((start == -1).sum())} SENTINEL): COUNT (stop_at None and 2), "
-            f"counters, FILL (int64 at half capacity from start nodes, int32 "
-            f"exact), FIXED (width {width}), bit-equal to the plain versions "
-            f"({time.perf_counter() - t0:.1f} s)")
+            f"counters, FIXED, FILL (int64 at half capacity from start nodes, "
+            f"int32 exact), bit-equal to one plain walk from the root and "
+            f"the start nodes ({time.perf_counter() - t0:.1f} s)")
+
+
+def plain_fixed_walk(kw, bvh, qa, qb, start, depths, pred: str, width: int):
+    """FIXED's plain version from ``start`` with the counter rows:
+    ``(rows, counts, stats)``. FIXED never ends a walk early, and neither
+    does COUNT without ``stop_at``, so the lockstep walk and its counter
+    rows are COUNT's, and its carries hold COUNT's plain counts."""
+    import torch
+    buf = torch.full((qa.shape[0], width), -1, dtype=torch.int32,
+                     device=qa.device)
+    lanes, carry0 = kw.fixed_carry(qa.shape[0], qa.device)
+    carry, _, stats = kw.lockstep_traverse(
+        bvh, qa, qb, lanes, carry0, kw.fixed_epilogue(bvh, buf), start=start,
+        depths=depths, pred=pred)
+    return buf, carry[:, 0].to(torch.int32), stats
 
 
 def catalog_ids(seed: int, rows: int):
@@ -1245,10 +1308,10 @@ def phase4_main_path(seed: int, n: int, cfg):
     from repro_torch.kernels.wavefront import wavefront_count
 
     t0 = time.perf_counter()
-    pos, vel, n_sph = plummer_cloud(seed, n)
-    pos_t = torch.from_numpy(pos).to(DEV)
-    vel_t = torch.from_numpy(vel).to(DEV)
-    del pos, vel
+    cloud = plummer_cloud(seed, n)
+    pos_t = torch.from_numpy(cloud[0]).to(DEV)
+    vel_t = torch.from_numpy(cloud[1]).to(DEV)
+    n_sph = cloud[2]
     eps = hacc_benchmark_epsilon(1.0, n)
     log(f"[4] {n} particles ({n_sph} in spheres), eps {eps:.6g}; "
         f"made in {time.perf_counter() - t0:.1f} s")
@@ -1307,7 +1370,7 @@ def phase4_main_path(seed: int, n: int, cfg):
             stack.enter_context(tap(mod, name, calls[k]))
         insitu.simulation_halo_stats(pos_t, vel_t, cfg, eps, 1, device=DEV)
     records = {k: v[0] for k, v in calls.items()}
-    return launches_by_step, records
+    return launches_by_step, records, cloud
 
 
 @contextlib.contextmanager
@@ -5186,6 +5249,152 @@ def phase18_plan(seed: int, card: str, records: dict, smoke: bool = False):
     return summary
 
 
+# Where an in-situ step's host syncs come from, by source file.
+SYNC_STAGES = (("build_bvh", ("core/bvh.py", "core/morton.py")),
+               ("union rounds", ("core/dbscan.py", "core/union_find.py",
+                                 "core/query.py")),
+               ("catalog", ("halos/",)))
+
+
+def sync_stage(where: str) -> str:
+    for stage, files in SYNC_STAGES:
+        if any(f in where for f in files):
+            return stage
+    return "other"
+
+
+def held_to_card_warnings(name: str, fn, args) -> dict:
+    """One call of ``fn(*args)`` under the op trace with the card's sync
+    warnings on: the syncs the dispatch rule counts must equal the
+    warnings, op by op and line by line."""
+    from repro_torch.staticcheck import sync_warnings
+
+    rep = sync_warnings(fn, *args)
+    require(rep["counted"] == rep["warned"] and not rep["differ"],
+            f"{name}: the rule counted {rep['counted']} syncs, the card warned "
+            f"{rep['warned']}; differing ops {rep['differ']}")
+    return rep
+
+
+def phase19_static(cloud, card: str):
+    """Phase 19: the static checks on the card. (a) every registered op
+    audit of ``repro_torch.staticcheck`` at its full size must return no
+    finding; (b) each audited call once more under the op trace with
+    ``torch.cuda.set_sync_debug_mode("warn")``: the syncs the dispatch
+    rule counts must equal the card's sync warnings, op by op, and stay
+    within the call's allowance (printed beside them), and each
+    call allowed no sync must run clean under
+    ``set_sync_debug_mode("error")`` (``assert_no_host_transfers``,
+    ``guard="all"``); (c) one in-situ step of phase 4's cloud (``cloud``:
+    its host positions, velocities and sphere count; the same eps and
+    ``InsituConfig``) under the trace:
+    its host syncs by op and source line and by stage (``build_bvh``, the
+    union rounds, the catalog), held to the card's warnings, its largest
+    intermediate against n^2 and its seconds beside an untraced step's;
+    (d) the three example twins' ``main`` on the card (galaxy finding,
+    distributed halo finding on 8 shards, the quickstart with its grid
+    section), and galaxy finding at full size on phase 4's cloud and eps
+    (FOF at 1.5 eps, then ``min_pts = 10`` in the largest halo)."""
+    import torch
+    from repro_torch.analysis import insitu
+    from repro_torch.data.pipeline import hacc_benchmark_epsilon
+    from repro_torch.staticcheck import (REGISTERED_AUDITS,
+                                         assert_no_host_transfers,
+                                         run_registered_audits)
+
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    findings, names = run_registered_audits(fast=False, device=DEV)
+    require(not findings, "registered op audits on the card: "
+            + "; ".join(str(f) for f in findings))
+    log(f"[19] (a) {len(names)} registered op audits at full size, no "
+        f"finding ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    dev = torch.device(DEV)
+    for audit in REGISTERED_AUDITS:       # (a) built and loaded the kernels
+        for c in audit.calls(False, dev):
+            rep = held_to_card_warnings(c.name, c.fn, c.args)
+            allowed = (c.allowed_syncs(rep["trace"].result)
+                       if callable(c.allowed_syncs) else c.allowed_syncs)
+            require(allowed is None or rep["counted"] <= allowed,
+                    f"{c.name}: {rep['counted']} syncs over its allowance "
+                    f"of {allowed}")
+            clean = ""
+            if c.allowed_syncs == 0:
+                assert_no_host_transfers(c.fn, *c.args, guard="all",
+                                         warmup=False)
+                clean = ", clean under set_sync_debug_mode('error')"
+            log(f"[19] (b) {audit.name} / {c.name}: {rep['counted']} syncs "
+                f"counted = {rep['warned']} card warnings, allowance "
+                f"{allowed}{clean}")
+    log(f"[19] (b) done ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    pos_t = torch.from_numpy(cloud[0]).to(DEV)
+    vel_t = torch.from_numpy(cloud[1]).to(DEV)
+    n = pos_t.shape[0]
+    eps = hacc_benchmark_epsilon(1.0, n)
+    cfg = insitu.InsituConfig(mode="simulation", cadence=1, min_pts=2,
+                              halo_min_count=10, halo_capacity=1 << 20)
+    analyzer = insitu.InsituAnalyzer(cfg, device=DEV)
+    step = {"positions": pos_t, "velocities": vel_t}
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    analyzer.maybe_run(step, 0)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    rep = held_to_card_warnings("in-situ step",
+                                lambda: analyzer.maybe_run(step, 1), ())
+    torch.cuda.synchronize()
+    traced_s = time.perf_counter() - t1
+    trace = rep["trace"]
+    by_line = trace.syncs_by_line()
+    by_stage: dict = {}
+    for (op, where), k in by_line.items():
+        by_stage[sync_stage(where)] = by_stage.get(sync_stage(where), 0) + k
+    log(f"[19] (c) in-situ step at {n} particles: {rep['counted']} host syncs "
+        f"= {rep['warned']} card warnings, by op {dict(trace.syncs())}, by "
+        f"stage {by_stage}; {trace.n_ops} ops, largest intermediate "
+        f"{trace.max_elems} elements ({trace.max_op}) against n^2 = {n * n}; "
+        f"{traced_s:.3f} s traced, {plain_s:.3f} s untraced ({card})")
+    for (op, where), k in sorted(by_line.items(), key=lambda kv: kv[0][1]):
+        log(f"[19] (c)   {k:5d} {op} at {where}")
+    require(trace.max_elems < n * n, "the in-situ step staged an n^2 buffer")
+    log(f"[19] (c) done ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "examples"))
+    galaxy = importlib.import_module("galaxy_finding_torch")
+    for name in ("galaxy_finding_torch", "distributed_halo_finding_torch",
+                 "quickstart_torch"):
+        t1 = time.perf_counter()
+        argv = ["--device", DEV]
+        if name == "quickstart_torch":
+            argv += ["--trace", str(Path(__file__).resolve().parent / "build"
+                                    / "trace_quickstart.json")]
+        importlib.import_module(name).main(argv)
+        log(f"[19] (d) examples/{name}.py main() on the card "
+            f"({time.perf_counter() - t1:.1f} s)")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = galaxy.find_galaxies(pos_t, eps, device=DEV)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    hl = res.halos.labels
+    n_halos = int(torch.unique(hl[hl >= 0]).numel())
+    gl = res.galaxies.labels
+    n_gal = int(torch.unique(gl[gl >= 0]).numel())
+    require(n_gal >= 1, "galaxy finding at full size found no galaxy")
+    log(f"[19] (d) galaxy finding at {n} particles: {n_halos} FOF halos at "
+        f"1.5 eps, the largest {res.members.numel()} particles, {n_gal} "
+        f"galaxies (min_pts 10), {int((gl < 0).sum())} stellar noise; "
+        f"{secs:.3f} s ({card})")
+    log(f"[19] (d) done ({time.perf_counter() - t0:.1f} s); phase 19 "
+        f"{time.perf_counter() - t_all:.1f} s")
+
+
 HACC_KERNELS = ("wavefront_count", "wavefront_min_label", "segment_sum_sorted",
                 "segment_max_sorted")
 
@@ -5275,7 +5484,8 @@ def main(argv=None) -> int:
     phase3_attention_archs(args.seed)
     log(f"[3] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches_by_step, records = phase4_main_path(args.seed, 1 << args.n_log2, cfg)
+    launches_by_step, records, cloud = phase4_main_path(args.seed,
+                                                        1 << args.n_log2, cfg)
     log(f"[4] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     nl_rows = phase5_neighbor_lists(args.seed, 1 << args.n_log2, card, wave)
@@ -5317,6 +5527,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase18_plan(args.seed, card, lm_records)
     log(f"[18] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase19_static(cloud, card)
+    del cloud
+    log(f"[19] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase9_kernel_line(launches_by_step, records,
                        nl_rows + grid_rows + pair_rows + halo_rows + pred_rows

@@ -307,9 +307,11 @@ def dbscan_local_shard(pts: torch.Tensor, eps, min_pts: int, ctx: ShardContext,
         shard changed a label, at most ``max_rounds`` rounds;
       - border points: a final min-core-label pass over local ∪ ghost.
 
-    Returns (labels, core_mask, rounds) for the local points: labels are
-    global point ids in ``ctx.gid``'s dtype, noise = -1; rounds is a ()
-    int32 tensor."""
+    Returns (labels, core_mask, rounds, local_rounds) for the local
+    points: labels are global point ids in ``ctx.gid``'s dtype, noise =
+    -1; rounds is a () int32 tensor, the global merge's rounds;
+    local_rounds, a Python int, the local fixpoint's (the host counted
+    them, so reading them costs no sync)."""
     n_loc = pts.shape[0]
     ex = ctx.exchange
     sentinel = int(ctx.sentinel)
@@ -324,8 +326,8 @@ def dbscan_local_shard(pts: torch.Tensor, eps, min_pts: int, ctx: ShardContext,
         all_core = torch.cat([core, halo_core])
 
         # --- local components: union fixpoint on the local tree -------------
-        local_root, _ = union_rounds(ctx.bvh_local, pts, eps, core, n_loc,
-                                     max_rounds=max_rounds)
+        local_root, local_rounds = union_rounds(ctx.bvh_local, pts, eps, core,
+                                                n_loc, max_rounds=max_rounds)
         lr = local_root.long()
         labels = torch.where(core, ctx.gid[lr], sentinel).to(idx_dt)
 
@@ -356,7 +358,8 @@ def dbscan_local_shard(pts: torch.Tensor, eps, min_pts: int, ctx: ShardContext,
                         torch.where(border < sentinel, border, NOISE))
     final = torch.where(final == sentinel, NOISE, final)
     return (final.to(idx_dt), core,
-            torch.tensor(rounds, dtype=torch.int32, device=pts.device))
+            torch.tensor(rounds, dtype=torch.int32, device=pts.device),
+            local_rounds)
 
 
 def dbscan_distributed(points, eps, min_pts: int, *, mesh: ShardMesh,
@@ -375,7 +378,7 @@ def dbscan_distributed(points, eps, min_pts: int, *, mesh: ShardMesh,
 
     def local_fn(axis, pts):
         ctx = shard_context(pts, eps, halo_cap, axis, index_dtype=idx_dt)
-        labels, core, rounds = dbscan_local_shard(
+        labels, core, rounds, _ = dbscan_local_shard(
             pts, eps, min_pts, ctx, axis=axis, max_rounds=max_rounds)
         return labels, core, rounds, ctx.exchange.overflow
 

@@ -24,6 +24,11 @@ the other shards raise instead of waiting, and :meth:`ShardMesh.run`
 re-raises the first error. A barrier timeout turns a hang (shards that
 disagree on the number of collectives) into an error.
 
+A shard runs under the caller's dispatch modes (a ``TorchDispatchMode``
+such as the op counter of ``launch/op_cost.py`` or the audits'
+``staticcheck.op_audit.OpTrace`` sees every shard's ops), which are
+thread-local in torch.
+
 Every shard runs on the caller's current stream of the device: a tensor a
 shard deposits was enqueued before the barrier, and a shard that reads it
 enqueues its own work after, so stream order keeps them apart with no
@@ -37,6 +42,7 @@ import threading
 from typing import Callable
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 from repro_torch.device import resolve_device
 
@@ -137,13 +143,16 @@ class ShardMesh:
         results, errors = [None] * n, []
         stream = (torch.cuda.current_stream(self.device)
                   if self.device.type == "cuda" else None)
+        modes = _get_current_dispatch_mode_stack()
 
         def shard(k: int) -> None:
-            ctx = (torch.cuda.stream(stream) if stream is not None
-                   else contextlib.nullcontext())
             self._baton.acquire()
             try:
-                with ctx:
+                with contextlib.ExitStack() as ctx:
+                    if stream is not None:
+                        ctx.enter_context(torch.cuda.stream(stream))
+                    for mode in modes:
+                        ctx.enter_context(mode)
                     results[k] = body(ShardAxis(self, k), *(p[k] for p in parts))
             except BaseException as exc:  # re-raised by the caller below
                 errors.append(exc)

@@ -256,8 +256,9 @@ def stack_traverse(bvh: Bvh, qa, qb, lanes, carry0, epilogue, *,
                        device=dev)
     stack[:, 0] = 0
     out = carry0.clone()
-    stats = torch.zeros((6, m), dtype=torch.int32, device=dev)
-    stats[5] = 1
+    if with_stats:
+        stats = torch.zeros((6, m), dtype=torch.int32, device=dev)
+        stats[5] = 1
     pos = torch.arange(m, device=dev)
     sp = torch.ones(m, dtype=torch.int64, device=dev)
     carry, a, b = carry0, qa[lanes], qb[lanes]
@@ -281,7 +282,8 @@ def stack_traverse(bvh: Bvh, qa, qb, lanes, carry0, epilogue, *,
         live = (sp > 0) & ~done
         fin = ~live
         out[pos[fin]] = carry[fin]
-        stats[4, pos[fin]] = done[fin].int()
+        if with_stats:
+            stats[4, pos[fin]] = done[fin].int()
         pos, sp, carry = pos[live], sp[live], carry[live]
         a, b = a[live], b[live]
     return (out, hops, stats) if with_stats else (out, hops)

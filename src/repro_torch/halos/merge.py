@@ -198,6 +198,9 @@ class HaloPipelineResult(NamedTuple):
     halo_overflow: torch.Tensor  # () bool, ghost buffer overflow anywhere
     catalog: HaloCatalog         # the merged catalog (particle_halo per particle)
     so: SoMassResult | None      # with so_delta, else None
+    # Each shard's local union rounds (host ints, in shard order); None
+    # from ``halo_pipeline_traced``, whose DBSCAN stage keeps them inside.
+    local_rounds: tuple[int, ...] | None = None
 
 
 def halo_pipeline_sharded(points, velocities, eps, min_pts: int, *,
@@ -228,7 +231,7 @@ def halo_pipeline_sharded(points, velocities, eps, min_pts: int, *,
 
     def local_fn(axis, pts, vel):
         ctx = shard_context(pts, eps, halo_cap, axis, index_dtype=idx_dt)
-        labels, core, rounds = dbscan_local_shard(
+        labels, core, rounds, local_rounds = dbscan_local_shard(
             pts, eps, min_pts, ctx, axis=axis, max_rounds=max_rounds)
         cat = _catalog_shard(axis, pts, vel, labels, capacity=capacity,
                              min_count=min_count, particle_mass=particle_mass)
@@ -242,16 +245,18 @@ def halo_pipeline_sharded(points, velocities, eps, min_pts: int, *,
                     count_fn, cat.center, cat.count > 0, delta=so_delta,
                     particle_mass=particle_mass, n_particles=n_total,
                     box_volume=box_volume, r_max=so_r_max, iters=so_iters)
-        return labels, core, rounds, ctx.exchange.overflow, cat, so
+        return (labels, core, rounds, ctx.exchange.overflow, cat, so,
+                local_rounds)
 
     def run():
-        labels, core, rounds, ovf, cats, so = zip(
+        labels, core, rounds, ovf, cats, so, local_rounds = zip(
             *mesh.run(local_fn, points, velocities))
         return HaloPipelineResult(
             labels=torch.cat(labels), core_mask=torch.cat(core),
             rounds=torch.stack(rounds).max(),
             halo_overflow=torch.stack(ovf).any(),
-            catalog=_gather_slots(list(cats)), so=so[0])
+            catalog=_gather_slots(list(cats)), so=so[0],
+            local_rounds=local_rounds)
 
     if tracer is None:
         return run()

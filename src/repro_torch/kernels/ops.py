@@ -13,6 +13,7 @@ index, ``kernels/pairwise.py``.)
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import pairwise as _k
@@ -22,8 +23,9 @@ __all__ = ["eps_squared", "eps_neighbor_counts", "eps_min_label",
 
 
 def eps_squared(eps) -> float:
-    """float32(eps) squared in float32, as a Python float."""
-    e = torch.tensor(float(eps), dtype=torch.float32)
+    """float32(eps) squared in float32, as a Python float: IEEE arithmetic
+    on the host, with no tensor to read back."""
+    e = np.float32(float(eps))
     return float(e * e)
 
 

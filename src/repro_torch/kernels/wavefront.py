@@ -63,7 +63,8 @@ A wrapper launches the kernel for CUDA tensors and runs the plain PyTorch
 version for CPU tensors; ``<wrapper>.launches`` counts kernel launches,
 and ``<wrapper>.instances`` counts them by ``"<pred>/<leaf kind>"``
 (``"sphere/point"``, ``"ray/box"``, ...; MIN_LABEL over int64 labels
-``"sphere/point/int64"``).
+``"sphere/point/int64"``); ``wavefront_count.counters.launches`` counts
+those of COUNT's counter instance.
 The plain version is the lockstep wavefront of the reference kernel
 (``repro/kernels/wavefront.py:180-215``): every live query advances one
 rope hop per iteration, and queries drop out of the working set when they
@@ -85,6 +86,7 @@ import contextlib
 import ctypes
 import functools
 import threading
+import types
 from typing import NamedTuple
 
 import torch
@@ -816,6 +818,8 @@ def wavefront_count(bvh: Bvh, qa: torch.Tensor, qb: torch.Tensor, *,
             _ptr(out), _stream())
         _build.check(lib, code, "wavefront_count")
         _launched(wavefront_count, pred, packed)
+        if depths is not None:
+            _build.count_launch(wavefront_count.counters)
     return out if depths is None else (out, stats)
 
 
@@ -1141,3 +1145,5 @@ for _wrapper in (wavefront_count, wavefront_min_label, wavefront_fill,
     _wrapper.launches = 0
     _wrapper.instances = collections.Counter()
 del _wrapper
+# Of COUNT's launches, those of its counter instance (``depths`` given).
+wavefront_count.counters = types.SimpleNamespace(launches=0)

@@ -1241,3 +1241,34 @@ def test_nearest_ray_matches_plain(cuda, boxes):
     inv = safe_inv(d)
     _same_bits(kn.nearest_ray(bvh, o, inv, with_pops=True),
                kn.nearest_ray_plain(bvh, o, inv, True))
+
+
+def test_assert_no_host_transfers_on_the_card(cuda):
+    """The run-time guard: the device CSR runs clean under the card's
+    sync guard (and the mode's host-to-device check); a scalar read and
+    a copy of a Python number to the card each raise."""
+    from repro_torch.staticcheck import assert_no_host_transfers
+    pts, bvh = _tree(cuda, 4000, 14)
+    pred = tq.within(pts, 0.02)
+    total = int(tq.query_count(bvh, pred).sum())
+    for guard in ("all", "d2h"):
+        res = assert_no_host_transfers(
+            lambda b, p: tq.query_csr_device(b, p, total + 64), bvh, pred,
+            guard=guard)
+        assert int(res.total) == total and not bool(res.overflowed)
+    with pytest.raises(RuntimeError):
+        assert_no_host_transfers(lambda a: a * float(a.sum()), pts)
+    with pytest.raises(RuntimeError):
+        assert_no_host_transfers(
+            lambda a: a + torch.tensor(0.5, device=a.device), pts)
+
+
+def test_sync_rule_counts_what_the_card_warns(cuda):
+    """The dispatch rule's host syncs equal the card's sync warnings, op
+    by op and line by line, on a whole ``fdbscan`` (its tree build, union
+    rounds and constants from the host)."""
+    from repro_torch.staticcheck import sync_warnings
+    pts = torch.from_numpy(make_clustered_points(np.random.default_rng(15), 2000)).to(cuda)
+    fdbscan(pts, 0.02, 2, device=cuda)
+    rep = sync_warnings(lambda p: fdbscan(p, 0.02, 2, device=cuda), pts)
+    assert rep["counted"] == rep["warned"] > 0 and not rep["differ"]
