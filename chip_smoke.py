@@ -22,8 +22,10 @@ of jamba-1.5-large served at full width (and an 8192-token prompt),
 llama-3.2-vision-11b served at full size, seamless-m4t-v2 trained at full
 size with the in-situ analysis and served; the dry run's plan
 (sharding rules, meshes, memory per device, op counts) held against
-what the card measures; and the static checks (the op audits, host syncs
-held to the card's own sync warnings) and the example twins.
+what the card measures; the static checks (the op audits, host syncs
+held to the card's own sync warnings) and the example twins; and the
+scale-safety interpreter (index widths, precision and bounds at a
+symbolic N of 1e9), on the card as on the CPU.
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit. Phases, each of which must pass:
@@ -160,9 +162,11 @@ CUDA toolkit. Phases, each of which must pass:
    2^-8 (the mean spacing, 256^3 cells), ``min_pts = 5``:
    ``fdbscan_grid_auto`` from capacity 4, then ``fdbscan_grid`` at the
    capacity it found, timed, with stencil_count 1 and stencil_min_label
-   rounds + 1 launches; the same run with the plain stencil versions in
-   place of the kernels, whose labels, core mask and rounds must be the
-   kernels' own; both kernels against their plain versions at the path's
+   rounds + 1 launches; the same run on the points of the cube's first
+   octant (2^21 points, 128^3 cells: the plain stencils take about a
+   minute over the whole grid) with the kernels and with the plain
+   stencil versions in their place, whose labels, core mask and rounds
+   must be the kernels' own; both kernels against their plain versions at the path's
    own inputs, timed as the path runs them (one slot-class mask shared by
    the launches) and with the mask made per launch, with the pair and
    class tests they make; and the grid's counts against the exact
@@ -331,6 +335,15 @@ CUDA toolkit. Phases, each of which must pass:
    against n^2; the example twins' ``main`` (galaxy finding, distributed
    halo finding on 8 shards, the quickstart), and galaxy finding at full
    size on phase 4's cloud.
+20. The scale-safety interpreter on the card (run after phase 19, before
+   phase 9's line): every registered absint audit and seeded fixture of
+   ``repro_torch.staticcheck.absint_registry`` on the card and on the CPU,
+   with the same findings on both (rule, op and, for W1, the interval),
+   the registered audits clean with no unknown op and each fixture firing
+   exactly its rule; ``fdbscan`` on phase 4's 2^24-point cloud analysed
+   at a symbolic N of 1e9, clean, with its ops, values, seconds and peak
+   memory; and ``python -m repro_torch.staticcheck --absint`` on the card
+   (its ``main``) returning 0.
 9. One JSON line with each kernel's launches on its path, time per launch
    at that path's inputs, bound with the card's name and power limit
    beside it, plain version's time and library yardstick. The traversal
@@ -472,16 +485,19 @@ def card_identity() -> str:
 
 @contextlib.contextmanager
 def tap(module, name: str, calls: list, keep_args: bool = True,
-        every: bool = False):
+        every: bool = False, last: bool = False):
     """Record (args, kwargs, result) of the first call of ``module.name``
-    (of every call with ``every``); with ``keep_args=False`` only its
-    result, the arguments as None."""
+    (of every call with ``every``, of only the latest with ``last``); with
+    ``keep_args=False`` only its result, the arguments as None."""
     fn = getattr(module, name)
 
     def recorded(*args, **kwargs):
         res = fn(*args, **kwargs)
-        if every or not calls:
-            calls.append((args, kwargs, res) if keep_args else (None, None, res))
+        rec = (args, kwargs, res) if keep_args else (None, None, res)
+        if last:
+            calls[:] = [rec]
+        elif every or not calls:
+            calls.append(rec)
         return res
 
     setattr(module, name, recorded)
@@ -1943,23 +1959,32 @@ def phase7_grid(seed: int, n: int, card: str, stencil: dict):
         require(torch.equal(getattr(res, f), getattr(auto, f)),
                 f"fdbscan_grid.{f} == fdbscan_grid_auto's")
     del auto
-    # The same run with the plain stencil versions in place of the kernels
-    # (which it does not launch): labels, core mask and rounds must be the
-    # kernels' own.
+    # The same run on the points of the cube's first octant (the same cells
+    # and occupancy, an eighth of the grid: the plain stencils test every
+    # slot pair of every cell, about a minute over the whole grid) with the
+    # plain stencil versions in place of the kernels (which it does not
+    # launch): labels, core mask and rounds must be the kernels' own.
     t0 = time.perf_counter()
+    octant = pts[(pts < 0.5).all(dim=1)]
+    o_dims = tgrid.grid_dims_for(lo, lo + 0.5, eps)
+    o_res, o_ovf = tgrid.fdbscan_grid(octant, eps, GRID_MIN_PTS, scene_lo=lo,
+                                      grid_dims=o_dims, capacity=cap,
+                                      device=DEV)
+    require(not bool(o_ovf), "fdbscan_grid overflowed on the octant")
     with swapped(kp, "stencil_count", kp.stencil_count_plain), \
             swapped(kp, "stencil_min_label", kp.stencil_min_label_plain):
-        plain_res, _ = tgrid.fdbscan_grid(pts, eps, GRID_MIN_PTS, scene_lo=lo,
-                                          grid_dims=dims, capacity=cap,
-                                          device=DEV)
+        plain_res, _ = tgrid.fdbscan_grid(octant, eps, GRID_MIN_PTS,
+                                          scene_lo=lo, grid_dims=o_dims,
+                                          capacity=cap, device=DEV)
     torch.cuda.synchronize()
-    for f in res._fields:
-        require(torch.equal(getattr(plain_res, f), getattr(res, f)),
+    for f in o_res._fields:
+        require(torch.equal(getattr(plain_res, f), getattr(o_res, f)),
                 f"fdbscan_grid.{f}: the kernels' == the plain versions'")
-    log(f"[7] fdbscan_grid with the plain stencil versions: "
-        f"{time.perf_counter() - t0:.1f} s; labels, core mask and "
-        f"{int(plain_res.num_rounds)} rounds == the kernels'")
-    del plain_res
+    log(f"[7] fdbscan_grid on the first octant ({octant.shape[0]} points, "
+        f"{o_dims} cells) with the kernels and with the plain stencil "
+        f"versions: {time.perf_counter() - t0:.1f} s; labels, core mask and "
+        f"{int(plain_res.num_rounds)} rounds equal")
+    del plain_res, o_res, octant
     wall, busy, top = device_profile(torch, lambda: tgrid.fdbscan_grid(
         pts, eps, GRID_MIN_PTS, scene_lo=lo, grid_dims=dims, capacity=cap,
         device=DEV))
@@ -1969,13 +1994,25 @@ def phase7_grid(seed: int, n: int, card: str, stencil: dict):
             f"{ms:.3f} ms x{cnt} {name}" for ms, cnt, name in top))
 
     # The kernels' inputs: the same run once more, untimed, keeping the
-    # count pass and the first min-label pass (tapped where the path calls
-    # them, so that the wrappers' counters stay untouched).
-    count_calls, min_calls = [], []
+    # count pass and the first and last min-label passes (tapped where the
+    # path calls them, so that the wrappers' counters stay untouched).
+    count_calls, min_calls, last_min = [], [], []
     with tap(ops, "cell_stencil_counts", count_calls), \
-            tap(ops, "cell_stencil_min_label", min_calls):
+            tap(ops, "cell_stencil_min_label", min_calls), \
+            tap(ops, "cell_stencil_min_label", last_min, last=True):
         tgrid.fdbscan_grid(pts, eps, GRID_MIN_PTS, scene_lo=lo, grid_dims=dims,
                            capacity=cap, device=DEV)
+    # The octant above holds rounds 2..R at an eighth of the size; the
+    # last round is held here at the path's full shapes too.
+    t0 = time.perf_counter()
+    tapped, _, got = last_min[0]
+    want = kp.stencil_min_label_plain(*tapped[:-1], ops.eps_squared(tapped[-1]))
+    require(torch.equal(got, want),
+            "stencil_min_label's last round on the grid path's input")
+    log(f"[7] stencil_min_label's last pass (pass {rounds + 1}) on the "
+        f"path's full-size input == its plain version "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del last_min, tapped, got, want
     rows = []
     for name, calls, plain in (
             ("stencil_count", count_calls, kp.stencil_count_plain),
@@ -5395,6 +5432,108 @@ def phase19_static(cloud, card: str):
         f"{time.perf_counter() - t_all:.1f} s")
 
 
+def phase20_absint(cloud, card: str):
+    """Phase 20: the scale-safety interpreter on the card. (a) every
+    registered absint audit and seeded fixture on the card and on the
+    CPU: the same findings on both (rule, op and, for W1, the interval;
+    ops, values and kernel outputs printed for both), the registered
+    audits clean with no unknown op, each fixture firing exactly its rule
+    (value rules at one op); (b) ``fdbscan`` on phase 4's cloud
+    (``cloud``: its host positions) at its eps, analysed at N = 1e9
+    (``bvh_scale(n, 10**9)``: ``scale_for``'s markers and n - 2): clean,
+    no unknown op, its ops, values, seconds and peak memory printed beside
+    the untraced call's; (c) the CLI's ``main`` with ``--absint`` on the
+    card returns 0 with every audit clean in its report."""
+    import torch
+    from repro_torch.core.dbscan import fdbscan
+    from repro_torch.data.pipeline import hacc_benchmark_epsilon
+    from repro_torch.staticcheck import __main__ as cli
+    from repro_torch.staticcheck.absint import analyze
+    from repro_torch.staticcheck.absint_registry import (
+        REGISTERED_ABSINT_AUDITS, SEEDED_FIXTURES, bvh_scale)
+    from repro_torch.staticcheck.lattice import Ival
+
+    def counts(r):
+        return (f"{r.ops_visited} ops, {r.values_analyzed} values, "
+                f"{r.unknown_ops} unknown, {r.kernel_outputs} kernel outputs")
+
+    t_all = time.perf_counter()
+    dev, cpu = torch.device(DEV), torch.device("cpu")
+    for audit in REGISTERED_ABSINT_AUDITS + SEEDED_FIXTURES:
+        t0 = time.perf_counter()
+        on_card = audit.run(dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        on_cpu = audit.run(cpu)
+        t2 = time.perf_counter()
+        rules = sorted({f.rule for f in on_card.findings})
+        require(on_card.keys == on_cpu.keys,
+                f"{audit.name}: the card's findings {on_card.keys} differ from "
+                f"the CPU's {on_cpu.keys}")
+        require(rules == sorted(audit.expect_rules),
+                f"{audit.name}: fired {rules}, expected "
+                f"{sorted(audit.expect_rules)}: "
+                + "; ".join(str(f) for f in on_card.findings))
+        if not audit.expect_rules:
+            require(on_card.unknown_ops == 0,
+                    f"{audit.name}: unknown ops {on_card.unknown}")
+        elif "W3-routes" not in audit.expect_rules:
+            require(len(on_card.findings) == 1,
+                    f"{audit.name}: {len(on_card.findings)} findings")
+        log(f"[20] (a) {audit.name}: {on_card.keys or 'clean'}; card "
+            f"{counts(on_card)} ({t1 - t0:.2f} s), CPU the same findings, "
+            f"{counts(on_cpu)} ({t2 - t1:.2f} s) ({card})")
+    log(f"[20] (a) done ({time.perf_counter() - t_all:.1f} s)")
+
+    t0 = time.perf_counter()
+    require(float(cloud[0].min()) >= 0.0 and float(cloud[0].max()) <= 1.0,
+            "phase 4's cloud leaves the unit box")
+    pos_t = torch.from_numpy(cloud[0]).to(DEV)
+    n = pos_t.shape[0]
+    eps = hacc_benchmark_epsilon(1.0, n)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fdbscan(pos_t, eps, 2, device=DEV)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t1
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    rep = analyze(lambda p: fdbscan(p, eps, 2, device=DEV), (pos_t,),
+                  name=f"fdbscan@{n}", scale=bvh_scale(n, 10**9),
+                  input_ivals=[Ival(0.0, 1.0)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() - base
+    require(rep.findings == [] and rep.unknown_ops == 0,
+            f"fdbscan at {n} points, N = 1e9: "
+            + "; ".join(str(f) for f in rep.findings)
+            + f" unknown {rep.unknown}")
+    log(f"[20] (b) fdbscan at {n} points (phase 4's cloud, eps {eps:.4g}) "
+        f"analysed at N = 1e9: clean; {counts(rep)}; {secs:.3f} s traced and "
+        f"analysed against {plain_s:.3f} s untraced, peak {peak / 2**30:.3f} "
+        f"GiB above the {base / 2**30:.3f} GiB held ({card})")
+    del pos_t
+    log(f"[20] (b) done ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    out = Path(__file__).resolve().parent / "build"
+    out.mkdir(exist_ok=True)
+    rc = cli.main([str(SRC / "repro_torch"), "--absint", "--device", DEV,
+                   "--json", str(out / "staticcheck_report.json"),
+                   "--absint-json", str(out / "absint_report.json")])
+    report = json.loads((out / "absint_report.json").read_text())
+    require(rc == 0 and report["ok"]
+            and len(report["entrypoints"]) == len(REGISTERED_ABSINT_AUDITS),
+            f"python -m repro_torch.staticcheck --absint on the card: exit "
+            f"{rc}, report {report}")
+    log(f"[20] (c) python -m repro_torch.staticcheck --absint --device {DEV}: "
+        f"exit 0, {len(report['entrypoints'])} audits clean, "
+        f"{sum(e['values_analyzed'] for e in report['entrypoints'])} values "
+        f"({time.perf_counter() - t0:.1f} s; {card})")
+    log(f"[20] done: phase 20 {time.perf_counter() - t_all:.1f} s ({card})")
+
+
 HACC_KERNELS = ("wavefront_count", "wavefront_min_label", "segment_sum_sorted",
                 "segment_max_sorted")
 
@@ -5529,8 +5668,11 @@ def main(argv=None) -> int:
     log(f"[18] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase19_static(cloud, card)
-    del cloud
     log(f"[19] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase20_absint(cloud, card)
+    del cloud
+    log(f"[20] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase9_kernel_line(launches_by_step, records,
                        nl_rows + grid_rows + pair_rows + halo_rows + pred_rows

@@ -3,10 +3,11 @@
 
 Cluster a cosmology-style point cloud with FDBSCAN (the ArborX algorithm,
 §4.3.3), tour the unified query API behind it (§4.1), its backends and
-its observability, run the static checks, then cross-check against the
-grid implementation. On the card every traversal is the hand-written
-wavefront kernel and the grid runs the stencil kernels; on the CPU their
-plain PyTorch versions, in seconds.
+its observability, run the static checks (the scale-safety one at a
+symbolic N of 1e9), then cross-check against the grid implementation.
+On the card every traversal is the hand-written wavefront kernel and the
+grid runs the stencil kernels; on the CPU their plain PyTorch versions,
+in seconds.
 
   PYTHONPATH=src python examples/quickstart_torch.py [--device cpu]
 
@@ -26,7 +27,10 @@ from repro_torch.core.query import (nearest, query, query_count, query_csr,
 from repro_torch.data.pipeline import hacc_benchmark_epsilon, make_clustered_points
 from repro_torch.device import resolve_device
 from repro_torch.obs import MetricsRegistry, SpanTracer
-from repro_torch.staticcheck import audit_ops, lint_source, no_dense_intermediate
+from repro_torch.staticcheck import (SymbolicScale, analyze, audit_ops,
+                                     lint_source, no_dense_intermediate,
+                                     scale_for)
+from repro_torch.staticcheck.lattice import Ival
 
 # --- the paper's benchmark setup, downscaled -------------------------------
 # (demo scale, as the reference's: ε = b(V/n)^{1/3} at n = 37M maps to very
@@ -154,9 +158,28 @@ def run(device=None, trace_path: str | None = None,
     out["lint"] = lint_source(MINIMAGE_SNIPPET, "snippet.py")
 
     # --- scale-safety checks -------------------------------------------------
-    # The reference's third layer, an abstract interpreter that re-reads
-    # the staged sizes as symbolic exascale N (index width, precision,
-    # bounds), is not ported yet: ROADMAP A16.
+    # Everything above ran at n=512, but the paper's target is N=1e9 points
+    # on 64 shards. The third staticcheck layer, an abstract interpreter
+    # over the ATen ops of one run, re-reads the staged small sizes as
+    # SYMBOLIC exascale sizes and propagates a value interval per tensor,
+    # proving the W rules without materializing anything: W1 index-width (a
+    # signed int escapes its dtype), W2 precision (float quantization past
+    # 2^mantissa: the min-image trap above), W3 bounds & routes (unprovable
+    # indices, broken ppermute tables). Here it derives that the int32 CSR
+    # offsets of the very call audited above overflow at 64e9 total hits,
+    # and that the int64 ones hold:
+    scale = SymbolicScale(dims=scale_for(N, 10**9, {64 * N: 64 * 10**9}))
+    out["absint"] = {
+        str(dt).removeprefix("torch."): analyze(
+            lambda b, c, dt=dt: query_csr_device(
+                b, within(jp, eps), capacity=64 * N, counts=c,
+                index_dtype=dt),
+            (bvh, out["counts"]), scale=scale,
+            name=f"quickstart_csr_{str(dt).removeprefix('torch.')}",
+            input_ivals=[None, Ival(0, 2048)])
+        for dt in (torch.int32, torch.int64)}
+    # CI pins the widened production configs (and the seeded broken twins):
+    #   PYTHONPATH=src python -m repro_torch.staticcheck --absint
 
     # --- grid tier: ε-cell binning + stencil kernels ---------------------------
     if grid_capacity is None:
@@ -191,6 +214,9 @@ def main(argv=None):
           f"{int(tot['early_exits'])} early exits, depth {int(tot['max_depth'])}")
     print(f"metrics: {sorted(out['metrics'])}")
     print("staticcheck demo:", out["lint"][0])
+    print("scale-safety demo:", out["absint"]["int32"].findings[0].message)
+    print("scale-safety, index_dtype=torch.int64:",
+          [str(f) for f in out["absint"]["int64"].findings] or "clean")
     glabels = out["grid"].labels.cpu().numpy()
     print(f"grid: {int((glabels >= 0).sum())} clustered "
           f"({int(np.prod(out['grid_dims']))} cells x 27-stencil)")

@@ -93,7 +93,10 @@ def _karras_ranges(codes: torch.Tensor, prefix):
         go = (delta(i, i + (s + t_here) * d) > delta_node) & (t > 0)
         s = torch.where(go, s + t_here, s)
         t = torch.where(t > 1, t_here, torch.zeros_like(t))
-    gamma = i + s * d + torch.clamp(d, max=0)
+    # Karras' split lies in [first, last - 1], inside [0, n - 2]; the clamp
+    # changes no value but states the bound where an interval analysis
+    # (``staticcheck.absint``) can read it.
+    gamma = (i + s * d + torch.clamp(d, max=0)).clamp(0, max(n - 2, 0))
     return torch.minimum(i, j), torch.maximum(i, j), gamma
 
 

@@ -212,8 +212,8 @@ def shard_context(pts: torch.Tensor, eps, halo_cap: int, axis: ShardAxis, *,
     ``n_shards * n_loc`` can exceed 2^31."""
     idx_dt = _canon_index_dtype(index_dtype)
     n_loc = pts.shape[0]
-    gid = axis.index * n_loc + torch.arange(n_loc, dtype=idx_dt,
-                                            device=pts.device)
+    gid = axis.index_tensor.to(idx_dt) * n_loc + torch.arange(
+        n_loc, dtype=idx_dt, device=pts.device)
     ex = halo_exchange(pts, gid, eps, halo_cap, axis)
 
     all_pts = torch.cat([pts, ex.halo_pts]).contiguous()

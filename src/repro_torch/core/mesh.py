@@ -29,6 +29,12 @@ such as the op counter of ``launch/op_cost.py`` or the audits'
 ``staticcheck.op_audit.OpTrace`` sees every shard's ops), which are
 thread-local in torch.
 
+The collectives and the shard index are opaque calls
+(``repro_torch.opaque``): a trace of ATen ops sees them whole, so the
+scale-safety interpreter reads them at the symbolic size of the axis
+(``ShardAxis.index_tensor`` in ``[0, size - 1]``, a ``psum`` scaled by the
+shard count) rather than at the number of shards staged.
+
 Every shard runs on the caller's current stream of the device: a tensor a
 shard deposits was enqueued before the barrier, and a shard that reads it
 enqueues its own work after, so stream order keeps them apart with no
@@ -44,21 +50,42 @@ from typing import Callable
 import torch
 from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
+from repro_torch import opaque
 from repro_torch.device import resolve_device
 
-__all__ = ["ShardMesh", "ShardAxis"]
+__all__ = ["ShardMesh", "ShardAxis", "AXIS_NAME"]
+
+# The mesh's one axis, named as the reference names its mesh axis.
+AXIS_NAME = "data"
 
 
 class ShardAxis:
     """The handle a shard body receives in place of the reference's axis
-    name: this shard's ``index``, the mesh ``size`` and the collectives
-    the reference calls (``ppermute``, ``psum``, ``pmax``,
-    ``all_gather``)."""
+    name: the axis ``name``, this shard's ``index`` (a Python int, and
+    ``index_tensor``, the reference's ``axis_index``), the mesh ``size``
+    and the collectives the reference calls (``ppermute``, ``psum``,
+    ``pmax``, ``all_gather``)."""
 
     def __init__(self, mesh: "ShardMesh", index: int):
         self._mesh = mesh
+        self.name = AXIS_NAME
         self.index = index
         self.size = mesh.n_shards
+        self._index_tensor = None
+
+    @property
+    def index_tensor(self) -> torch.Tensor:
+        """This shard's index as a 0-dim int64 tensor on the mesh's device,
+        made once per shard (no host sync): arithmetic on it stays a value
+        of the trace, which a Python int folded into a literal would
+        not."""
+        if self._index_tensor is None:
+            with opaque.hidden():
+                self._index_tensor = torch.full(
+                    (), self.index, dtype=torch.int64, device=self._mesh.device)
+            opaque.announce("axis_index", self.name, self._index_tensor,
+                            size=self.size)
+        return self._index_tensor
 
     def _exchange(self, value) -> list:
         m = self._mesh
@@ -77,37 +104,50 @@ class ShardAxis:
         each ``(src, dst)`` in ``perm``; a shard no pair sends to receives
         zeros. A received tensor is the sender's own: read it, never write
         it in place (so are the results of the other collectives)."""
-        got = self._exchange(x)
-        for src, dst in perm:
-            if dst == self.index:
-                return got[src]
-        return torch.zeros_like(x)
+        perm = tuple((int(src), int(dst)) for src, dst in perm)
+        with opaque.hidden():
+            got = self._exchange(x)
+            out = next((got[src] for src, dst in perm if dst == self.index),
+                       None)
+            if out is None:
+                out = torch.zeros_like(x)
+        return self._announce("ppermute", x, out, perm)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise sum over the shards, shard 0 first."""
-        got = self._exchange(x)
-        out = got[0]
-        for v in got[1:]:
-            out = out + v
-        return out
+        with opaque.hidden():
+            got = self._exchange(x)
+            out = got[0]
+            for v in got[1:]:
+                out = out + v
+        return self._announce("psum", x, out)
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise maximum over the shards."""
-        got = self._exchange(x)
-        out = got[0]
-        for v in got[1:]:
-            out = torch.maximum(out, v)
-        return out
+        with opaque.hidden():
+            got = self._exchange(x)
+            out = got[0]
+            for v in got[1:]:
+                out = torch.maximum(out, v)
+        return self._announce("pmax", x, out)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every shard's ``x`` stacked in shard order, (size, ...)."""
-        return torch.stack(self._exchange(x))
+        with opaque.hidden():
+            out = torch.stack(self._exchange(x))
+        return self._announce("all_gather", x, out)
+
+    def _announce(self, prim: str, x, out, perm=()):
+        opaque.announce("collective", prim, out, operand=x, axis=self.name,
+                        size=self.size, perm=perm)
+        return out
 
 
 class ShardMesh:
     """``n_shards`` shards of one device (``None``: the CUDA card; raises
-    without one). :meth:`run` calls a body in one thread per shard.
-    ``timeout`` (seconds) bounds each wait at a collective."""
+    without one) along one axis, ``AXIS_NAME``. :meth:`run` calls a body in
+    one thread per shard. ``timeout`` (seconds) bounds each wait at a
+    collective."""
 
     def __init__(self, n_shards: int, device=None, *, timeout: float = 600.0):
         if n_shards < 1:

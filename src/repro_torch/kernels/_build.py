@@ -17,6 +17,11 @@ entry point takes raw pointers and a ``cudaStream_t`` and returns
 ``cudaGetLastError()``; :func:`check` raises on a nonzero code. Nothing
 here runs at import, so ``import repro_torch`` works without ``nvcc``.
 
+Every wrapper (the function that launches a kernel on the card and runs
+its plain version on the CPU) is marked ``repro_torch.opaque.kernel_call``:
+a dispatch mode that listens (the scale-safety interpreter) takes its
+result whole, on both devices alike.
+
 Kernels may be first used from several threads at once (the shard threads
 of ``core/mesh.py``): one lock serializes the builds and loads, and
 :func:`count_launch` adds to the wrappers' launch counters under a lock of

@@ -56,6 +56,7 @@ import torch
 from repro_torch.core.bvh import Bvh, node_depths
 from repro_torch.core.geometry import point_aabb_dist2, ray_box
 from repro_torch.kernels import _build
+from repro_torch.opaque import kernel_call
 
 __all__ = ["STACK_DEPTH", "LOCAL_K", "nearest_records", "check_height",
            "sqrt_rn", "ordered_stack_walk", "ray_walk", "knn_finish",
@@ -344,6 +345,7 @@ def _launch(wrapper, name: str, bvh, records, entry, *args) -> None:
     _build.count_launch(wrapper)
 
 
+@kernel_call
 def nearest_knn(bvh: Bvh, centers: torch.Tensor, k: int, *,
                 order: torch.Tensor | None = None,
                 records: torch.Tensor | None = None,
@@ -376,6 +378,7 @@ def nearest_knn(bvh: Bvh, centers: torch.Tensor, k: int, *,
     return (idx, dist, pops) if with_pops else (idx, dist)
 
 
+@kernel_call
 def nearest_other_component(bvh: Bvh, centers: torch.Tensor,
                             qcomp: torch.Tensor, comp: torch.Tensor,
                             intervals: torch.Tensor, *,
@@ -413,6 +416,7 @@ def nearest_other_component(bvh: Bvh, centers: torch.Tensor,
     return (d2, idx, pops) if with_pops else (d2, idx)
 
 
+@kernel_call
 def nearest_ray(bvh: Bvh, origins: torch.Tensor, inv: torch.Tensor, *,
                 order: torch.Tensor | None = None,
                 records: torch.Tensor | None = None,

@@ -86,6 +86,7 @@ import torch
 
 from repro_torch.core.geometry import flush
 from repro_torch.kernels import _build
+from repro_torch.opaque import kernel_call
 
 BIG = 1e15                  # padding coordinate; BIG**2 is finite in float32
 SENTINEL_LABEL = 2**31 - 1  # int32 max: "no core neighbour"
@@ -331,6 +332,7 @@ def _launch(name: str, out: torch.Tensor, *args) -> None:
     _build.check(lib, code, name)
 
 
+@kernel_call
 def slot_classes(cell_pts: torch.Tensor) -> torch.Tensor:
     """:func:`slot_classes_plain`; on the card the stencil kernels'
     prologue (``real_mask_kernel``) writes it."""
@@ -372,6 +374,7 @@ def _classes(cell_pts: torch.Tensor) -> torch.Tensor:
     return slot_classes(cell_pts)
 
 
+@kernel_call
 def stencil_count(cell_pts: torch.Tensor, nbr_map: torch.Tensor,
                   eps2: float) -> torch.Tensor:
     """(ncells, C) int32 ε-counts per slot over the stencil ``nbr_map``
@@ -390,6 +393,7 @@ def stencil_count(cell_pts: torch.Tensor, nbr_map: torch.Tensor,
     return out
 
 
+@kernel_call
 def stencil_min_label(cell_pts: torch.Tensor, cell_labels: torch.Tensor,
                       cell_core: torch.Tensor, nbr_map: torch.Tensor,
                       eps2: float) -> torch.Tensor:
@@ -448,6 +452,7 @@ def _pairwise_kernel(name: str, out, x, y, eps2, labels=None, core=None) -> bool
     return True
 
 
+@kernel_call
 def pairwise_count(x: torch.Tensor, y: torch.Tensor, eps2: float) -> torch.Tensor:
     """(m,) int32: the rows of ``y`` (n, D) within eps2 of each row of
     ``x`` (m, D)."""
@@ -460,6 +465,7 @@ def pairwise_count(x: torch.Tensor, y: torch.Tensor, eps2: float) -> torch.Tenso
     return out
 
 
+@kernel_call
 def pairwise_min_label(x: torch.Tensor, y: torch.Tensor, labels: torch.Tensor,
                        core: torch.Tensor, eps2: float) -> torch.Tensor:
     """(m,) int32: the min ``labels[j]`` (int32) over rows ``j`` of ``y``

@@ -31,6 +31,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.opaque import kernel_call
 
 SEG_NEG_BIG = 1e30
 # Rows a block of the kernel reduces (kChunk in csrc/segment.cu).
@@ -134,6 +135,7 @@ def _launch(name: str, data, seg_ids, num_segments: int, fill: float):
     return out, True
 
 
+@kernel_call
 def segment_sum_sorted(data: torch.Tensor, seg_ids: torch.Tensor,
                        num_segments: int) -> torch.Tensor:
     """out[s, :] = sum of data[i, :] over sorted ids seg_ids[i] == s.
@@ -149,6 +151,7 @@ def segment_sum_sorted(data: torch.Tensor, seg_ids: torch.Tensor,
     return out
 
 
+@kernel_call
 def segment_max_sorted(data: torch.Tensor, seg_ids: torch.Tensor,
                        num_segments: int) -> torch.Tensor:
     """out[s, :] = max of data[i, :] over sorted ids seg_ids[i] == s;

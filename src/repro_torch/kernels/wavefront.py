@@ -95,6 +95,7 @@ from repro_torch.core.bvh import SENTINEL, Bvh
 from repro_torch.core.geometry import (aabb_aabb_dist2, flush,
                                        point_aabb_dist2, ray_box, sum_sq)
 from repro_torch.kernels import _build
+from repro_torch.opaque import kernel_call
 from repro_torch.obs.stats import TraversalStats
 
 __all__ = ["PREDICATES", "pred_test", "leaf_boxes", "wavefront_count",
@@ -276,6 +277,7 @@ def pack_tree_plain(bvh: Bvh) -> PackedTree:
     return PackedTree(inner.view(torch.float32), leaves.view(torch.float32))
 
 
+@kernel_call
 def pack_tree(bvh: Bvh) -> PackedTree:
     """The node records of ``bvh``, with box leaf records where
     :func:`leaf_boxes` says the tree needs them (a ``build_bvh_objects``
@@ -782,6 +784,7 @@ def _check_start(start, q: int, device):
                          "device")
 
 
+@kernel_call
 def wavefront_count(bvh: Bvh, qa: torch.Tensor, qb: torch.Tensor, *,
                     pred: str = "sphere", stop_at: int | None = None,
                     order: torch.Tensor | None = None,
@@ -823,6 +826,7 @@ def wavefront_count(bvh: Bvh, qa: torch.Tensor, qb: torch.Tensor, *,
     return out if depths is None else (out, stats)
 
 
+@kernel_call
 def wavefront_min_label(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
                         obj_labels: torch.Tensor, obj_core: torch.Tensor,
                         queries_mask: torch.Tensor, sentinel: int, *,
@@ -864,6 +868,7 @@ def wavefront_min_label(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
     return out
 
 
+@kernel_call
 def wavefront_fill(bvh: Bvh, qa: torch.Tensor, qb: torch.Tensor,
                    offsets: torch.Tensor, capacity: int, *,
                    pred: str = "sphere", order: torch.Tensor | None = None,
@@ -898,6 +903,7 @@ def wavefront_fill(bvh: Bvh, qa: torch.Tensor, qb: torch.Tensor,
     return indices
 
 
+@kernel_call
 def wavefront_fixed(bvh: Bvh, qa: torch.Tensor, qb: torch.Tensor,
                     capacity: int, *, pred: str = "sphere",
                     order: torch.Tensor | None = None,
@@ -929,6 +935,7 @@ def wavefront_fixed(bvh: Bvh, qa: torch.Tensor, qb: torch.Tensor,
     return buf, counts
 
 
+@kernel_call
 def wavefront_potential(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
                         soft2: float, active: torch.Tensor | None = None, *,
                         order: torch.Tensor | None = None,
@@ -962,6 +969,7 @@ def wavefront_potential(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
     return out
 
 
+@kernel_call
 def wavefront_edge(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
                    keys: torch.Tensor, capacity: int, *,
                    start: torch.Tensor | None = None):
@@ -996,6 +1004,7 @@ def wavefront_edge(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
     return buf, counts
 
 
+@kernel_call
 def wavefront_histogram(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
                         r_max: float, n_bins: int, *,
                         start: torch.Tensor | None = None) -> torch.Tensor:
@@ -1061,6 +1070,7 @@ def _dense_launch(wrapper, bvh, centers, r2, words, pts, scan_lab, half,
     return out
 
 
+@kernel_call
 def wavefront_dense_count(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
                           words: torch.Tensor, pts: torch.Tensor, half: float,
                           *, stop_at: int | None = None,
@@ -1081,6 +1091,7 @@ def wavefront_dense_count(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
                          None, half, stop_at, qmask, 0, order)
 
 
+@kernel_call
 def wavefront_dense_min_label(bvh: Bvh, centers: torch.Tensor,
                               r2: torch.Tensor, words: torch.Tensor,
                               pts: torch.Tensor, scan_lab: torch.Tensor,
@@ -1103,6 +1114,7 @@ def wavefront_dense_min_label(bvh: Bvh, centers: torch.Tensor,
                          sentinel, order)
 
 
+@kernel_call
 def inv_sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """1/sqrt(x) of float32 values by POTENTIAL's sequence: on the card the
     kernel's own (``rsqrt_probe_kernel``), on the CPU its plain version,
@@ -1120,6 +1132,7 @@ def inv_sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+@kernel_call
 def histogram_bins_rn(d2: torch.Tensor, r_max: float, n_bins: int) -> torch.Tensor:
     """int64 bins of float32 squared distances by HISTOGRAM's sequence: on
     the card the kernel's own (``bin_probe_kernel``), on the CPU

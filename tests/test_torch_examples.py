@@ -164,6 +164,39 @@ def test_quickstart_observability_against_reference(quick, ref_quick):
     assert m["quickstart/query/nodes_visited"]["last"] == int(want["nodes_visited"])
 
 
+@pytest.mark.parametrize("index_dtype", ["int32", "int64"])
+def test_quickstart_scale_safety(quick, index_dtype):
+    """The quickstart's scale-safety section: the int32 CSR offsets of its
+    own call overflow at 64e9 hits (W1 at the scan), the int64 ones hold;
+    the reference's section derives the same (run op by op, its int64 call
+    under x64)."""
+    import jax
+    from repro.staticcheck import SymbolicScale, analyze, scale_for
+    from repro.staticcheck.lattice import Ival
+
+    got = quick["absint"][index_dtype]
+    n = quickstart.N
+    pts, eps = quickstart.make_points()
+    jp = jnp.asarray(pts)
+    bvh = ref_build_bvh(jp, *ref_scene_bounds(jp))
+    counts = rq.query_count(bvh, rq.within(jp, eps), stop_at=quickstart.MIN_PTS)
+    with jax.disable_jit(), jax.enable_x64(index_dtype == "int64"):
+        want = analyze(
+            lambda b, c: rq.query_csr_device(
+                b, rq.within(jp, eps), capacity=64 * n, counts=c,
+                index_dtype=jnp.dtype(index_dtype)),
+            (bvh, counts), name=f"quickstart_csr_{index_dtype}",
+            scale=SymbolicScale(dims=scale_for(n, 10**9,
+                                               {64 * n: 64 * 10**9})),
+            input_ivals=[None, Ival(0, 2048)])
+    rules = ["W1-index-width"] if index_dtype == "int32" else []
+    assert [f.rule for f in got.findings] == rules
+    assert sorted({f.rule for f in want.findings}) == rules
+    if rules:
+        assert got.keys == [("W1-index-width", "cumsum",
+                             "[0, 2048000000000]")]
+
+
 def test_quickstart_static_checks(quick):
     assert quick["audit"] == []
     want = ref_lint_source("import jax.numpy as jnp\n"

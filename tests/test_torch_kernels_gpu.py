@@ -1272,3 +1272,20 @@ def test_sync_rule_counts_what_the_card_warns(cuda):
     fdbscan(pts, 0.02, 2, device=cuda)
     rep = sync_warnings(lambda p: fdbscan(p, 0.02, 2, device=cuda), pts)
     assert rep["counted"] == rep["warned"] > 0 and not rep["differ"]
+
+
+@pytest.mark.parametrize("name", ["query_csr_device/int64", "fdbscan",
+                                  "sharded_neighbor_csr/int32@64shards"])
+def test_absint_report_on_the_card_equals_the_cpu(cuda, name):
+    """A scale-safety audit reads the same ops, values and findings on the
+    card as on the CPU: kernel outputs are taken whole on both, so the
+    kernel's launch and its plain version give one report."""
+    from repro_torch.staticcheck.absint_registry import (
+        REGISTERED_ABSINT_AUDITS, SEEDED_FIXTURES)
+    audit = {a.name: a for a in REGISTERED_ABSINT_AUDITS + SEEDED_FIXTURES}[name]
+    card, cpu = audit.run(cuda), audit.run(torch.device("cpu"))
+    assert card.keys == cpu.keys
+    assert (card.ops_visited, card.values_analyzed, card.unknown_ops,
+            card.kernel_outputs) == (cpu.ops_visited, cpu.values_analyzed,
+                                     cpu.unknown_ops, cpu.kernel_outputs)
+    assert card.outputs == cpu.outputs
