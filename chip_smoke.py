@@ -35,7 +35,8 @@ CUDA toolkit. Phases, each of which must pass:
    and its power limit. The all-pairs tile kernel must spill nothing, and
    its SASS (``cuobjdump -sass``) and its prologue's hold no ``FFMA``,
    ``HMMA`` or ``HGMMA``. No instance of the traversal kernel (and not its
-   pack prologue) may spill, none but POTENTIAL may hold an ``FFMA``, and
+   pack prologue, nor either instance of the SO count's kernel) may spill,
+   none but POTENTIAL may hold an ``FFMA``, and
    POTENTIAL must hold as many as a probe kernel that holds only its IEEE
    1/sqrt sequence (both counts printed), and HISTOGRAM as many as a
    probe holding only its bin sequence (an IEEE square root and
@@ -65,7 +66,9 @@ CUDA toolkit. Phases, each of which must pass:
    rows, counts equal to COUNT's) and every instance from random start
    nodes, a quarter of them ``SENTINEL``, on the same tree, COUNT with a
    radius per query (4096 queries, radii up to 2 eps, timed against its
-   plain version for phase 9's SO rows), and POTENTIAL's 1/sqrt sequence
+   plain version for phase 9's SO rows) and the SO count's kernel on the
+   same queries (equal to COUNT and to its plain version, its counters'
+   hops and far tests to the plain walk's), and POTENTIAL's 1/sqrt sequence
    on 2^24 positive floats against its plain version; every box and ray
    instance (COUNT with and without early exit, its counters, FILL with
    int32 and int64 offsets, FIXED) and spheres on box leaves, on the
@@ -184,15 +187,21 @@ CUDA toolkit. Phases, each of which must pass:
    then in one ``shared_pack`` ``most_bound_centers`` at 2 eps and
    ``so_masses`` (Delta = 200, r_max = 0.1) on the most-bound centers of
    the slots with ``count > 0``, each timed with its peak memory;
-   counters set to 0 before them, POTENTIAL 1 launch and COUNT 22; every
-   most-bound particle a member of its halo; POTENTIAL against its plain
-   version on every 16th member, bit for bit; the SO counts of 64
+   counters set to 0 before them, POTENTIAL 1 launch, the SO count 22 and
+   COUNT none; every most-bound particle a member of its halo; POTENTIAL
+   against its plain version on every 16th member, bit for bit; each of
+   the 22 SO launches bit-equal to COUNT (the rope walk it replaced) on
+   its inputs and timed against it in one call (COUNT, SO, SO, COUNT),
+   with its hops, longest chain of dependent hops and far tests from its
+   counter instance; the first and the last SO launch's 256 valid halos
+   with the most hops through its plain version on a CPU copy of the
+   tree, with equal counts, hops and far tests; the SO counts of 64
    sampled halos at R_Delta and at r_max against a brute-force count
    with the kernel's distance formula; the bracketed share and the
-   median distance from most-bound particle to centre of mass; each SO
-   launch's time, hops and longest walk from the counter instance; and
-   one launch of the counter instance at the final SO radii, its largest
-   and 99th-percentile ``nodes_visited`` and its time against COUNT's.
+   median distance from most-bound particle to centre of mass; and one
+   launch of COUNT's counter instance at the final SO radii, its largest
+   and 99th-percentile ``nodes_visited`` and its time against COUNT's,
+   beside the SO count's counters on the same queries.
 11. The query engine at 2^24 on phase 4's cloud and eps (run before
    phase 9's line), each step with its seconds, peak memory and launches
    by instance (counters set to 0 before it): ``build_bvh`` over 30-bit
@@ -356,8 +365,12 @@ CUDA toolkit. Phases, each of which must pass:
    segment rows their share of the bound, whether a second call gave the
    same bits, and the instance's registers and 128-bit loads. Phase 10
    adds ``wavefront_potential`` (its hits and the bound's operations per
-   hit), ``wavefront_count_so_mass`` (the 22 SO launches: mean ms and
-   bound per launch, and each launch's ms, hops and longest walk) and
+   hit), ``wavefront_count_so_mass`` (the 22 launches of the SO count,
+   ``wavefront_sphere_count``: mean ms and bound per launch, COUNT's mean
+   ms in the same turns, and each launch's ms, COUNT's ms, hops, longest
+   chain and far tests, its bytes the packed records, spans and right
+   children it reads, and its plain version's time on the heaviest halos
+   of the first and last launch) and
    ``wavefront_count_stats`` (with COUNT's time at the same inputs);
    their plain times are taken on a part of the input, named in
    ``plain_input``. Phase 11 adds a row for each instance on its path
@@ -663,6 +676,8 @@ WAVEFRONT_KERNELS = {"wavefront_count": wave_tag(0),
                      "wavefront_histogram": wave_tag(6),
                      "wavefront_dense_count": wave_tag(7, leaf="box"),
                      "wavefront_dense_min_label": wave_tag(8, leaf="box"),
+                     "wavefront_sphere_count": "sphere_count_kernelILb0E",
+                     "wavefront_sphere_count_stats": "sphere_count_kernelILb1E",
                      "wavefront_pack": "pack_kernel",
                      "rsqrt_probe": "rsqrt_probe_kernel",
                      "bin_probe": "bin_probe_kernel"}
@@ -981,6 +996,24 @@ def phase2_traversal_options(seed, bvh, pts, r2, eps, order, n_values):
     want, plain_ms = timed_once(torch, lambda: kw.wavefront_count_plain(
         bvh, centers, rq2))
     require(torch.equal(got, want), "COUNT with a radius per query")
+    # The SO count's kernel on the same queries: COUNT's counts, its plain
+    # version's, and its counters' hops and far tests those of the plain
+    # walk (every node tested once).
+    sphere = kw.wavefront_sphere_count(bvh, centers, rq2)
+    require(torch.equal(sphere, want), "the SO count == COUNT, a radius per query")
+    sphere_ms = cuda_ms(torch, lambda: kw.wavefront_sphere_count(bvh, centers, rq2), 3)
+    (plain_cnt, plain_st), sphere_plain_ms = timed_once(
+        torch, lambda: kw.wavefront_sphere_count_plain(bvh, centers, rq2,
+                                                      with_stats=True))
+    cnt, st = kw.wavefront_sphere_count(bvh, centers, rq2, with_stats=True)
+    require(torch.equal(sphere, plain_cnt) and torch.equal(cnt, sphere)
+            and torch.equal(st[0], plain_st[0]) and torch.equal(st[2], plain_st[2]),
+            "the SO count and its counters against its plain version")
+    log(f"[2] the SO count ({q} queries, radii up to 2 eps): == COUNT and its "
+        f"plain version, counters' hops and far tests == the plain walk's "
+        f"({int(st[0].sum())} hops, longest chain {int(st[1].max())}); kernel "
+        f"{sphere_ms:.4f} ms, plain {sphere_plain_ms:.1f} ms")
+    del sphere, plain_cnt, plain_st, cnt, st
     got = kw.wavefront_count(bvh, centers, rq2, depths=depths)
     stats_ms = cuda_ms(torch, lambda: kw.wavefront_count(bvh, centers, rq2,
                                                          depths=depths), 3)
@@ -992,7 +1025,9 @@ def phase2_traversal_options(seed, bvh, pts, r2, eps, order, n_values):
                             f"centres, radii uniform in [0, 2 eps]",
              "ms_at_plain_input": ms, "plain_ms": plain_ms,
              "stats_ms_at_plain_input": stats_ms,
-             "stats_plain_ms": stats_plain_ms}
+             "stats_plain_ms": stats_plain_ms,
+             "sphere_ms_at_plain_input": sphere_ms,
+             "sphere_plain_ms": sphere_plain_ms}
     log(f"[2] COUNT with a radius per query ({q} queries, radii up to 2 eps): "
         f"exact, counters exact; kernel {ms:.4f} ms (with counters "
         f"{stats_ms:.4f}), plain {plain_ms:.1f} ms ({stats_plain_ms:.1f})")
@@ -1594,6 +1629,14 @@ def tree_bytes(bvh) -> int:
     return sum(t.numel() * t.element_size() for t in
                (bvh.leaf_perm, bvh.left_child, bvh.rope, bvh.node_lo,
                 bvh.node_hi))
+
+
+def sphere_tree_bytes(bvh) -> int:
+    """What ``sphere_count_kernel`` reads of the tree: the packed records
+    (32 B an internal node, 16 B a leaf), and per internal node its span
+    and right child (4 B each)."""
+    n = bvh.num_leaves
+    return (n - 1) * (32 + 4 + 4) + n * 16
 
 
 def timed_once(torch, fn):
@@ -2229,12 +2272,13 @@ def phase10_halo_products(seed: int, n: int, cfg, card: str, wave: dict,
         f"{time.perf_counter() - t0:.1f} s")
 
     valid = cat.count > 0
-    kernels = kernel_wrappers(("wavefront_potential", "wavefront_count"))
+    kernels = kernel_wrappers(("wavefront_potential", "wavefront_count",
+                               "wavefront_sphere_count"))
+    so_mod = importlib.import_module("repro_torch.halos.so_mass")
     pot_calls, so_calls = [], []
-    for fn in kernels.values():
-        fn.launches = 0
+    reset_counts(kernels)
     with kw.shared_pack(bvh), tap(hc, "wavefront_potential", pot_calls), \
-            tap(tq, "wavefront_count", so_calls, every=True):
+            tap(so_mod, "wavefront_sphere_count", so_calls, every=True):
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -2256,8 +2300,10 @@ def phase10_halo_products(seed: int, n: int, cfg, card: str, wave: dict,
         f"{mb_peak / 2**30:.2f} GiB; so_masses (Delta 200, r_max 0.1): "
         f"{so_s:.4f} s, peak {so_peak / 2**30:.2f} GiB ({resident / 2**30:.2f} "
         f"GiB resident before: points, tree, catalog); launches {launches}")
-    require(launches == {"wavefront_potential": 1, "wavefront_count": 22},
-            "the halo products launch POTENTIAL once and COUNT 22 times")
+    require(launches == {"wavefront_potential": 1, "wavefront_count": 0,
+                         "wavefront_sphere_count": 22},
+            "the halo products launch POTENTIAL once, the SO count 22 times "
+            "and COUNT never")
 
     ph = cat.particle_halo
     idx = mb.index[:nh]
@@ -2309,41 +2355,83 @@ def phase10_halo_products(seed: int, n: int, cfg, card: str, wave: dict,
              "path_s": mb_s, "path_peak_gib": mb_peak / 2**30}]
     del st, phi, pot_calls, args, kwargs, members, sub
 
-    # Each SO count launch: time, hops and the longest walk.
-    per = []
+    # Each SO launch: bit-equal to COUNT (the rope walk it replaced) on the
+    # launch's inputs, both timed in one call in turns COUNT, SO, SO, COUNT,
+    # and the SO count's hops, longest chain and far tests from its counter
+    # instance. The first and the last launch also against the plain
+    # version on their heaviest valid halos, where contained subtrees and
+    # the lanes' sub-walks of a full stack do the work.
+    per, heavy = [], []
+    n_heavy = min(256, int(valid.sum()))
     with kw.shared_pack(bvh):
-        for args, kwargs, got in so_calls:
+        for i, (args, kwargs, got) in enumerate(so_calls):
             b, c, rr = args
-            ms_i = cuda_ms(torch, lambda: kw.wavefront_count(b, c, rr, **kwargs), 1)
-            cnt, st = kw.wavefront_count(b, c, rr, **{**kwargs, "depths": depths})
+            require(torch.equal(kw.wavefront_count(b, c, rr), got),
+                    "the SO count == COUNT on an SO launch's inputs")
+            a1 = cuda_ms(torch, lambda: kw.wavefront_count(b, c, rr), 1, warmup=0)
+            b1 = cuda_ms(torch, lambda: kw.wavefront_sphere_count(b, c, rr), 1)
+            b2 = cuda_ms(torch, lambda: kw.wavefront_sphere_count(b, c, rr), 1,
+                         warmup=0)
+            a2 = cuda_ms(torch, lambda: kw.wavefront_count(b, c, rr), 1, warmup=0)
+            cnt, st = kw.wavefront_sphere_count(b, c, rr, with_stats=True)
             require(torch.equal(cnt, got), "SO counts with and without counters")
-            nb = tree_bytes(bvh) + c.shape[0] * (12 + 4) + c.shape[0] * 4
-            h_i = int(st[0].sum(dtype=torch.int64))
-            per.append((ms_i, h_i, int(st[0].max()),
-                        *bound(nb, h_i * FLOPS_PER_HOP)))
+            if i in (0, len(so_calls) - 1):
+                hv = torch.topk(torch.where(valid, st[0], -1), n_heavy).indices
+                heavy.append((c[hv], rr[hv], got[hv], st[:, hv]))
+            # Reads: records, spans, right children, centres, r2; writes: counts.
+            nb = sphere_tree_bytes(bvh) + c.shape[0] * (12 + 4) + c.shape[0] * 4
+            h_i, f_i = (int(st[k].sum(dtype=torch.int64)) for k in (0, 2))
+            per.append(((b1 + b2) / 2, (a1 + a2) / 2, h_i, int(st[1].max()), f_i,
+                        *bound(nb, (h_i + f_i) * FLOPS_PER_HOP)))
     del so_calls, cnt, st
-    ms_l, hops_l, maxv_l, bound_l, by_l = (list(x) for x in zip(*per))
-    log(f"[10] SO count launches (ms, hops, largest nodes_visited): "
-        f"{[(round(a, 4), b, c) for a, b, c, _, _ in per]}")
+    # Both launches' heaviest halos in one plain walk on the CPU, where a
+    # lockstep step costs a fraction of its launches and syncs on the card
+    # (the walk takes as many steps as the heaviest halo's hops).
+    cpu_bvh = type(bvh)(*(t.cpu() if torch.is_tensor(t) else t for t in bvh))
+    h_c, h_r, h_cnt = (torch.cat(x).cpu() for x in list(zip(*heavy))[:3])
+    h_st = torch.cat([h[3] for h in heavy], 1).cpu()
+    t0 = time.perf_counter()
+    p_cnt, p_st = kw.wavefront_sphere_count_plain(cpu_bvh, h_c, h_r, with_stats=True)
+    heavy_plain = {"launches": [0, len(per) - 1], "queries": h_c.shape[0],
+                   "max_hops": int(p_st[0].max()), "device": "cpu",
+                   "ms": (time.perf_counter() - t0) * 1e3}
+    require(torch.equal(p_cnt, h_cnt) and torch.equal(p_st[0], h_st[0])
+            and torch.equal(p_st[2], h_st[2]),
+            f"the plain version on the {n_heavy} heaviest valid halos of the "
+            "first and the last SO launch")
+    del cpu_bvh, heavy
+    ms_l, count_l, hops_l, chain_l, far_l, bound_l, by_l = (list(x) for x in zip(*per))
+    log(f"[10] SO launches (ms, COUNT's ms in the same turns, hops, longest "
+        f"chain of dependent hops): "
+        f"{[(round(a, 4), round(b, 2), c, d) for a, b, c, d, *_ in per]}")
     so_ms = sum(ms_l) / len(ms_l)
+    count_ms = sum(count_l) / len(count_l)
     so_bound = sum(bound_l) / len(bound_l)
     so_by = max(set(by_l), key=by_l.count)
-    rows.append({"name": "wavefront_count_so_mass", "wrapper": "wavefront_count",
-                 "route": "cuda",
+    log(f"[10] the SO count {so_ms:.4f} ms a launch against COUNT's {count_ms:.2f} "
+        f"(A/B in one call), bound {so_bound:.4f} ms ({so_by}); {card}")
+    log(f"[10] the plain version == the SO count, its hops and far tests on "
+        f"the heaviest valid halos of the first and last launch: {heavy_plain}")
+    rows.append({"name": "wavefront_count_so_mass",
+                 "wrapper": "wavefront_sphere_count", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/wavefront.cu",
                  "replaces": "src/repro/kernels/wavefront.py:97",
-                 "launches": launches["wavefront_count"],
+                 "launches": launches["wavefront_sphere_count"],
                  "path": "so_masses (Delta 200, r_max 0.1; a radius per query)",
                  "card": card, "max_abs_err": 0.0, "ms": so_ms,
-                 "plain_ms": small["plain_ms"],
+                 "count_ms": count_ms,
+                 "plain_ms": small["sphere_plain_ms"],
                  "plain_input": small["plain_input"],
-                 "ms_at_plain_input": small["ms_at_plain_input"],
+                 "ms_at_plain_input": small["sphere_ms_at_plain_input"],
                  "bound_ms": so_bound, "bound_by": so_by, "library_ms": None,
                  **traversal_fields(torch, kw, bvh,
                                     round(sum(hops_l) / len(hops_l)), so_ms,
-                                    wave, "wavefront_count", shared=True),
-                 "ms_per_launch": ms_l, "hops_per_launch": hops_l,
-                 "max_nodes_visited_per_launch": maxv_l,
+                                    wave, "wavefront_sphere_count", shared=True),
+                 "ms_per_launch": ms_l, "count_ms_per_launch": count_l,
+                 "hops_per_launch": hops_l,
+                 "longest_chain_per_launch": chain_l,
+                 "far_tests_per_launch": far_l,
+                 "plain_on_heaviest": heavy_plain,
                  "bound_ms_per_launch": bound_l, "queries": valid.numel(),
                  "valid_halos": int(valid.sum()),
                  "path_s": so_s, "path_peak_gib": so_peak / 2**30})
@@ -2383,6 +2471,8 @@ def phase10_halo_products(seed: int, n: int, cfg, card: str, wave: dict,
         stats_ms = cuda_ms(torch, lambda: kw.wavefront_count(
             bvh, c, rr, depths=depths), 3)
         off_ms = cuda_ms(torch, lambda: kw.wavefront_count(bvh, c, rr), 3)
+        so_cnt, so_st = kw.wavefront_sphere_count(bvh, c, rr, with_stats=True)
+    require(torch.equal(so_cnt, cnt), "the SO count's counters at R_Delta")
     nodes = stats.nodes_visited.float()
     p99 = torch.quantile(nodes, 0.99).item()
     hops = int(stats.nodes_visited.sum(dtype=torch.int64))
@@ -2392,7 +2482,9 @@ def phase10_halo_products(seed: int, n: int, cfg, card: str, wave: dict,
     log(f"[10] counters at R_Delta over {qv} halos: nodes_visited largest "
         f"{int(nodes.max())}, 99th percentile {p99:.0f}, total {hops}; "
         f"max depth {int(stats.max_depth.max())}; counter instance "
-        f"{stats_ms:.4f} ms against {off_ms:.4f} ms without")
+        f"{stats_ms:.4f} ms against {off_ms:.4f} ms without; the SO count "
+        f"there: {int(so_st[0].sum(dtype=torch.int64))} hops, largest "
+        f"{int(so_st[0].max())}, longest chain {int(so_st[1].max())}")
     rows.append({"name": "wavefront_count_stats", "wrapper": "wavefront_count",
                  "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/wavefront.cu",
@@ -5572,6 +5664,7 @@ def kernel_wrappers(names=None) -> dict:
              "wavefront_histogram": kw.wavefront_histogram,
              "wavefront_dense_count": kw.wavefront_dense_count,
              "wavefront_dense_min_label": kw.wavefront_dense_min_label,
+             "wavefront_sphere_count": kw.wavefront_sphere_count,
              "segment_sum_sorted": ks.segment_sum_sorted,
              "segment_max_sorted": ks.segment_max_sorted,
              "stencil_count": kp.stencil_count,

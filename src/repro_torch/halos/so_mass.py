@@ -4,8 +4,10 @@
 Around each halo center, R_Δ is the radius where the mean enclosed
 density falls to Δ times the reference density, and M_Δ = (particles
 inside R_Δ) × particle_mass. The enclosed counts are ε-sphere range
-counts with a radius per query (``query_count`` over ``within(centers,
-radii)``): the COUNT kernel on the card, its plain version on the CPU.
+counts with a radius per query, those of ``query_count`` over
+``within(centers, radii)``: on the card the SO count kernel
+(``wavefront_sphere_count``: a warp per halo, subtrees inside the sphere
+counted whole), its plain version on the CPU.
 R_Δ is located by a fixed number of bisection steps; the float32
 arithmetic is the reference's, in its order.
 """
@@ -18,9 +20,9 @@ import torch
 
 from repro_torch.core.bvh import Bvh, build_bvh
 from repro_torch.core.geometry import scene_bounds
-from repro_torch.core.query import query_count, within
+from repro_torch.core.query import query_geometry, within
 from repro_torch.device import as_tensor_on, resolve_device
-from repro_torch.kernels.wavefront import shared_pack
+from repro_torch.kernels.wavefront import shared_pack, wavefront_sphere_count
 
 __all__ = ["SoMassResult", "sphere_counts", "so_masses",
            "so_masses_from_counts"]
@@ -42,10 +44,12 @@ class SoMassResult(NamedTuple):
 def sphere_counts(bvh: Bvh, points, centers: torch.Tensor,
                   radii) -> torch.Tensor:
     """Range counts (int32) with a radius per query (``radii``: scalar or
-    (q,)). ``points`` is kept for the reference's signature; the tree's
-    leaves are the points."""
+    (q,)), ``query_count(bvh, within(centers, radii))``'s, squared as it
+    squares them. ``points`` is kept for the reference's signature; the
+    tree's leaves are the points."""
     del points
-    return query_count(bvh, within(centers.to(torch.float32), radii))
+    qa, qb, _ = query_geometry(within(centers.to(torch.float32), radii))
+    return wavefront_sphere_count(bvh, qa, qb)
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -98,7 +102,7 @@ def so_masses(points, centers, valid, *, delta=200.0, particle_mass=1.0,
     without one). ``valid`` masks real halo slots; invalid slots are
     probed at radius 0 and return zeros. ``bvh``: a tree over ``points``
     already built (on ``device``), which skips the build. Its
-    ``iters + 2`` counts share one packed copy of the tree.
+    ``iters + 2`` counts share one packed copy of the tree and its spans.
 
     The reference density is the mean particle density
     ``n × particle_mass / box_volume``."""

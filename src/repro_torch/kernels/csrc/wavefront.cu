@@ -5,9 +5,10 @@
 //     the core test (`query_count(within, stop_at=min_pts)`, epilogue COUNT)
 //     and the min-core-label union and border passes (`min_core_label_on`,
 //     epilogue MIN_LABEL), on the fixed-buffer protocol `query_fixed`
-//     (epilogue FIXED), on the halo products' SO counts (`sphere_counts`,
-//     COUNT with a radius per query) and most-bound potentials
-//     (`halo_potentials`, epilogue POTENTIAL), on the sharded DBSCAN's
+//     (epilogue FIXED), on the halo products' most-bound potentials
+//     (`halo_potentials`, epilogue POTENTIAL) and SO counts
+//     (`sphere_counts`, `sphere_count_kernel`: a warp per query, contained
+//     subtrees counted from their span; below), on the sharded DBSCAN's
 //     cross-shard rounds over int64 global labels (`dbscan_local_shard`,
 //     epilogue MIN_LABEL64), on the pair traversal of
 //     `fdbscan_pair`'s capture (epilogue EDGE) and `pair_count_histogram`
@@ -133,13 +134,52 @@
 // of `rsqrt_probe_kernel`, which holds only the sequence (and whose entry
 // `wavefront_rsqrt_probe` lets a test hold its bits against torch's).
 //
-// The SO masses' counts take one thread per halo, with radii up to a few
-// percent of the box, so a launch lasts as long as the longest walk: on
-// an H100 80GB HBM3 at 700 W, 6.6e5 dependent hops for the largest halo
-// of a 2^24-particle cloud took 0.21 s, about 0.3 us a hop, where the
-// 5e8 hops of all the halos together would take under 2 ms at the
-// self-join's rate. Spreading one query's walk over a warp is the remedy;
-// this kernel keeps one thread per query.
+// The SO masses' counts (`sphere_counts`, a radius per halo up to a few
+// percent of the box) have a kernel of their own, `sphere_count_kernel`.
+// With one thread per halo (COUNT above) a launch lasted as long as the
+// walk of the heaviest halo, which visits every leaf inside its sphere:
+// on an H100 80GB HBM3 at 700 W, 6.6e5-1.1e6 dependent hops, 204-447 ms
+// a launch, while the other SMs sat idle. Two changes, with counts equal
+// to COUNT's bit for bit:
+//   * Contained subtrees are counted whole. At an internal node that the
+//     sphere hits, the far gap of each axis, max(hi - c, c - lo, 0), is
+//     squared and summed as the hit test sums its gaps (`point_box_far2`:
+//     the same `gap`, flushed `sq` and ((x + y) + z) order). Where that is
+//     <= r2 the node's leaves are all inside: the walk adds its span
+//     (range_right - range_left + 1, built with the packed records) and
+//     follows the rope. This is exact, not approximate: every leaf p of the
+//     subtree lies in the node's box (min/max of its leaves, bit-exact),
+//     and each step of the distance (round-to-nearest subtraction and
+//     product, the flush, max, the sums) is monotone, so p's own d2 is at
+//     most the far d2 and p is a hit under the leaf test's arithmetic. A
+//     NaN coordinate makes the far d2 NaN, the compare fails and the walk
+//     descends as COUNT's does.
+//   * A warp takes one query and walks it as a team. The warp keeps the
+//     roots of the subtrees still to walk on a stack in shared memory
+//     (kSphereStack nodes a warp). Each step its lanes pop up to 32 of
+//     them and test one each; a leaf hit or a contained node is counted by
+//     its lane, a node hit but not contained pushes its two children
+//     (left_child and right_child). Where the stack has no room left, that
+//     lane walks the node's subtree alone instead, from its left child to
+//     its rope (the sub-walk's stop node). The lanes' int32 counts are
+//     summed with __reduce_add_sync: integer sums, so the order of the
+//     additions changes nothing. No atomics, one launch, no host sync.
+//     The stack keeps the lanes busy however unevenly the sphere's
+//     surface cuts the tree: lanes that each walked a fixed share of the
+//     subtrees cut at one level (the first design tried) left one lane
+//     with most of a heavy halo's walk in a CPU rehearsal. On an H100
+//     80GB HBM3 at 700 W (`chip_smoke.py` phase 10, 2^24 particles) the
+//     heaviest halo's 29,443 hops take a chain of 936 dependent hops,
+//     within 2% of 29,443 / 32, and a launch 0.9-4.8 ms against COUNT's
+//     210-458 ms on the same inputs.
+// A hop issues the two 16-byte loads of its record (a leaf hop one) and,
+// in a warp step at an internal node, the node's right child with them,
+// so no load waits on another; the span is read at a contained node
+// only. The counter instance (STATS) reports per query the
+// hops of all its lanes summed (each node it tests once, so equal to the
+// one-lane walk's), the warp's longest chain of dependent hops (per step,
+// the most hops one lane made: 1, or the length of a sub-walk) and the
+// far tests (the internal nodes hit).
 //
 // The pair traversal (`_pair_query`, src/repro/core/query.py:733-765):
 // query k is leaf k's point and starts at rope[leaf k], so it meets only
@@ -212,6 +252,14 @@ constexpr int kSentinel = -1;
 constexpr int kThreads = 512;
 constexpr int kMinBlocks = 3;
 constexpr int kPackThreads = 256;
+// The SO count: a warp per query, 8 warps a block, at least 6 blocks (42
+// registers a thread) resident on an SM; a warp's stack of pending
+// subtree roots holds kSphereStack nodes (2 KiB).
+constexpr int kWarp = 32;
+constexpr int kSphereWarps = 8;
+constexpr int kSphereMinBlocks = 6;
+constexpr int kSphereStack = 512;
+constexpr unsigned kFullMask = 0xffffffffu;
 // HISTOGRAM's bins a block holds in shared memory: 48 KiB of 64-bit bins.
 constexpr int kSharedBins = 6144;
 
@@ -280,6 +328,13 @@ __device__ __forceinline__ float sum_sq(float dx, float dy, float dz) {
 __device__ __forceinline__ float point_box_dist2(float px, float py, float pz,
                                                  const float4& lo, const float4& hi) {
   return sum_sq(gap(lo.x, px, px, hi.x), gap(lo.y, py, py, hi.y), gap(lo.z, pz, pz, hi.z));
+}
+
+// Squared distance from (px, py, pz) to the box's farthest corner: the far
+// gaps max(hi - p, p - lo, 0), squared and summed as point_box_dist2 does.
+__device__ __forceinline__ float point_box_far2(float px, float py, float pz,
+                                                const float4& lo, const float4& hi) {
+  return sum_sq(gap(hi.x, px, px, lo.x), gap(hi.y, py, py, lo.y), gap(hi.z, pz, pz, lo.z));
 }
 
 // `aabb_aabb_dist2(qlo, qhi, lo, hi)`: gaps max(lo - qhi, qlo - hi, 0).
@@ -629,6 +684,129 @@ pack_kernel(const float* __restrict__ node_lo, const float* __restrict__ node_hi
   }
 }
 
+// What the SO count reads: the packed records of a point tree, and per
+// internal node its span and right child.
+struct SphereTree {
+  const float4* inner;   // (n-1) x 2 records of the internal nodes
+  const float4* leaves;  // (n,) records of the leaves, in leaf order
+  const int* span;       // (n-1,) leaves under each internal node
+  const int* right;      // (n-1,) right child of each internal node
+  int n;
+};
+
+// One hop of the SO count at `node`: adds a leaf hit (1) or a contained
+// node's span to `count`, one to `far` where it runs the far test, sets
+// the node's left child and rope, and returns whether the node is hit but
+// not contained (its subtree must be walked).
+__device__ __forceinline__ bool sphere_visit(const SphereTree& t, int node, float cx, float cy,
+                                             float cz, float r2, int& count, int& far,
+                                             int& left, int& rope) {
+  const int first_leaf = t.n - 1;
+  if (node >= first_leaf) {
+    const float4 p = __ldg(t.leaves + (node - first_leaf));
+    count += point_box_dist2(cx, cy, cz, p, p) <= r2;
+    rope = __float_as_int(p.w);
+    return false;
+  }
+  const float4* rec = t.inner + 2 * node;
+  const float4 lo = __ldg(rec);
+  const float4 hi = __ldg(rec + 1);
+  left = __float_as_int(lo.w);
+  rope = __float_as_int(hi.w);
+  if (!(point_box_dist2(cx, cy, cz, lo, hi) <= r2)) return false;
+  ++far;
+  if (point_box_far2(cx, cy, cz, lo, hi) <= r2) {
+    count += __ldg(t.span + node);
+    return false;
+  }
+  return true;
+}
+
+// The rest of a subtree, walked by one lane from `node` until it reaches
+// `stop` (the subtree root's rope): a node hit but not contained descends
+// to its left child, any other follows its rope. Returns the leaves within
+// r2; adds the hops to `hops` and the far tests to `far`.
+__device__ __forceinline__ int sphere_walk(const SphereTree& t, int node, int stop, float cx,
+                                           float cy, float cz, float r2, int& hops, int& far) {
+  int count = 0, left = 0, rope = 0;
+  while (node != stop) {
+    node = sphere_visit(t, node, cx, cy, cz, r2, count, far, left, rope) ? left : rope;
+    ++hops;
+  }
+  return count;
+}
+
+// A warp per query qi, its pending subtree roots on a stack in shared
+// memory (kSphereStack a warp). Each step the lanes pop up to 32 roots
+// from the top and test one each: a leaf hit or a contained node is
+// counted by its lane, a node hit but not contained pushes its two
+// children; where the stack has no room for them, its lane walks the
+// node's subtree to the node's rope instead. The lanes' counts are summed
+// at the end. STATS: all lanes' hops, the warp's longest chain of
+// dependent hops (per step, the most hops one lane made), and the far
+// tests of all lanes.
+template <bool STATS>
+__global__ void __launch_bounds__(kSphereWarps * kWarp, kSphereMinBlocks)
+sphere_count_kernel(SphereTree t, const float* __restrict__ centers,
+                    const float* __restrict__ r2s, int q, int* __restrict__ stats,
+                    int* __restrict__ out) {
+  __shared__ int stacks[kSphereWarps][kSphereStack];
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const long long query = static_cast<long long>(blockIdx.x) * kSphereWarps + warp;
+  if (query >= q) return;  // the whole warp
+  const int qi = static_cast<int>(query);
+  const float cx = centers[3 * qi], cy = centers[3 * qi + 1], cz = centers[3 * qi + 2];
+  const float r2 = r2s[qi];
+  int* stack = stacks[warp];
+  if (lane == 0) stack[0] = 0;  // the root
+  __syncwarp();
+  const unsigned below = (1u << lane) - 1u;  // the lanes before this one
+  int size = 1, count = 0, hops = 0, chain = 0, far = 0;
+  while (size > 0) {
+    const int popped = min(size, kWarp);
+    const bool have = lane < popped;
+    const int node = have ? stack[size - 1 - lane] : 0;
+    size -= popped;
+    __syncwarp();  // every pop read before a push overwrites its slot
+    bool keep = false;
+    int left = 0, rope = 0, right = 0, step = 0;
+    if (have) {
+      // Issued with the record: the right child is pushed where it is kept.
+      if (node < t.n - 1) right = __ldg(t.right + node);
+      keep = sphere_visit(t, node, cx, cy, cz, r2, count, far, left, rope);
+      step = 1;
+    }
+    const unsigned kept = __ballot_sync(kFullMask, keep);
+    const int room = (kSphereStack - size) / 2;
+    const int rank = __popc(kept & below);
+    if (keep) {
+      if (rank < room) {
+        stack[size + 2 * rank] = right;
+        stack[size + 2 * rank + 1] = left;
+      } else {
+        count += sphere_walk(t, left, rope, cx, cy, cz, r2, step, far);
+      }
+    }
+    size += 2 * min(__popc(kept), room);
+    if constexpr (STATS) {
+      hops += step;
+      chain += __reduce_max_sync(kFullMask, step);
+    }
+    __syncwarp();  // every push written before the next pops
+  }
+  const int total = __reduce_add_sync(kFullMask, count);
+  if constexpr (STATS) {
+    const int all = __reduce_add_sync(kFullMask, hops);
+    const int tests = __reduce_add_sync(kFullMask, far);
+    if (lane == 0) {
+      stats[qi] = all;
+      stats[static_cast<long long>(q) + qi] = chain;
+      stats[2LL * q + qi] = tests;
+    }
+  }
+  if (lane == 0) out[qi] = total;
+}
+
 template <int EPI, int PRED, bool BOX_LEAF, bool STATS, typename Off>
 int launch(const Tree& t, const int* order, const float* qa, const float* qb, int q,
            const int* start, const Epi<Off>& e, int* out, cudaStream_t stream,
@@ -863,6 +1041,29 @@ int wavefront_dense(const float* inner, const float* leaves, const int* key, int
                                                         stream);
   }
   return launch<DENSE_COUNT, SPHERE, true, false>(t, order, qa, qb, q, start, e, out, stream);
+}
+
+// The SO count: out[qi] = the leaves of the point tree within sqrt(r2[qi])
+// of centres[qi], COUNT's counts with no early exit. inner and leaves are
+// `wavefront_pack`'s point records; span: (n-1,) int32 range_right -
+// range_left + 1; right: (n-1,) int32 right_child; centres (q, 3) and r2
+// (q,) float32; out (q,) int32. With stats non-null the STATS instance
+// also writes the (3, q) int32 counters: every lane's hops summed, the
+// warp's longest chain of dependent hops, and the far tests.
+int wavefront_sphere_count(const float* inner, const float* leaves, const int* span,
+                           const int* right, int n, const float* centers, const float* r2,
+                           int q, int* stats, int* out, cudaStream_t stream) {
+  const SphereTree t{reinterpret_cast<const float4*>(inner),
+                     reinterpret_cast<const float4*>(leaves), span, right, n};
+  const int blocks = (q + kSphereWarps - 1) / kSphereWarps;
+  if (stats) {
+    sphere_count_kernel<true><<<blocks, kSphereWarps * kWarp, 0, stream>>>(t, centers, r2, q,
+                                                                            stats, out);
+  } else {
+    sphere_count_kernel<false><<<blocks, kSphereWarps * kWarp, 0, stream>>>(t, centers, r2, q,
+                                                                             stats, out);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // bin[i] = HISTOGRAM's bin of the squared distance d2[i], for n values.

@@ -40,6 +40,15 @@ entry), all instantiations of one template in ``csrc/wavefront.cu``:
   (``repro/core/dbscan.py:355-425``): a dense cell within r wholesale or
   point by point, a point by its test, a dense non-head point skipped.
 
+One more wrapper launches a kernel of its own in the same source:
+
+* :func:`wavefront_sphere_count` — the SO masses' range counts with a
+  radius per query (``sphere_counts``), COUNT's counts without early exit
+  from ``sphere_count_kernel``: a warp per query, and a subtree whose box
+  lies inside the sphere counted whole from its leaf range
+  (:func:`sphere_spans`) instead of leaf by leaf. Its plain version walks
+  the rope with the same contained test, one lane per query.
+
 Every wrapper takes a start node per query (``start``, the reference's
 ``start_nodes``, ``repro/kernels/wavefront.py:135-139``); a query that
 starts at ``SENTINEL`` walks nothing and keeps its initial carry.
@@ -105,6 +114,8 @@ __all__ = ["PREDICATES", "pred_test", "leaf_boxes", "wavefront_count",
            "PackedTree", "pack_tree", "pack_tree_plain",
            "shared_pack", "min_label_keys", "pair_starts", "pair_keys",
            "dense_leaves", "DENSE_POINT", "DENSE_CELL", "DENSE_SKIP",
+           "wavefront_sphere_count", "wavefront_sphere_count_plain",
+           "sphere_spans", "point_aabb_far2",
            "SHARED_HISTOGRAM_BINS",
            "wavefront_count_plain", "wavefront_min_label_plain",
            "wavefront_fill_plain", "wavefront_fixed_plain",
@@ -221,13 +232,15 @@ def _lib() -> ctypes.CDLL:
                                             _I, _P, _I, _P, _P]
     lib.wavefront_rsqrt_probe.argtypes = [_P, _P, _I, _P]
     lib.wavefront_bin_probe.argtypes = [_P, _P, _I, ctypes.c_float, _I, _P]
+    lib.wavefront_sphere_count.argtypes = [_P, _P, _P, _P, _I, _P, _P, _I,
+                                           _P, _P, _P]
     for fn in (lib.wavefront_pack, lib.wavefront_count,
                lib.wavefront_min_label, lib.wavefront_min_label64,
                lib.wavefront_fill,
                lib.wavefront_fixed, lib.wavefront_potential,
                lib.wavefront_edge, lib.wavefront_histogram,
                lib.wavefront_dense, lib.wavefront_rsqrt_probe,
-               lib.wavefront_bin_probe):
+               lib.wavefront_bin_probe, lib.wavefront_sphere_count):
         fn.restype = _I
     lib.cuda_error_string.argtypes = [_I]
     lib.cuda_error_string.restype = ctypes.c_char_p
@@ -301,29 +314,42 @@ def pack_tree(bvh: Bvh) -> PackedTree:
     return packed
 
 
-_open = threading.local()   # .packs: [bvh, PackedTree or None] per block
+# .packs: [bvh, PackedTree or None, spans or None] per block
+_open = threading.local()
 
 
 @contextlib.contextmanager
 def shared_pack(bvh: Bvh):
     """Inside the block, this thread's traversals of ``bvh`` (this very
     object, which must not change there) share one packed copy, made at
-    the first launch, instead of packing at each launch."""
+    the first launch, instead of packing at each launch; the SO count's
+    spans (:func:`sphere_spans`) likewise."""
     packs = _open.__dict__.setdefault("packs", [])
-    packs.append([bvh, None])
+    packs.append([bvh, None, None])
     try:
         yield
     finally:
         packs.pop()
 
 
-def _packed(bvh: Bvh) -> PackedTree:
+def _shared(bvh: Bvh, slot: int, make):
     for entry in getattr(_open, "packs", ()):
         if entry[0] is bvh:
-            if entry[1] is None:
-                entry[1] = pack_tree(bvh)
-            return entry[1]
-    return pack_tree(bvh)
+            if entry[slot] is None:
+                entry[slot] = make(bvh)
+            return entry[slot]
+    return make(bvh)
+
+
+def _packed(bvh: Bvh) -> PackedTree:
+    return _shared(bvh, 1, pack_tree)
+
+
+def sphere_spans(bvh: Bvh) -> torch.Tensor:
+    """(n-1,) int32 leaves under each internal node, ``range_right -
+    range_left + 1``: what the SO count adds at a node whose box lies
+    inside the sphere."""
+    return (bvh.range_right - bvh.range_left + 1).to(torch.int32)
 
 
 def min_label_keys(bvh: Bvh, obj_labels, obj_core, sentinel: int):
@@ -772,6 +798,52 @@ def wavefront_dense_min_label_plain(bvh: Bvh, centers, r2, words, pts,
                         scan_lab=scan_lab, tally=tally)
 
 
+def point_aabb_far2(p: torch.Tensor, lo: torch.Tensor,
+                    hi: torch.Tensor) -> torch.Tensor:
+    """Squared distance from points (m, 3) to their boxes' farthest
+    corners: the far gaps ``max(hi - p, p - lo, 0)``, squared and summed
+    as ``point_aabb_dist2`` does (NaN propagates)."""
+    return sum_sq(torch.clamp(torch.maximum(hi - p, p - lo), min=0.0))
+
+
+def wavefront_sphere_count_plain(bvh: Bvh, centers, r2, *,
+                                 with_stats: bool = False):
+    """(q,) int32 leaves within r of each query, by the SO count's walk in
+    lockstep: the rope walk of :func:`lockstep_traverse`, where a node hit
+    whose farthest corner is within r² too (:func:`point_aabb_far2`) adds
+    its span (:func:`sphere_spans`) and follows its rope. One lane walks a
+    query; with ``with_stats`` also its (3, q) int32 counters in the
+    kernel's rows, so that :func:`wavefront_sphere_count` gives one shape
+    on either device: the hops, the longest chain of dependent hops (the
+    hops again, one lane's walk being its own chain; nothing compares this
+    row with the kernel's, whose chain is a warp's) and the far tests
+    (internal nodes hit)."""
+    _spheres_on_points(bvh, "the SO count")
+    n, q, dev = bvh.num_leaves, centers.shape[0], centers.device
+    span, left = sphere_spans(bvh).long(), bvh.left_child.long()
+    rope = bvh.rope.long()
+    count = torch.zeros(q, dtype=torch.int64, device=dev)
+    hops = torch.zeros(q, dtype=torch.int32, device=dev)
+    far = torch.zeros(q, dtype=torch.int32, device=dev)
+    pos = torch.arange(q, device=dev)
+    node = torch.zeros(q, dtype=torch.int64, device=dev)
+    a, b = centers, r2
+    while pos.numel():
+        hops[pos] += 1
+        lo, hi = bvh.node_lo[node], bvh.node_hi[node]
+        hit = point_aabb_dist2(a, lo, hi) <= b
+        inner = node < n - 1
+        at = node.clamp(max=n - 2)
+        far[pos] += (hit & inner).int()
+        whole = hit & inner & (point_aabb_far2(a, lo, hi) <= b)
+        count[pos] += torch.where(whole, span[at], (hit & ~inner).long())
+        node = torch.where(hit & inner & ~whole, left[at], rope[node])
+        live = node != SENTINEL
+        pos, node, a, b = pos[live], node[live], a[live], b[live]
+    count = count.to(torch.int32)
+    return (count, torch.stack([hops, hops, far])) if with_stats else count
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -1115,6 +1187,41 @@ def wavefront_dense_min_label(bvh: Bvh, centers: torch.Tensor,
 
 
 @kernel_call
+def wavefront_sphere_count(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
+                           *, with_stats: bool = False):
+    """(q,) int32 leaves within r of each query (centres (q, 3), squared
+    radii (q,)), equal to :func:`wavefront_count`'s counts without
+    ``stop_at``: on the card ``sphere_count_kernel``, a warp per query
+    that counts a subtree inside the sphere from its span; for CPU
+    tensors its plain version. With ``with_stats``, ``(counts, stats)``:
+    ``stats`` (3, q) int32, per query the hops of all its lanes summed,
+    the warp's longest chain of dependent hops and the far tests, from
+    the counter instance. Inside :func:`shared_pack` the launches share
+    the records and the spans. Spheres on a point tree only."""
+    _check_inputs(bvh, centers, r2, None)
+    _spheres_on_points(bvh, "the SO count")
+    if not centers.is_cuda:
+        return wavefront_sphere_count_plain(bvh, centers, r2,
+                                            with_stats=with_stats)
+    q = centers.shape[0]
+    out = torch.empty(q, dtype=torch.int32, device=centers.device)
+    stats = torch.empty((3, q), dtype=torch.int32,
+                        device=centers.device) if with_stats else None
+    if q:
+        packed, spans = _packed(bvh), _shared(bvh, 2, sphere_spans)
+        lib = _lib()
+        code = lib.wavefront_sphere_count(
+            _vec_ptr(packed.inner), _vec_ptr(packed.leaves), _ptr(spans),
+            _ptr(bvh.right_child), bvh.num_leaves, _ptr(centers), _ptr(r2),
+            q, _ptr(stats), _ptr(out), _stream())
+        _build.check(lib, code, "wavefront_sphere_count")
+        _launched(wavefront_sphere_count, "sphere", packed)
+        if with_stats:
+            _build.count_launch(wavefront_sphere_count.counters)
+    return (out, stats) if with_stats else out
+
+
+@kernel_call
 def inv_sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """1/sqrt(x) of float32 values by POTENTIAL's sequence: on the card the
     kernel's own (``rsqrt_probe_kernel``), on the CPU its plain version,
@@ -1154,9 +1261,11 @@ def histogram_bins_rn(d2: torch.Tensor, r_max: float, n_bins: int) -> torch.Tens
 for _wrapper in (wavefront_count, wavefront_min_label, wavefront_fill,
                  wavefront_fixed, wavefront_potential, wavefront_edge,
                  wavefront_histogram, wavefront_dense_count,
-                 wavefront_dense_min_label):
+                 wavefront_dense_min_label, wavefront_sphere_count):
     _wrapper.launches = 0
     _wrapper.instances = collections.Counter()
 del _wrapper
-# Of COUNT's launches, those of its counter instance (``depths`` given).
+# Of COUNT's launches, those of its counter instance (``depths`` given);
+# of the SO count's, those of its counter instance (``with_stats``).
 wavefront_count.counters = types.SimpleNamespace(launches=0)
+wavefront_sphere_count.counters = types.SimpleNamespace(launches=0)

@@ -743,14 +743,98 @@ def test_halo_products_card_equal_cpu(cuda):
                 torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
             else:
                 assert torch.equal(_bits32(a), _bits32(b)), f
-    before = (kw.wavefront_potential.launches, kw.wavefront_count.launches)
+    kernels = (kw.wavefront_potential, kw.wavefront_count,
+               kw.wavefront_sphere_count)
+    before = [fn.launches for fn in kernels]
     from repro_torch.halos import most_bound_centers, so_masses
     cat = got[1]
     mb = most_bound_centers(pts, cat.particle_halo, ex.EPS * 2,
                             capacity=ex.CAPACITY, device=cuda)
     so_masses(pts, mb.center, cat.count > 0, r_max=0.1, iters=20, device=cuda)
-    assert (kw.wavefront_potential.launches - before[0],
-            kw.wavefront_count.launches - before[1]) == (1, 22)
+    assert [fn.launches - b for fn, b in zip(kernels, before)] == [1, 0, 22]
+
+
+def _sphere_case(cuda, kind, seed):
+    """``(bvh, centres, r2)`` for the SO count: random spheres over a
+    clustered cloud (radii from 0 to past the cloud, the heavy ones
+    spread over many kept subtrees), all duplicates, two points, radius
+    0, and a radius that holds everything."""
+    rng = np.random.default_rng(seed)
+    if kind == "all_duplicates":
+        pts = torch.from_numpy(np.tile(rng.uniform(0, 1, (1, 3)), (777, 1))
+                               .astype(np.float32)).to(cuda)
+        bvh = build_bvh(pts, *scene_bounds(pts))
+    elif kind == "two_points":
+        pts = torch.from_numpy(rng.uniform(0, 1, (2, 3)).astype(np.float32)).to(cuda)
+        bvh = build_bvh(pts, *scene_bounds(pts))
+    else:
+        pts, bvh = _tree(cuda, 20000, seed)
+    q = 3000
+    centers = torch.cat([pts[torch.from_numpy(rng.integers(0, pts.shape[0], q // 2))
+                             .to(cuda)],
+                         torch.from_numpy(rng.uniform(-0.2, 1.2, (q - q // 2, 3))
+                                          .astype(np.float32)).to(cuda)])
+    if kind == "radius_zero":
+        radii = np.zeros(q, np.float32)
+    elif kind == "everything":
+        radii = np.full(q, 3.0, np.float32)
+    else:
+        radii = rng.uniform(0, 0.6, q).astype(np.float32)
+        radii[::5] = 0.0
+    r = torch.from_numpy(radii).to(cuda)
+    return bvh, centers.contiguous(), r * r
+
+
+SPHERE_KINDS = ("clustered", "all_duplicates", "two_points", "radius_zero",
+                "everything")
+
+
+@pytest.mark.parametrize("kind", SPHERE_KINDS)
+def test_wavefront_sphere_count_matches_plain_and_count(cuda, kind):
+    """The SO count kernel bit-equal to its plain version and to COUNT
+    (``wavefront_count``, the rope walk) on the same spheres; its counter
+    instance gives the same counts, the plain walk's hops and far tests per
+    query (fewer hops would mean a subtree skipped, more a node tested
+    twice), and a chain of dependent hops no longer than all of them."""
+    bvh, centers, r2 = _sphere_case(cuda, kind, SPHERE_KINDS.index(kind))
+    before = (kw.wavefront_sphere_count.launches,
+              kw.wavefront_sphere_count.counters.launches)
+    got = kw.wavefront_sphere_count(bvh, centers, r2)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, kw.wavefront_count(bvh, centers, r2))
+    want, plain_stats = kw.wavefront_sphere_count_plain(bvh, centers, r2,
+                                                        with_stats=True)
+    assert torch.equal(got, want)
+    counts, stats = kw.wavefront_sphere_count(bvh, centers, r2, with_stats=True)
+    assert (kw.wavefront_sphere_count.launches - before[0],
+            kw.wavefront_sphere_count.counters.launches - before[1]) == (2, 1)
+    assert torch.equal(counts, got)
+    assert stats.shape == (3, centers.shape[0]) and stats.dtype == torch.int32
+    assert torch.equal(stats[0], plain_stats[0])
+    assert torch.equal(stats[2], plain_stats[2])
+    assert bool((stats[1] <= stats[0]).all()) and bool((stats[1] >= 1).all())
+    if kind == "everything":
+        assert bool((got == bvh.num_leaves).all())
+
+
+def test_wavefront_sphere_count_shares_pack_and_spans(cuda, monkeypatch):
+    """Inside ``shared_pack`` the SO count packs the tree and builds its
+    spans once for all its launches; the counts stay those of a launch
+    outside it."""
+    bvh, centers, r2 = _sphere_case(cuda, "clustered", 7)
+    want = kw.wavefront_sphere_count(bvh, centers, r2)
+    made = []
+    real = kw.sphere_spans
+
+    def spans(b):
+        made.append(b)
+        return real(b)
+
+    monkeypatch.setattr(kw, "sphere_spans", spans)
+    with kw.shared_pack(bvh):
+        for _ in range(3):
+            assert torch.equal(kw.wavefront_sphere_count(bvh, centers, r2), want)
+    assert made == [bvh]
 
 
 # --- B1 (a)-(c): box and ray predicates, box leaves -------------------------

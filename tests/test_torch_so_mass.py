@@ -18,7 +18,7 @@ from repro.core.query import within as jax_within  # noqa: E402
 from repro.halos.catalog import halo_catalog as jax_halo_catalog  # noqa: E402
 from repro.halos.so_mass import so_masses as jax_so_masses  # noqa: E402
 from repro_torch.core.bvh import build_bvh  # noqa: E402
-from repro_torch.core.geometry import scene_bounds  # noqa: E402
+from repro_torch.core.geometry import point_aabb_dist2, scene_bounds  # noqa: E402
 from repro_torch.halos import SoMassResult, so_masses, so_masses_from_counts  # noqa: E402
 from repro_torch.halos.so_mass import sphere_counts  # noqa: E402
 from repro_torch.kernels import wavefront as kw  # noqa: E402
@@ -187,3 +187,168 @@ def test_so_masses_32bit_build_not_ported(halos):
     want = jax_so_masses(jnp.asarray(pts), jnp.asarray(centers),
                          jnp.asarray(valid), use_64bit=False)
     _assert_so_equal(got, want)
+
+
+def _jax_counts(pts, centers, radii):
+    jp = jnp.asarray(pts)
+    jb = jax_build_bvh(jp, *jax_scene_bounds(jp))
+    return np.asarray(jax_query_count(jb, jax_within(jnp.asarray(centers),
+                                                     jnp.asarray(radii))))
+
+
+def _sq(radii):
+    r = torch.from_numpy(radii)
+    return r * r
+
+
+def _lattice_case(rng):
+    """Points on a dyadic lattice (spacing 1/8, every d² exact, so XLA's
+    contraction of d² into an FMA, C8, cannot show), centres on it and
+    half a step off it, radii of lattice distances (3-4-5 and 2-3-6
+    triples among them): many points lie on a sphere, and many node
+    boxes' far corners too."""
+    g = np.arange(8, dtype=np.float32) / 8
+    pts = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    centers = (rng.integers(0, 16, (96, 3)) / 16).astype(np.float32)
+    radii = (rng.choice([0, 1, 2, 3, 4, 5, 7, 10, 14], 96) / 8
+             ).astype(np.float32)
+    return pts, centers, radii
+
+
+def _duplicates_case(rng):
+    """Clustered points and 12 points repeated 25 times each: whole
+    subtrees whose box is one point, contained even at radius 0."""
+    base = make_clustered_points(rng, 300)
+    dup = np.repeat(base[:12], 25, axis=0)
+    pts = np.concatenate([base, dup]).astype(np.float32)
+    centers = np.concatenate([base[:12], base[100:140]]).astype(np.float32)
+    radii = rng.choice([0.0, 0.0, 0.01, 0.05, 0.2], len(centers)
+                       ).astype(np.float32)
+    return pts, centers, radii
+
+
+def _radius_zero_case(rng):
+    pts = make_clustered_points(rng, 400)
+    centers = np.concatenate([pts[::7], rng.uniform(0, 1, (20, 3))]
+                             ).astype(np.float32)
+    return pts, centers, np.zeros(len(centers), np.float32)
+
+
+def _whole_scene_case(rng):
+    pts = make_clustered_points(rng, 400)
+    centers = rng.uniform(0, 1, (16, 3)).astype(np.float32)
+    return pts, centers, np.full(16, 4.0, np.float32)
+
+
+def _nan_centre_case(rng):
+    pts = make_clustered_points(rng, 400)
+    centers = rng.uniform(0, 1, (12, 3)).astype(np.float32)
+    centers[::3, 0] = np.nan
+    centers[1::3, 2] = np.nan
+    return pts, centers, rng.uniform(0, 0.5, 12).astype(np.float32)
+
+
+SPHERE_CASES = {"lattice": _lattice_case, "duplicates": _duplicates_case,
+                "radius_zero": _radius_zero_case,
+                "whole_scene": _whole_scene_case,
+                "nan_centre": _nan_centre_case}
+
+
+@pytest.mark.parametrize("case", sorted(SPHERE_CASES))
+def test_sphere_count_plain_matches_reference(case):
+    """The SO count's walk (contained subtrees counted from their span)
+    and ``sphere_counts`` on the CPU equal JAX's ``query_count`` over
+    ``within``, and the rope walk's counts, on inputs built to sit on the
+    edge of the contained test."""
+    rng = np.random.default_rng(sorted(SPHERE_CASES).index(case))
+    pts, centers, radii = SPHERE_CASES[case](rng)
+    want = _jax_counts(pts, centers, radii)
+    bvh = _tree(pts)
+    c = torch.from_numpy(centers)
+    got = kw.wavefront_sphere_count_plain(bvh, c, _sq(radii))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        sphere_counts(bvh, None, c, torch.from_numpy(radii)).numpy(), want)
+    np.testing.assert_array_equal(
+        kw.wavefront_count_plain(bvh, c, _sq(radii)).numpy(), want)
+    if case == "whole_scene":
+        # The root is contained: n, after one hop.
+        counts, stats = kw.wavefront_sphere_count_plain(bvh, c, _sq(radii),
+                                                        with_stats=True)
+        assert bool((counts == len(pts)).all())
+        assert stats.tolist() == [[1] * len(centers)] * 3
+    if case == "nan_centre":
+        assert not want[::3].any() and not want[1::3].any()
+
+
+def test_so_masses_count_through_the_so_kernel_wrapper(halos, monkeypatch):
+    """``so_masses``'s ``iters + 2`` counts go through the SO count's
+    wrapper (``wavefront_sphere_count``), one call each."""
+    pts, centers, valid = halos
+    from repro_torch.halos import so_mass
+    calls = []
+    real = so_mass.wavefront_sphere_count
+
+    def recording(*args, **kwargs):
+        calls.append(args[1].shape[0])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(so_mass, "wavefront_sphere_count", recording)
+    so_masses(pts, centers, valid, r_max=0.1, iters=3, device="cpu")
+    assert calls == [len(centers)] * 5
+
+
+def test_sphere_count_walks_fewer_hops_than_the_rope_walk():
+    """On a clustered cloud with SO-like radii the contained test cuts the
+    walk: fewer hops per query in all and on the heaviest query, with the
+    counts unchanged."""
+    rng = np.random.default_rng(5)
+    pts = make_clustered_points(rng, 4000, n_halos=3, noise_frac=0.1)
+    bvh = _tree(pts)
+    c = torch.from_numpy(pts[rng.choice(len(pts), 64, replace=False)])
+    r2 = _sq(rng.uniform(0.05, 0.3, 64).astype(np.float32))
+    got, stats = kw.wavefront_sphere_count_plain(bvh, c, r2, with_stats=True)
+    lanes = torch.arange(64)
+    want, rope_hops, rope_stats = kw.lockstep_traverse(
+        bvh, c, r2, lanes, torch.zeros(64, dtype=torch.int32),
+        kw.count_epilogue(None), depths=torch.zeros(2 * len(pts) - 1,
+                                                    dtype=torch.int32))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert int(stats[0].sum()) < rope_hops
+    heavy = int(want.argmax())
+    assert int(stats[0, heavy]) * 4 < int(rope_stats[0, heavy])
+    assert bool((stats[0] <= rope_stats[0]).all())
+
+
+def test_sphere_count_raises_on_box_leaves():
+    from repro_torch.core.bvh import build_bvh_objects
+    rng = np.random.default_rng(3)
+    pts = torch.from_numpy(make_clustered_points(rng, 200))
+    boxes = build_bvh_objects(pts - 0.01, pts + 0.01, *scene_bounds(pts))
+    r2 = torch.full((5,), 0.01)
+    with pytest.raises(ValueError, match="leaves are points"):
+        kw.wavefront_sphere_count_plain(boxes, pts[:5], r2)
+    with pytest.raises(ValueError, match="leaves are points"):
+        kw.wavefront_sphere_count(boxes, pts[:5], r2)
+    with pytest.raises(ValueError, match="leaves are points"):
+        sphere_counts(boxes, None, pts[:5], 0.1)
+
+
+def test_sphere_count_at_radii_on_a_point():
+    """r² set to a leaf's own d² and to the float32 just below it: a box
+    whose farthest corner is that leaf is contained at the first and not
+    at the second, so a far test one ulp too lax would count a leaf the
+    rope walk does not. The counts equal the rope walk's (r² here is no
+    float32 square, so JAX's ``within`` cannot take it)."""
+    rng = np.random.default_rng(11)
+    pts = make_clustered_points(rng, 1500)
+    bvh = _tree(pts)
+    p = torch.from_numpy(pts)
+    c = torch.from_numpy(rng.uniform(0, 1, (200, 3)).astype(np.float32))
+    k = torch.from_numpy(rng.integers(0, len(pts), 200))
+    d2 = point_aabb_dist2(c, p[k], p[k])
+    for r2 in (d2, torch.nextafter(d2, torch.zeros(()))):
+        got = kw.wavefront_sphere_count_plain(bvh, c, r2)
+        torch.testing.assert_close(got, kw.wavefront_count_plain(bvh, c, r2),
+                                   rtol=0, atol=0)
