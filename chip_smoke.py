@@ -35,7 +35,8 @@ CUDA toolkit. Phases, each of which must pass:
    and its power limit. The all-pairs tile kernel must spill nothing, and
    its SASS (``cuobjdump -sass``) and its prologue's hold no ``FFMA``,
    ``HMMA`` or ``HGMMA``. No instance of the traversal kernel (and not its
-   pack prologue, nor either instance of the SO count's kernel) may spill,
+   pack prologue, nor DenseBox's scan-record prologue, nor either instance
+   of the SO count's kernel) may spill,
    none but POTENTIAL may hold an ``FFMA``, and
    POTENTIAL must hold as many as a probe kernel that holds only its IEEE
    1/sqrt sequence (both counts printed), and HISTOGRAM as many as a
@@ -96,9 +97,10 @@ CUDA toolkit. Phases, each of which must pass:
    1, 2 and 8 for a random parent and core mask, HISTOGRAM at 16 bins
    and 2 eps from the pair start nodes, its bin sequence on 2^24 squared
    distances (bin edges and subnormals included), and DenseBox's two on
-   the mixed trees of the 2^20 points at min_pts 2 and 5 (cell, skip and
-   point leaves; cells taken whole and scanned), all bit for bit; the
-   stencil and all-pairs kernels on inputs with subnormal coordinates,
+   its trees of the 2^20 points at min_pts 2 and 5 (cell and point
+   leaves, exactly the dense cells' run heads and the loose points; cells
+   taken whole and scanned; the query order a permutation; their scan
+   records with and without labels), all bit for bit; the stencil and all-pairs kernels on inputs with subnormal coordinates,
    products and differences, at eps2 = 0 and above; the nearest kernel on
    the 2^20 tree, bit for bit with its pops: KNN at k = 1, 4, 16 and 40
    (past the local-memory buffer) for 2^16 sampled particles and 2^12
@@ -225,8 +227,9 @@ CUDA toolkit. Phases, each of which must pass:
    (run before phase 9's line), each step with its seconds, peak memory
    and launches by instance: ``fdbscan``, ``fdbscan_pair(edge_capacity=8)``
    and ``fdbscan_densebox``, whose labels and core mask must equal
-   ``fdbscan``'s (both rounds, the grid's cell count and its largest run
-   printed); ``pair_count_histogram`` at r_max = 4 eps over 16 bins, whose
+   ``fdbscan``'s (both rounds, the grid's cell count and its largest run,
+   DenseBox's m tree leaves against n, and its seconds by stage printed:
+   grid, tree, count, union rounds, border); ``pair_count_histogram`` at r_max = 4 eps over 16 bins, whose
    total must equal (the sum of ``query_count(within(p, 4 eps))`` - n) / 2.
 14. The nearest family at full width on phase 4's cloud and eps (run
    before phase 9's line), each call with its seconds, peak memory and
@@ -381,8 +384,9 @@ CUDA toolkit. Phases, each of which must pass:
    ``wavefront_histogram``, ``wavefront_dense_count`` and
    ``wavefront_dense_min_label`` at their first launch's inputs there,
    with hops and, for DenseBox, the cells taken whole, the cells scanned
-   and the points scanned (the bound's operations), the plain version
-   over every query (HISTOGRAM: over 2^12 of them). Phase 13 adds
+   and the points scanned (the bound's operations) and its tree's m
+   leaves, the plain version over every query (HISTOGRAM: over 2^12 of
+   them). Phase 13 adds
    ``wavefront_min_label_int64`` at the inputs of its first launch there,
    with the int32 instance's time on the same inputs and the plain
    version over every query of the launch.
@@ -649,7 +653,8 @@ def tile_kernel_report():
 
 
 # The traversal template's instances (epilogue, predicate, box leaves,
-# offset type, counters), its pack prologue, and the probe that holds only
+# offset type, counters), its pack prologue, DenseBox's kernel and its
+# scan-record prologue, and the probe that holds only
 # POTENTIAL's 1/sqrt sequence, by a tag of their mangled names.
 PREDICATE_IDS = {"sphere": 0, "box": 1, "ray": 2}
 # The (predicate, leaf kind) pairs that B1 (a)-(c) added; spheres on point
@@ -674,11 +679,12 @@ WAVEFRONT_KERNELS = {"wavefront_count": wave_tag(0),
                      "wavefront_potential": wave_tag(4),
                      "wavefront_edge": wave_tag(5),
                      "wavefront_histogram": wave_tag(6),
-                     "wavefront_dense_count": wave_tag(7, leaf="box"),
-                     "wavefront_dense_min_label": wave_tag(8, leaf="box"),
+                     "wavefront_dense_count": "dense_kernelILi7EE",
+                     "wavefront_dense_min_label": "dense_kernelILi8EE",
                      "wavefront_sphere_count": "sphere_count_kernelILb0E",
                      "wavefront_sphere_count_stats": "sphere_count_kernelILb1E",
                      "wavefront_pack": "pack_kernel",
+                     "wavefront_dense_records": "dense_records_kernel",
                      "rsqrt_probe": "rsqrt_probe_kernel",
                      "bin_probe": "bin_probe_kernel"}
 for _pred, _leaf in NEW_KINDS:
@@ -694,7 +700,8 @@ del _pred, _leaf, _k
 
 def wavefront_report():
     """Registers, spills, SASS opcode and load counts of every instance of
-    the traversal kernel, of its pack prologue and of the 1/sqrt probe.
+    the traversal kernel, of its pack prologue, of DenseBox's kernel and
+    its record prologue and of the 1/sqrt probe.
     Fails if one spills; if an instance other than POTENTIAL holds an
     FFMA (a contracted multiply-add would round the distance otherwise
     than the plain version); if POTENTIAL holds another number of FFMAs
@@ -718,7 +725,7 @@ def wavefront_report():
                 f"sequence {probe_ffma}")
         elif key not in probes.values():
             require(ffma == 0, f"{key}: SASS holds an FFMA")
-        if key not in ("wavefront_pack", *probes.values()):
+        if key not in ("wavefront_pack", "wavefront_dense_records", *probes.values()):
             require(rep["sass"]["LDG.128"] >= 2,
                     f"{key}: fewer than two 128-bit loads {rep['sass']}")
     return out
@@ -3038,11 +3045,23 @@ def pair_kernel_checks(seed, bvh, pts, eps):
     for min_pts in (2, 5):
         t = densebox_tree(pts, eps, min_pts)
         kinds = {k: int((t.kind == v).sum()) for k, v in (
-            ("cell", kw.DENSE_CELL), ("skip", kw.DENSE_SKIP), ("point", kw.DENSE_POINT))}
+            ("cell", kw.DENSE_CELL), ("point", kw.DENSE_POINT))}
         require(all(kinds.values()), f"DenseBox leaves of every kind {kinds}")
+        heads = t.dense & t.grid.is_run_head()
+        want_obj = torch.nonzero(heads | ~t.dense).flatten().int()
+        require(torch.equal(t.obj, want_obj) and torch.equal(
+            t.kind == kw.DENSE_CELL, heads[want_obj.long()]),
+            "DenseBox's leaves: the dense cells' run heads and the loose points")
+        require(torch.equal(t.order.sort().values,
+                            torch.arange(n, dtype=torch.int32, device=DEV)),
+                "DenseBox's query order is a permutation of the n points")
         lab = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(DEV)
+        for scan_lab in (lab, None):
+            require(torch.equal(kw.dense_scan_records(t.pts_sorted, scan_lab).view(torch.int32),
+                                kw.dense_scan_records_plain(t.pts_sorted, scan_lab)
+                                .view(torch.int32)), "dense_scan_records")
         words = t.words(lab)
-        order = t.bvh.leaf_perm
+        order = t.order
         for stop in (None, min_pts):
             tally = {}
             got = kw.wavefront_dense_count(t.bvh, t.pts_sorted, t.r2, words, t.pts_sorted,
@@ -3054,7 +3073,7 @@ def pair_kernel_checks(seed, bvh, pts, eps):
             require(torch.equal(got, want), f"wavefront_dense_count min_pts "
                     f"{min_pts} stop_at {stop}")
             log(f"[2] wavefront_dense_count min_pts={min_pts} stop_at={stop}: exact; "
-                f"leaves {kinds}, cell hits {tally}")
+                f"leaves {kinds} ({t.bvh.num_leaves} of {n}), cell hits {tally}")
         qmask = torch.from_numpy(rng.random(n) < 0.7).to(DEV)
         tally = {}
         got = kw.wavefront_dense_min_label(t.bvh, t.pts_sorted, t.r2, words,
@@ -3159,6 +3178,43 @@ def phase3_pair_and_densebox(seed: int, n: int = 1 << 15):
 
 PAIR_KERNELS = ("wavefront_edge", "wavefront_histogram", "wavefront_dense_count",
                 "wavefront_dense_min_label")
+# fdbscan_densebox's stages, by the function of ``core.dbscan`` each runs in.
+DENSEBOX_STAGES = {"grid": "build_cell_grid", "tree": "densebox_tree",
+                   "count": "wavefront_dense_count",
+                   "union": "wavefront_dense_min_label"}
+
+
+@contextlib.contextmanager
+def densebox_stages(torch, td, secs: dict):
+    """Inside the block, ``fdbscan_densebox``'s seconds by stage go to
+    ``secs``: the grid (``build_cell_grid``), the tree (the rest of
+    ``densebox_tree``: the tree over the dense cells and loose points,
+    its words and the query order), the count pass, the union rounds
+    (every DENSE_MIN_LABEL call but the last, ``union_calls`` of them)
+    and the border pass (the last). Each call is timed on the host clock
+    between two synchronizes; what the stages leave out of a step's
+    seconds (hooks, labels, the pre-union) is the step's other time."""
+    times = {k: [] for k in DENSEBOX_STAGES}
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[key].append(time.perf_counter() - t0)
+            return res
+        return run
+
+    with contextlib.ExitStack() as stack:
+        for key, name in DENSEBOX_STAGES.items():
+            stack.enter_context(swapped(td, name, timed(key, getattr(td, name))))
+        yield secs
+    union = times["union"]
+    secs.update({"grid": sum(times["grid"]),
+                 "tree": sum(times["tree"]) - sum(times["grid"]),
+                 "count": sum(times["count"]), "union": sum(union[:-1]),
+                 "union_calls": len(union) - 1, "border": union[-1] if union else 0.0})
 
 
 def phase12_pair_and_densebox(seed: int, n: int, card: str, wave: dict):
@@ -3193,8 +3249,11 @@ def phase12_pair_and_densebox(seed: int, n: int, card: str, wave: dict):
         with counted_step(torch, "fdbscan_pair(edge_capacity=8)", kernels, "[12]") as rec:
             pr = td.fdbscan_pair(pts, eps, 2, edge_capacity=8, device=DEV)
         steps.append(rec)
-        with counted_step(torch, "fdbscan_densebox", kernels, "[12]") as rec:
+        stages = {}
+        with densebox_stages(torch, td, stages), \
+                counted_step(torch, "fdbscan_densebox", kernels, "[12]") as rec:
             db = td.fdbscan_densebox(pts, eps, 2, device=DEV)
+        rec["stages"] = stages
         steps.append(rec)
     for rec, names in ((steps[1], ("wavefront_edge", "wavefront_min_label")),
                        (steps[2], ("wavefront_dense_count", "wavefront_dense_min_label"))):
@@ -3209,12 +3268,16 @@ def phase12_pair_and_densebox(seed: int, n: int, card: str, wave: dict):
     grid = build_cell_grid(pts, lo, hi, float(torch.tensor(eps) / torch.tensor(3 ** 0.5)))
     cells = int(torch.prod(grid.dims.long()))
     largest = int(grid.run_length.max())
+    m = calls["wavefront_dense_count"][0][0][0].num_leaves
+    other = rec["s"] - sum(v for k, v in stages.items() if k != "union_calls")
     log(f"[12] fdbscan_pair and fdbscan_densebox: labels and core mask == "
         f"fdbscan's; rounds pair {int(pr.num_rounds)}, densebox "
         f"{int(db.num_rounds)}, fdbscan {int(ref.num_rounds)}; DenseBox's grid "
         f"{grid.dims.tolist()} = {cells} cells ({cells / 2**31:.2f} x 2^31), "
         f"largest run {largest}, dense points (min_pts 2) "
-        f"{int((grid.run_length >= 2).sum())}")
+        f"{int((grid.run_length >= 2).sum())}; DenseBox's tree {m} leaves of "
+        f"{n} points ({m / n:.4f}); fdbscan_densebox {rec['s']:.4f} s by stage "
+        f"{json.dumps(stages)}, other {other:.4f} s; {card}")
     del ref, pr, db, grid
 
     r_max = 4 * eps
@@ -3330,13 +3393,19 @@ def pair_rows(torch, kw, calls, steps, n, card, wave):
         require(torch.equal(carry[:, 0].int(), got[lanes]), f"{name} on phase 12's input")
         ops = (hops * FLOPS_PER_HOP + tally["scan_tests"] * OPS_PER_SCAN_TEST
                + (tally["whole"] + tally["scanned"]) * OPS_PER_CELL_TEST)
-        nb = tree_bytes(bvh) + n * (12 + 4 + 1 + 4 + 16 + 12 + (4 if init else 0))
+        # The tree, a word per leaf, and per point its centre, r2, mask
+        # bit, place in the order, result and (MIN_LABEL) label.
+        m = bvh.num_leaves
+        nb = tree_bytes(bvh) + m * 16 + n * (12 + 4 + 1 + 4 + 4 + (4 if init else 0))
         row(name, bvh, True, ms, plain_ms, nb, ops, hops, "every query in the launch's mask",
-            {**extra, "queries": int(lanes.numel()), **tally})
+            {**extra, "queries": int(lanes.numel()), "tree_leaves": m, "points": n,
+             **tally})
     for r in rows:
+        cells = "".join(f", {k} {r[k]}" for k in ("tree_leaves", "whole", "scanned",
+                                                   "scan_tests") if k in r)
         log(f"[12] {r['name']}: {r['ms']:.4f} ms a launch x {r['launches']} in "
             f"{r['path']}, plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}), {r['hops']} hops, {r['ghops_per_s']:.1f} Ghops/s, "
+            f"({r['bound_by']}), {r['hops']} hops{cells}, {r['ghops_per_s']:.1f} Ghops/s, "
             f"pack {r['pack_ms']:.4f} ms, {r['registers']} registers; {card}")
     return rows
 

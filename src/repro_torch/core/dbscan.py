@@ -25,10 +25,12 @@ order whose root differs from its own (the traversal kernel's EDGE
 epilogue), then hooks them; rounds repeat while a buffer filled or a label
 changed. ``fdbscan_densebox`` builds one tree over the cells of an ε/√d
 grid that hold at least ``min_pts`` points (as boxes) and the other
-points; dense points are core and pre-unioned, and the two passes are the
-kernel's DENSE_COUNT and DENSE_MIN_LABEL epilogues, which take a cell
-within ε wholesale and scan it point by point otherwise. Labels, core mask
-and rounds are the reference's exactly.
+points, and nothing else (the reference's tree also holds a leaf for each
+other point of a dense cell, which its callback skips); dense points are
+core and pre-unioned, and the two passes are the kernel's DENSE_COUNT and
+DENSE_MIN_LABEL epilogues, which take a cell within ε wholesale and scan
+it point by point otherwise. Labels, core mask and rounds are the
+reference's exactly.
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ from repro_torch.core.cell_grid import CellGrid, build_cell_grid, cell_box
 from repro_torch.core.geometry import scene_bounds
 from repro_torch.core.query import query_count, query_fixed, squared_radii, within
 from repro_torch.device import as_tensor_on, resolve_device
-from repro_torch.kernels.wavefront import (DENSE_CELL, DENSE_POINT, DENSE_SKIP,
+from repro_torch.kernels.wavefront import (DENSE_CELL, DENSE_POINT,
                                            dense_leaves, pair_keys, pair_starts,
                                            shared_pack, wavefront_dense_count,
                                            wavefront_dense_min_label,
@@ -274,47 +276,82 @@ def seg_min_per_point(values_sorted: torch.Tensor, run_start: torch.Tensor,
 
 
 class DenseBoxTree(NamedTuple):
-    """DenseBox's mixed tree and what its epilogues read, in grid-sorted
-    order (``grid.perm``): one leaf per sorted point, a dense cell's box at
-    its run's head, a leaf to skip at its other points, a loose point as
-    itself."""
+    """DenseBox's tree and what its epilogues read. The points stay in
+    grid-sorted order (``grid.perm``), which the runs, the scan and the
+    labels index. The tree's m leaves are the tree's objects: each dense
+    cell's box (object: its run's head) and each loose point (object:
+    itself), and nothing else. The reference's tree has n leaves, also
+    one at each other point of a dense cell, which its callback skips,
+    because XLA needs static shapes; the kernel walked past those leaves
+    and the internal nodes above them and took nothing from them.
+
+    Dropping them changes no result. An internal node's box is the exact
+    min/max of its children's, and the rounded point-box test is monotone
+    in the box (each gap, its square, its flush and the sum only grow as
+    the box grows), so a rope walk reaches every leaf whose box the
+    sphere hits, whatever the tree's shape: each query takes the same
+    cells and points as on the reference's tree. MIN is order-free, so
+    the min labels are equal; without ``stop_at`` the counts are equal;
+    with it the core flags are, since the count only grows and is checked
+    after whole leaves as before. Where the grid leaves a single object
+    (a build needs two), a second leaf copies its box with an empty run,
+    which adds nothing (a leaf hit adds its run's length)."""
     grid: CellGrid
     bvh: Bvh
     pts_sorted: torch.Tensor  # (n, 3) float32
     r2: torch.Tensor          # (n,) float32 eps² per sorted query
     dense: torch.Tensor       # (n,) bool: in a cell of >= min_pts points
-    kind: torch.Tensor        # (n,) DENSE_POINT / DENSE_CELL / DENSE_SKIP
+    obj: torch.Tensor         # (m,) int32 grid-sorted index of each object
+    kind: torch.Tensor        # (m,) int32 DENSE_CELL / DENSE_POINT per object
+    run_length: torch.Tensor  # (m,) int32 points in each object's run
+    order: torch.Tensor       # (n,) int32 query order: the leaves in leaf
+                              # order, each cell expanded into its run
     half: float               # half the cell size
 
     def words(self, label: torch.Tensor) -> torch.Tensor:
-        """The (n, 4) leaf words with ``label`` per sorted point."""
-        g = self.grid
-        return dense_leaves(self.bvh, g.run_start, g.run_length, label,
-                            self.kind)
+        """The (m, 4) leaf words with ``label`` per sorted point, read at
+        each object: the cell's least label at a run's head, the point's
+        key at a loose point."""
+        return dense_leaves(self.bvh, self.obj, self.run_length,
+                            label.index_select(0, self.obj), self.kind)
 
 
 def densebox_tree(points: torch.Tensor, eps, min_pts: int,
                   use_64bit: bool = True) -> DenseBoxTree:
     """The grid of cell ε/√d over ``points`` ((n, 3) float32, on their
-    device) and the tree over its dense cells and other points
-    (``repro/core/dbscan.py:314-333``)."""
-    _, d = points.shape
+    device) and the tree over its dense cells and loose points only
+    (``repro/core/dbscan.py:314-333`` builds it over n leaves)."""
+    n, d = points.shape
     lo, hi = scene_bounds(points)
     eps_f = torch.tensor(float(eps), dtype=torch.float32)
     cell = float(eps_f / torch.tensor(math.sqrt(d), dtype=torch.float32))
     grid = build_cell_grid(points, lo, hi, cell)
     dense = grid.dense_mask_sorted(min_pts)
     is_cell = dense & grid.is_run_head()
-    kind = torch.where(is_cell, DENSE_CELL,
-                       torch.where(dense, DENSE_SKIP, DENSE_POINT))
+    obj = torch.nonzero(is_cell | ~dense).flatten().to(torch.int32)
+    kind = torch.where(is_cell[obj.long()], DENSE_CELL, DENSE_POINT).to(torch.int32)
+    run_length = torch.where(kind == DENSE_CELL, grid.run_length[obj.long()], 1)
+    if obj.shape[0] == 1:
+        obj, kind = obj.repeat(2), kind.repeat(2)
+        run_length = torch.cat([run_length, torch.zeros_like(run_length)])
     pts_sorted = points[grid.perm.long()].contiguous()
-    cell_lo, cell_hi = cell_box(grid, grid.cell_coord_sorted)
-    bvh = build_bvh_objects(torch.where(is_cell[:, None], cell_lo, pts_sorted),
-                            torch.where(is_cell[:, None], cell_hi, pts_sorted),
+    cell_lo, cell_hi = cell_box(grid, grid.cell_coord_sorted[obj.long()])
+    obj_pts = pts_sorted[obj.long()]
+    box = (kind == DENSE_CELL)[:, None]
+    bvh = build_bvh_objects(torch.where(box, cell_lo, obj_pts),
+                            torch.where(box, cell_hi, obj_pts),
                             lo, hi, use_64bit=use_64bit)
+    leaf = bvh.leaf_perm.long()
+    lens = run_length[leaf].long()
+    first = torch.cumsum(lens, 0) - lens
+    owner = torch.repeat_interleave(torch.arange(lens.shape[0], device=lens.device),
+                                    lens, output_size=n)
+    order = (obj[leaf].long()[owner] + torch.arange(n, device=lens.device)
+             - first[owner]).to(torch.int32)
     return DenseBoxTree(grid=grid, bvh=bvh, pts_sorted=pts_sorted,
                         r2=squared_radii(within(pts_sorted, eps)), dense=dense,
-                        kind=kind, half=float(grid.cell_size * 0.5))
+                        obj=obj, kind=kind, run_length=run_length.to(torch.int32),
+                        order=order, half=float(grid.cell_size * 0.5))
 
 
 def fdbscan_densebox(points, eps, min_pts: int, use_64bit: bool = True, *,
@@ -330,8 +367,7 @@ def fdbscan_densebox(points, eps, min_pts: int, use_64bit: bool = True, *,
     t = densebox_tree(points, eps, min_pts, use_64bit)
     grid, bvh, pts, dense_s = t.grid, t.bvh, t.pts_sorted, t.dense
     perm = grid.perm.long()
-    is_cell = t.kind == DENSE_CELL
-    order = bvh.leaf_perm
+    order = t.order
 
     with shared_pack(bvh):
         # Phase 1: core points. Dense points are core for free.
@@ -346,7 +382,8 @@ def fdbscan_densebox(points, eps, min_pts: int, use_64bit: bool = True, *,
             scan_lab = parent[perm]
             cell_lab = seg_min_per_point(scan_lab, grid.run_start,
                                          grid.run_length)
-            label = torch.where(is_cell, cell_lab,
+            # Read at run heads (cells) and loose points (their key).
+            label = torch.where(dense_s, cell_lab,
                                 torch.where(core_s, scan_lab, n))
             m_s = wavefront_dense_min_label(
                 bvh, pts, t.r2, t.words(label), pts, scan_lab, t.half,

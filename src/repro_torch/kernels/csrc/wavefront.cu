@@ -12,10 +12,12 @@
 //     cross-shard rounds over int64 global labels (`dbscan_local_shard`,
 //     epilogue MIN_LABEL64), on the pair traversal of
 //     `fdbscan_pair`'s capture (epilogue EDGE) and `pair_count_histogram`
-//     (epilogue HISTOGRAM), on DenseBox's mixed tree (`fdbscan_densebox`,
-//     epilogues DENSE_COUNT and DENSE_MIN_LABEL), with its start node per
-//     query (`start_nodes`, every instance) and its per-lane counters
-//     (`with_stats`, the STATS instance of COUNT);
+//     (epilogue HISTOGRAM), on DenseBox's tree of dense cells and loose
+//     points (`fdbscan_densebox`, DENSE_COUNT and DENSE_MIN_LABEL in
+//     `dense_kernel`, over scan records from `dense_records_kernel`;
+//     below), with its start node per query (`start_nodes`, every instance
+//     of `wavefront_kernel`) and its per-lane counters (`with_stats`, the
+//     STATS instance of COUNT);
 //   * `wavefront_fill_round` (:245), the fill pass of the count-then-fill
 //     CSR protocol `query_csr_device` (epilogue FILL).
 //
@@ -33,8 +35,7 @@
 //     (`build_bvh_objects`, a leaf's lo and hi).
 // COUNT (and its STATS instance), FILL and FIXED take every combination;
 // MIN_LABEL, MIN_LABEL64, POTENTIAL, EDGE and HISTOGRAM take SPHERE on
-// POINT leaves only, DENSE_COUNT and DENSE_MIN_LABEL SPHERE on BOX leaves
-// only.
+// POINT leaves only; `dense_kernel` takes SPHERE on BOX leaves only.
 //
 // The TPU kernels advance a block of 128 queries in lockstep, one rope hop
 // per iteration, because a TPU core runs one wide instruction stream. On
@@ -200,19 +201,35 @@
 // of the IEEE sequences (`chip_smoke.py` phase 1 holds them to
 // `bin_probe_kernel`'s).
 //
-// DenseBox (src/repro/core/dbscan.py:355-425): the tree's leaves are the
-// boxes of the dense cells (at a run's head), the points of a dense cell's
-// other members (skipped) and the loose points. A leaf reads an int4 word
-// with its record, {run start, run length, label, kind}. A cell within r
+// EDGE 2.7 ms a round and HISTOGRAM at 4 eps 214 ms for 8.4e9 pairs on an
+// H100 80GB HBM3 at 700 W with 2^24 particles (HACC's linking length);
+// HISTOGRAM's shared-memory atomics on 16 bins are the likely limit (not
+// measured).
+//
+// DenseBox (src/repro/core/dbscan.py:355-425), `dense_kernel`. The
+// reference builds its tree over n fixed leaves, because XLA needs static
+// shapes: a dense cell's box at its run's head, a leaf that its callback
+// skips at each other point of a dense cell, and each loose point. Here
+// the tree holds only the m leaves that do something, the dense cells'
+// boxes and the loose points (`densebox_tree`); at 2^24 particles a skip
+// leaf was 47% of the leaf hits, and the walk from a dense point lost 44%
+// of its hops without them (a CPU count on `plummer_cloud`). The leaves a
+// sphere hits do not depend on the tree's shape (an internal box is the
+// exact min/max of its children, and the rounded point-box test is
+// monotone in the box), so each query takes the reference's cells and
+// points. A leaf reads an int4 word with its record, {run start, run
+// length, label, kind} (a loose point's run is itself). A cell within r
 // wholesale (its farthest corner, |centre - mid| + half a cell a side,
-// within r) adds its run's length or takes its least label; a cell that is
-// not is scanned point by point by the thread itself over the grid-sorted
-// points. On an H100 80GB HBM3 at 700 W with 2^24 particles (HACC's
-// linking length, min_pts 2): runs hold at most 21 points, and a union
-// launch of DENSE_MIN_LABEL scans 9.5e8 points in 2.5e8 partial cells
-// beside 3.7e9 hops, 34 ms; EDGE 2.7 ms a round; HISTOGRAM at 4 eps
-// 214 ms for 8.4e9 pairs, whose shared-memory atomics on 16 bins are the
-// likely limit (not measured).
+// within r) adds its run's length or takes its least label; so does a
+// point leaf, whose run is 1 long. A cell that is partly within r is
+// scanned by the thread itself over the grid-sorted points, each a 16-byte
+// record {x, y, z, bits(label)} (one `LDG.E.128`; `dense_records_kernel`
+// writes them before each launch). A scan by the whole warp (the lanes
+// with a partial cell found by a ballot, their runs taken one after
+// another, lane u testing point start + u) lost to this on an H100 80GB
+// HBM3 at 700 W with 2^24 particles: a union launch 31.7 ms against 19.4,
+// since a partial cell holds ~4 points and the warp then serializes ~15
+// runs a query (`tools/compare_densebox.py --warp-scan`).
 //
 // STATS (a template flag, instantiated for COUNT) counts per lane what
 // `_one_stackless_stats` counts (src/repro/core/query.py:274-309): every
@@ -268,17 +285,14 @@ enum Epilogue {
   EDGE = 5, HISTOGRAM = 6, DENSE_COUNT = 7, DENSE_MIN_LABEL = 8, MIN_LABEL64 = 9
 };
 enum Predicate { SPHERE = 0, BOX = 1, RAY = 2 };
-// What a leaf of DenseBox's mixed tree is (`Epi::dense`'s w).
-enum DenseLeaf { DENSE_POINT = 0, DENSE_CELL = 1, DENSE_SKIP = 2 };
+// What a leaf of DenseBox's tree is (`DenseArgs::words`' w).
+enum DenseLeaf { DENSE_POINT = 0, DENSE_CELL = 1 };
 
 // Resident blocks an SM must hold: 3 caps a thread at 42 registers; the
-// slab test's six t values and a ray's six floats take more, and so do
-// DenseBox's leaf words and cell scan and the histogram's bin, so those
-// instances ask for 2 (64 registers).
+// slab test's six t values and a ray's six floats take more, and so does
+// the histogram's bin, so those instances ask for 2 (64 registers).
 constexpr int min_blocks(int epi, int pred) {
-  return (pred == RAY || epi == HISTOGRAM || epi == DENSE_COUNT || epi == DENSE_MIN_LABEL)
-             ? 2
-             : kMinBlocks;
+  return (pred == RAY || epi == HISTOGRAM) ? 2 : kMinBlocks;
 }
 
 // max and min that propagate NaN (either operand), as XLA's and torch's:
@@ -402,11 +416,6 @@ struct Epi {
   float r_max;              // HISTOGRAM: the largest distance binned
   int n_bins;               // HISTOGRAM: bins over [0, r_max]
   unsigned long long* hist; // HISTOGRAM: (n_bins,) pair counts, added to
-  const int4* dense;        // DENSE_*: (n,) in leaf order {run start, run
-                            // length, label, DenseLeaf}
-  const float* pts;         // DENSE_*: (n, 3) points in grid-sorted order
-  const int* scan_lab;      // DENSE_MIN_LABEL: (n,) label of each sorted point
-  float half;               // DENSE_*: half the cell size
   const long long* key64;   // MIN_LABEL64: (n,) key in leaf order
   long long sentinel64;     // MIN_LABEL64: result where no core object is hit
   long long* out64;         // MIN_LABEL64: (q,) output
@@ -425,11 +434,6 @@ struct Epi {
 //   rope[leaf qi]: the pair backend); one that is not core walks nothing.
 // HISTOGRAM: each hit's distance bin, added to the block's bins (past
 //   kSharedBins, to the global bins); no carry.
-// DENSE_COUNT: on DenseBox's mixed tree, carry = points within r; a cell
-//   leaf adds its run's length where its farthest corner is within r, else
-//   scans the run; a point leaf adds 1; a skip leaf nothing; done at
-//   stop_at. DENSE_MIN_LABEL: the same leaves, carry = min label: a whole
-//   cell's label, its run's points' labels within r, a point's key.
 // `out[qi]` receives the int carry (FILL and HISTOGRAM have none and write
 // no `out`; POTENTIAL writes `e.potential[qi]` instead).
 // Per query: SPHERE reads its centre qa[qi] and r2 = qb[qi]; BOX its box
@@ -442,12 +446,11 @@ __device__ __forceinline__ void walk(const Tree& t, int lane, const int* __restr
                                      const int* __restrict__ start, const Epi<Off>& e,
                                      int* __restrict__ out, unsigned long long* bins) {
   const int qi = order ? __ldg(order + lane) : lane;
-  int carry = (EPI == MIN_LABEL || EPI == DENSE_MIN_LABEL) ? e.sentinel : 0;
+  int carry = EPI == MIN_LABEL ? e.sentinel : 0;
   long long carry64 = EPI == MIN_LABEL64 ? e.sentinel64 : 0;
   float acc = 0.0f;
   long long pos = 0;
-  if constexpr (EPI == MIN_LABEL || EPI == MIN_LABEL64 || EPI == POTENTIAL ||
-                EPI == DENSE_COUNT || EPI == DENSE_MIN_LABEL) {
+  if constexpr (EPI == MIN_LABEL || EPI == MIN_LABEL64 || EPI == POTENTIAL) {
     if (e.qmask && !e.qmask[qi]) {
       if constexpr (EPI == POTENTIAL) e.potential[qi] = acc;
       else if constexpr (EPI == MIN_LABEL64) e.out64[qi] = carry64;
@@ -494,10 +497,6 @@ __device__ __forceinline__ void walk(const Tree& t, int lane, const int* __restr
     if constexpr (EPI == MIN_LABEL64) key64 = leaf ? __ldg(e.key64 + k) : 0;
     int2 pkey = make_int2(0, -1);
     if constexpr (EPI == EDGE) pkey = leaf ? __ldg(e.pair_key + k) : pkey;
-    int4 dkey = make_int4(0, 0, 0, DENSE_SKIP);
-    if constexpr (EPI == DENSE_COUNT || EPI == DENSE_MIN_LABEL) {
-      dkey = leaf ? __ldg(e.dense + k) : dkey;
-    }
     float d2 = 0.0f;
     bool hit;
     if constexpr (PRED == SPHERE) {
@@ -547,38 +546,6 @@ __device__ __forceinline__ void walk(const Tree& t, int lane, const int* __restr
         const int b = distance_bin(d2, e.r_max, e.n_bins);
         if (e.n_bins <= kSharedBins) atomicAdd(bins + b, 1ULL);
         else atomicAdd(e.hist + b, 1ULL);
-      } else if (dkey.w == DENSE_CELL) {
-        // The cell's farthest corner: |centre - mid| + half the cell a side.
-        const float fx = __fadd_rn(fabsf(__fsub_rn(ax, __fmul_rn(__fadd_rn(lo.x, hi.x), 0.5f))),
-                                   e.half);
-        const float fy = __fadd_rn(fabsf(__fsub_rn(ay, __fmul_rn(__fadd_rn(lo.y, hi.y), 0.5f))),
-                                   e.half);
-        const float fz = __fadd_rn(fabsf(__fsub_rn(az, __fmul_rn(__fadd_rn(lo.z, hi.z), 0.5f))),
-                                   e.half);
-        if (sum_sq(fx, fy, fz) <= bx) {
-          if constexpr (EPI == DENSE_COUNT) carry += dkey.y;
-          else carry = min(carry, dkey.z);
-        } else {
-          // One thread walks the cell's run, point by point.
-          for (int u = dkey.x; u < dkey.x + dkey.y; ++u) {
-            const float* p = e.pts + 3LL * u;
-            const float du = sum_sq(__fsub_rn(__ldg(p), ax), __fsub_rn(__ldg(p + 1), ay),
-                                    __fsub_rn(__ldg(p + 2), az));
-            if (du <= bx) {
-              if constexpr (EPI == DENSE_COUNT) ++carry;
-              else carry = min(carry, __ldg(e.scan_lab + u));
-            }
-          }
-        }
-        if constexpr (EPI == DENSE_COUNT) {
-          if (carry >= e.stop_at) break;
-        }
-      } else if (dkey.w == DENSE_POINT) {
-        if constexpr (EPI == DENSE_COUNT) {
-          if (++carry >= e.stop_at) break;
-        } else {
-          carry = min(carry, dkey.z);
-        }
       }
     }
     // At a leaf both w lanes hold the rope.
@@ -617,8 +584,8 @@ wavefront_kernel(Tree t, const int* __restrict__ order,
                  EPI != HISTOGRAM) ||
                     (PRED == SPHERE && !BOX_LEAF),
                 "MIN_LABEL(64), POTENTIAL, EDGE and HISTOGRAM take spheres on point leaves");
-  static_assert((EPI != DENSE_COUNT && EPI != DENSE_MIN_LABEL) || (PRED == SPHERE && BOX_LEAF),
-                "DENSE_COUNT and DENSE_MIN_LABEL take spheres on box leaves");
+  static_assert(EPI != DENSE_COUNT && EPI != DENSE_MIN_LABEL,
+                "DenseBox's epilogues run in dense_kernel");
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if constexpr (EPI == HISTOGRAM) {
     extern __shared__ unsigned long long bins[];
@@ -805,6 +772,95 @@ sphere_count_kernel(SphereTree t, const float* __restrict__ centers,
     }
   }
   if (lane == 0) out[qi] = total;
+}
+
+// What DenseBox's epilogues read besides the tree and the queries.
+struct DenseArgs {
+  const int4* words;     // (m,) in leaf order {run start, run length, label,
+                         // DenseLeaf}
+  const float4* scan;    // (n,) grid-sorted points {x, y, z, bits(label)}
+  float half;            // half the cell size
+  int stop_at;           // DENSE_COUNT: early exit at this count (INT_MAX: never)
+  const bool* qmask;     // queries to run (null: all)
+  int sentinel;          // DENSE_MIN_LABEL: result where nothing is hit
+};
+
+// DenseBox's scan records: rec[u] = {x, y, z, bits(lab[u])} of the
+// grid-sorted point u (label 0 where lab is null: DENSE_COUNT reads none).
+__global__ void __launch_bounds__(kPackThreads)
+dense_records_kernel(const float* __restrict__ pts, const int* __restrict__ lab, int n,
+                     float4* __restrict__ rec) {
+  const long long u = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (u >= n) return;
+  const float* p = pts + 3 * u;
+  rec[u] = make_float4(p[0], p[1], p[2], __int_as_float(lab ? lab[u] : 0));
+}
+
+// DenseBox's walk, one thread per query qi = order[i] on its tree of cell
+// boxes and loose points (box leaf records), the rope walk of
+// `wavefront_kernel`. DENSE_COUNT: carry = points within r, a whole
+// cell's or a point leaf's run length, a partial cell's points within r,
+// scanned by the thread itself over their records; done once a leaf hit
+// brings it to stop_at. DENSE_MIN_LABEL: carry = the least label of the
+// same, from `sentinel`. out[qi] is the carry, 0 or `sentinel` outside
+// qmask.
+template <int EPI>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+dense_kernel(Tree t, const int* __restrict__ order, const float* __restrict__ centers,
+             const float* __restrict__ r2s, int q, DenseArgs e, int* __restrict__ out) {
+  static_assert(EPI == DENSE_COUNT || EPI == DENSE_MIN_LABEL, "DenseBox's epilogues only");
+  constexpr bool kCount = EPI == DENSE_COUNT;
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= q) return;
+  const int qi = order ? __ldg(order + i) : static_cast<int>(i);
+  const int init = kCount ? 0 : e.sentinel;
+  if (e.qmask && !e.qmask[qi]) {
+    out[qi] = init;
+    return;
+  }
+  const float cx = centers[3 * qi], cy = centers[3 * qi + 1], cz = centers[3 * qi + 2];
+  const float r2 = r2s[qi];
+  const int first_leaf = t.n - 1;
+  int node = 0;
+  int carry = init;
+  while (node != kSentinel) {
+    const bool leaf = node >= first_leaf;
+    const int k = node - first_leaf;
+    const float4* rec = leaf ? t.leaves + 2 * k : t.inner + 2 * node;
+    const float4 lo = __ldg(rec);
+    const float4 hi = __ldg(rec + 1);
+    // A leaf's word is fetched with its record, not after the test.
+    const int4 w = leaf ? __ldg(e.words + k) : make_int4(0, 0, 0, DENSE_POINT);
+    const bool hit = point_box_dist2(cx, cy, cz, lo, hi) <= r2;
+    // At a leaf both w lanes hold the rope.
+    const int next = hit ? __float_as_int(lo.w) : __float_as_int(hi.w);
+    if (leaf && hit) {
+      bool partial = false;
+      if (w.w == DENSE_CELL) {
+        // The cell's farthest corner: |centre - mid| + half the cell a side.
+        const float fx = __fadd_rn(fabsf(__fsub_rn(cx, __fmul_rn(__fadd_rn(lo.x, hi.x), 0.5f))),
+                                   e.half);
+        const float fy = __fadd_rn(fabsf(__fsub_rn(cy, __fmul_rn(__fadd_rn(lo.y, hi.y), 0.5f))),
+                                   e.half);
+        const float fz = __fadd_rn(fabsf(__fsub_rn(cz, __fmul_rn(__fadd_rn(lo.z, hi.z), 0.5f))),
+                                   e.half);
+        partial = !(sum_sq(fx, fy, fz) <= r2);
+      }
+      if (partial) {
+        for (int u = w.x; u < w.x + w.y; ++u) {
+          const float4 p = __ldg(e.scan + u);
+          if (sum_sq(__fsub_rn(p.x, cx), __fsub_rn(p.y, cy), __fsub_rn(p.z, cz)) <= r2) {
+            carry = kCount ? carry + 1 : min(carry, __float_as_int(p.w));
+          }
+        }
+      } else {
+        carry = kCount ? carry + w.y : min(carry, w.z);
+      }
+      if (kCount && carry >= e.stop_at) break;
+    }
+    node = next;
+  }
+  out[qi] = carry;
 }
 
 template <int EPI, int PRED, bool BOX_LEAF, bool STATS, typename Off>
@@ -1016,31 +1072,40 @@ int wavefront_histogram(const float* inner, const float* leaves, const int* key,
                                                      : 0);
 }
 
-// DENSE_COUNT (min_label == 0) or DENSE_MIN_LABEL on DenseBox's mixed tree.
-// dense: (n,) int4 in leaf order {run start, run length, label, DenseLeaf};
-// pts: (n, 3) float32 grid-sorted points; scan_lab: (n,) int32 (MIN_LABEL);
-// qmask: (q,) bool queries to run (null: all); out: (q,) int32, 0 (COUNT)
-// or sentinel (MIN_LABEL) outside the mask. SPHERE on box leaves only.
-int wavefront_dense(const float* inner, const float* leaves, const int* key, int n,
-                    int box_leaves, const int* order, const float* qa, const float* qb,
-                    int pred, int q, const int* start, int min_label, const int* dense,
-                    const float* pts, const int* scan_lab, float half, int stop_at,
+// DenseBox's scan records of the (n, 3) float32 grid-sorted points pts and
+// their (n,) int32 labels lab (null: 0) into rec, (n, 4) float32,
+// 16-byte aligned.
+int wavefront_dense_records(const float* pts, const int* lab, int n, float* rec,
+                            cudaStream_t stream) {
+  const int blocks = (n + kPackThreads - 1) / kPackThreads;
+  dense_records_kernel<<<blocks, kPackThreads, 0, stream>>>(pts, lab, n,
+                                                            reinterpret_cast<float4*>(rec));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// DENSE_COUNT (min_label == 0) or DENSE_MIN_LABEL on DenseBox's tree of m
+// leaves: inner and leaves are `wavefront_pack`'s box leaf records; words:
+// (m,) int4 in leaf order {run start, run length, label, DenseLeaf}; scan:
+// (n,) float4 grid-sorted points {x, y, z, bits(label)}, 16-byte aligned;
+// order: (q,) the thread order of the queries (null: 0 .. q-1); centres
+// (q, 3) and r2 (q,) float32; qmask: (q,) bool queries to run (null: all);
+// out: (q,) int32, 0 (COUNT) or sentinel (MIN_LABEL) outside the mask.
+int wavefront_dense(const float* inner, const float* leaves, int m, const int* order,
+                    const float* centers, const float* r2, int q, int min_label,
+                    const int* words, const float* scan, float half, int stop_at,
                     const bool* qmask, int sentinel, int* out, cudaStream_t stream) {
-  if (pred != SPHERE || !box_leaves) return static_cast<int>(cudaErrorInvalidValue);
-  Epi<int> e{};
-  e.dense = reinterpret_cast<const int4*>(dense);
-  e.pts = pts;
-  e.scan_lab = scan_lab;
-  e.half = half;
-  e.stop_at = stop_at < 0 ? INT_MAX : stop_at;
-  e.qmask = qmask;
-  e.sentinel = sentinel;
-  const Tree t = tree(inner, leaves, key, n);
+  DenseArgs e{reinterpret_cast<const int4*>(words), reinterpret_cast<const float4*>(scan),
+              half, stop_at < 0 ? INT_MAX : stop_at, qmask, sentinel};
+  const Tree t = tree(inner, leaves, nullptr, m);
+  const int blocks = (q + kThreads - 1) / kThreads;
   if (min_label) {
-    return launch<DENSE_MIN_LABEL, SPHERE, true, false>(t, order, qa, qb, q, start, e, out,
-                                                        stream);
+    dense_kernel<DENSE_MIN_LABEL><<<blocks, kThreads, 0, stream>>>(t, order, centers, r2, q, e,
+                                                                   out);
+  } else {
+    dense_kernel<DENSE_COUNT><<<blocks, kThreads, 0, stream>>>(t, order, centers, r2, q, e,
+                                                               out);
   }
-  return launch<DENSE_COUNT, SPHERE, true, false>(t, order, qa, qb, q, start, e, out, stream);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The SO count: out[qi] = the leaves of the point tree within sqrt(r2[qi])

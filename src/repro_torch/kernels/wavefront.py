@@ -36,9 +36,13 @@ entry), all instantiations of one template in ``csrc/wavefront.cu``:
   (``repro/core/correlation.py:146-149``): each hit's distance bin, summed
   over the queries (integer counts, so in any order);
 * :func:`wavefront_dense_count` and :func:`wavefront_dense_min_label` —
-  DenseBox's two callbacks on its mixed tree of cell boxes and points
-  (``repro/core/dbscan.py:355-425``): a dense cell within r wholesale or
-  point by point, a point by its test, a dense non-head point skipped.
+  DenseBox's two callbacks (``repro/core/dbscan.py:355-425``) on its tree
+  of dense cells' boxes and loose points (``densebox_tree``): a dense cell
+  within r wholesale or point by point, a point by its test. On the card
+  they run in ``dense_kernel``, one thread a query, which scans a partial
+  cell's run itself over 16-byte records of the grid-sorted points and
+  their labels, written before each launch by ``dense_records_kernel``
+  (:func:`dense_scan_records`).
 
 One more wrapper launches a kernel of its own in the same source:
 
@@ -113,7 +117,8 @@ __all__ = ["PREDICATES", "pred_test", "leaf_boxes", "wavefront_count",
            "wavefront_dense_count", "wavefront_dense_min_label",
            "PackedTree", "pack_tree", "pack_tree_plain",
            "shared_pack", "min_label_keys", "pair_starts", "pair_keys",
-           "dense_leaves", "DENSE_POINT", "DENSE_CELL", "DENSE_SKIP",
+           "dense_leaves", "dense_scan_records", "dense_scan_records_plain",
+           "DENSE_POINT", "DENSE_CELL",
            "wavefront_sphere_count", "wavefront_sphere_count_plain",
            "sphere_spans", "point_aabb_far2",
            "SHARED_HISTOGRAM_BINS",
@@ -135,8 +140,8 @@ _INT32_MAX = 2**31 - 1
 _N_STATS = len(TraversalStats._fields)
 # The predicates of the kernel's template, by their enum value there.
 PREDICATES = {"sphere": 0, "box": 1, "ray": 2}
-# What a leaf of DenseBox's mixed tree is, by the kernel's enum value.
-DENSE_POINT, DENSE_CELL, DENSE_SKIP = 0, 1, 2
+# What a leaf of DenseBox's tree is, by the kernel's enum value.
+DENSE_POINT, DENSE_CELL = 0, 1
 # Up to this many histogram bins sit in a block's shared memory, 8 bytes
 # each (48 KiB); more go straight to the global bins.
 SHARED_HISTOGRAM_BINS = 6144
@@ -170,8 +175,8 @@ def _spheres_on_points(bvh: Bvh, what: str):
 
 def _spheres_on_boxes(bvh: Bvh, what: str):
     if not leaf_boxes(bvh):
-        raise ValueError(f"{what} takes DenseBox's mixed tree, whose leaves "
-                         "are boxes (build_bvh_objects)")
+        raise ValueError(f"{what} takes DenseBox's tree, whose leaves are "
+                         "boxes (build_bvh_objects)")
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -228,8 +233,9 @@ def _lib() -> ctypes.CDLL:
     lib.wavefront_potential.argtypes = query + [_P, ctypes.c_float, _P, _P]
     lib.wavefront_edge.argtypes = query + [_P, _L, _P, _P, _P]
     lib.wavefront_histogram.argtypes = query + [ctypes.c_float, _I, _P, _P]
-    lib.wavefront_dense.argtypes = query + [_I, _P, _P, _P, ctypes.c_float,
-                                            _I, _P, _I, _P, _P]
+    lib.wavefront_dense.argtypes = [_P, _P, _I, _P, _P, _P, _I, _I, _P, _P,
+                                    ctypes.c_float, _I, _P, _I, _P, _P]
+    lib.wavefront_dense_records.argtypes = [_P, _P, _I, _P, _P]
     lib.wavefront_rsqrt_probe.argtypes = [_P, _P, _I, _P]
     lib.wavefront_bin_probe.argtypes = [_P, _P, _I, ctypes.c_float, _I, _P]
     lib.wavefront_sphere_count.argtypes = [_P, _P, _P, _P, _I, _P, _P, _I,
@@ -381,14 +387,41 @@ def pair_keys(bvh: Bvh, parent, core) -> torch.Tensor:
 
 
 def dense_leaves(bvh: Bvh, run_start, run_length, label, kind) -> torch.Tensor:
-    """DenseBox's word per leaf, (n, 4) int32 in leaf order, from per
-    object (grid-sorted) values: the start and length of the object's
-    cell run, its label (the cell's least label for a cell leaf, the
-    point's key for a point leaf) and its kind (``DENSE_POINT``,
-    ``DENSE_CELL`` or ``DENSE_SKIP``)."""
+    """DenseBox's word per leaf, (m, 4) int32 in leaf order, from the
+    values of the tree's m objects: the start and length of the object's
+    run of grid-sorted points (a loose point's run is itself), its label
+    (the cell's least label for a cell leaf, the point's key for a point
+    leaf) and its kind (``DENSE_POINT`` or ``DENSE_CELL``)."""
     words = torch.stack([run_start.to(torch.int32), run_length.to(torch.int32),
                          label.to(torch.int32), kind.to(torch.int32)], 1)
     return words.index_select(0, bvh.leaf_perm.long()).contiguous()
+
+
+def dense_scan_records(pts: torch.Tensor, scan_lab) -> torch.Tensor:
+    """What the DenseBox kernel reads of a scanned point, one 16-byte
+    record each: (n, 4) float32 ``{x, y, z, bits(label)}`` of the (n, 3)
+    grid-sorted points and their int32 labels (None: 0, DENSE_COUNT reads
+    none). On the card ``dense_records_kernel`` of ``csrc/wavefront.cu``
+    writes them; for CPU tensors its plain version."""
+    if not pts.is_cuda:
+        return dense_scan_records_plain(pts, scan_lab)
+    n = pts.shape[0]
+    rec = torch.empty((n, 4), dtype=torch.float32, device=pts.device)
+    if n:
+        lib = _lib()
+        code = lib.wavefront_dense_records(
+            _ptr(pts.contiguous()), _ptr(None if scan_lab is None else scan_lab.contiguous()),
+            n, _vec_ptr(rec), _stream())
+        _build.check(lib, code, "wavefront_dense_records")
+    return rec
+
+
+def dense_scan_records_plain(pts: torch.Tensor, scan_lab) -> torch.Tensor:
+    """:func:`dense_scan_records` in torch ops, the label's bits taken with
+    ``Tensor.view``."""
+    if scan_lab is None:
+        scan_lab = torch.zeros(pts.shape[0], dtype=torch.int32, device=pts.device)
+    return torch.cat([pts, scan_lab.view(torch.float32)[:, None]], 1)
 
 
 # ---------------------------------------------------------------------------
@@ -590,15 +623,15 @@ def dense_epilogue(bvh: Bvh, words, pts, centers, r2, half: float, *,
                    scan_lab=None, stop_at: int | None = None,
                    tally: dict | None = None):
     """DENSE_COUNT (``scan_lab`` None) or DENSE_MIN_LABEL on DenseBox's
-    mixed tree. The carry is ``(m, 2)`` int64, the count or label and the
-    query index. On a leaf hit, by the leaf's word (:func:`dense_leaves`):
-    a cell whose farthest corner, ``sum((|centre - (lo + hi) * 0.5| +
+    tree. The carry is ``(m, 2)`` int64, the count or label and the query
+    index. On a leaf hit, by the leaf's word (:func:`dense_leaves`): a
+    cell whose farthest corner, ``sum((|centre - (lo + hi) * 0.5| +
     half)^2)``, is within r² adds its run's length (COUNT) or takes its
     label (MIN_LABEL); a cell that is not scans its run of ``pts``
     (grid-sorted), each point within r counting 1 or giving its
-    ``scan_lab``; a point counts 1 or gives its label; a skip leaf
-    nothing. COUNT is done once the count reaches ``stop_at``; MIN_LABEL
-    never. ``tally``, where given, adds up the cell hits taken whole
+    ``scan_lab``; a point adds its run's length (1) or gives its label.
+    COUNT is done once a leaf hit brings the count to ``stop_at``;
+    MIN_LABEL never. ``tally``, where given, adds up the cell hits taken whole
     (``"whole"``), those scanned (``"scanned"``) and the points scanned
     (``"scan_tests"``)."""
     n = bvh.num_leaves
@@ -611,7 +644,7 @@ def dense_epilogue(bvh: Bvh, words, pts, centers, r2, half: float, *,
         w = words[(node - (n - 1)).clamp(0, n - 1)].long()
         point = leaf_hit & (w[:, 3] == DENSE_POINT)
         if count:
-            val += point.long()
+            val += torch.where(point, w[:, 1], 0)
         else:
             val = torch.where(point, torch.minimum(val, w[:, 2]), val)
         c = torch.nonzero(leaf_hit & (w[:, 3] == DENSE_CELL)).flatten()
@@ -1109,14 +1142,16 @@ def wavefront_histogram(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
 
 
 def _check_dense(bvh, centers, words, pts, scan_lab, qmask):
-    q, n, dev = centers.shape[0], bvh.num_leaves, centers.device
-    if words.dtype != torch.int32 or words.shape != (n, 4):
-        raise ValueError("words must be the (n, 4) int32 leaf words")
-    if pts.dtype != torch.float32 or pts.shape != (n, 3):
+    q, m, dev = centers.shape[0], bvh.num_leaves, centers.device
+    if words.dtype != torch.int32 or words.shape != (m, 4):
+        raise ValueError("words must be the (m, 4) int32 words of the tree's "
+                         "m leaves")
+    if pts.dtype != torch.float32 or pts.dim() != 2 or pts.shape[1] != 3:
         raise ValueError("pts must be the (n, 3) float32 grid-sorted points")
+    n = pts.shape[0]
     if scan_lab is not None and (scan_lab.dtype != torch.int32
                                  or scan_lab.shape != (n,)):
-        raise ValueError("scan_lab must be (n,) int32")
+        raise ValueError("scan_lab must be (n,) int32, a label per point")
     if qmask is not None and (qmask.dtype != torch.bool or qmask.shape != (q,)):
         raise ValueError("qmask must be a (q,) bool mask")
     if any(t is not None and t.device != dev for t in (words, pts, scan_lab, qmask)):
@@ -1131,12 +1166,14 @@ def _dense_launch(wrapper, bvh, centers, r2, words, pts, scan_lab, half,
     if q == 0:
         return out
     packed = _packed(bvh)
+    scan = dense_scan_records(pts, scan_lab)
     lib = _lib()
     code = lib.wavefront_dense(
-        *_tree_args(packed, None), *_query_args(order, centers, r2, "sphere", None),
-        int(scan_lab is not None), _ptr(words.contiguous()), _ptr(pts.contiguous()),
-        _ptr(scan_lab), float(half), -1 if stop_at is None else int(stop_at),
-        _ptr(qmask), int(sentinel), _ptr(out), _stream())
+        _vec_ptr(packed.inner), _vec_ptr(packed.leaves), bvh.num_leaves,
+        _ptr(order), _ptr(centers), _ptr(r2), q, int(scan_lab is not None),
+        _ptr(words.contiguous()), _vec_ptr(scan), float(half),
+        -1 if stop_at is None else int(stop_at), _ptr(qmask), int(sentinel),
+        _ptr(out), _stream())
     _build.check(lib, code, "wavefront_dense")
     _launched(wrapper, "sphere", packed)
     return out
@@ -1149,10 +1186,12 @@ def wavefront_dense_count(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
                           qmask: torch.Tensor | None = None,
                           order: torch.Tensor | None = None) -> torch.Tensor:
     """(q,) int32: DenseBox's neighbour counts (:func:`dense_epilogue`) on
-    its mixed tree, for queries in ``qmask`` (None: all), 0 elsewhere;
-    done at ``stop_at``. ``words`` (:func:`dense_leaves`), ``pts`` the
-    (n, 3) grid-sorted points, ``half`` half the cell size (float32).
-    ``order`` changes no result. Spheres on a box-leaf tree only."""
+    its tree, for queries in ``qmask`` (None: all), 0 elsewhere; done at
+    ``stop_at``. ``words`` (:func:`dense_leaves`, one per leaf), ``pts``
+    the (n, 3) grid-sorted points, ``half`` half the cell size (float32).
+    ``order`` (int32 permutation of the q queries) is the order in which
+    threads take them; it changes no result. Spheres on a box-leaf tree
+    only."""
     _check_inputs(bvh, centers, r2, order)
     _spheres_on_boxes(bvh, "DENSE_COUNT")
     _check_dense(bvh, centers, words, pts, None, qmask)
@@ -1171,10 +1210,9 @@ def wavefront_dense_min_label(bvh: Bvh, centers: torch.Tensor,
                               sentinel: int, *,
                               order: torch.Tensor | None = None) -> torch.Tensor:
     """(q,) int32: DenseBox's min labels (:func:`dense_epilogue`) on its
-    mixed tree for queries in ``qmask``, ``sentinel`` elsewhere and where
+    tree for queries in ``qmask``, ``sentinel`` elsewhere and where
     nothing is hit; ``scan_lab`` (n,) int32 the label of each grid-sorted
-    point. ``order`` changes no result. Spheres on a box-leaf tree
-    only."""
+    point. ``order`` changes no result. Spheres on a box-leaf tree only."""
     _check_inputs(bvh, centers, r2, order)
     _spheres_on_boxes(bvh, "DENSE_MIN_LABEL")
     _check_dense(bvh, centers, words, pts, scan_lab, qmask)

@@ -1067,8 +1067,8 @@ def test_histogram_bin_sequence_matches_plain(cuda):
 
 @pytest.mark.parametrize("eps,min_pts", [(0.02, 2), (0.05, 5), (0.1, 20)])
 def test_wavefront_dense_matches_plain(cuda, eps, min_pts):
-    """Both DenseBox epilogues on a mixed tree of cells, skipped points and
-    loose points, with whole and partial cells."""
+    """Both DenseBox epilogues on a tree of dense cells and loose points,
+    with whole and partial cells, the queries in the tree's order."""
     from repro_torch.core.dbscan import densebox_tree
     n = 6000
     pts = torch.from_numpy(make_clustered_points(np.random.default_rng(83), n)).to(cuda)
@@ -1080,16 +1080,85 @@ def test_wavefront_dense_matches_plain(cuda, eps, min_pts):
     for stop in (None, min_pts):
         got = kw.wavefront_dense_count(t.bvh, t.pts_sorted, t.r2, words, t.pts_sorted,
                                        t.half, stop_at=stop, qmask=~t.dense,
-                                       order=t.bvh.leaf_perm)
+                                       order=t.order)
         want = kw.wavefront_dense_count_plain(t.bvh, t.pts_sorted, t.r2, words,
                                               t.pts_sorted, t.half, stop, ~t.dense)
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     qmask = torch.from_numpy(rng.random(n) < 0.6).to(cuda)
     got = kw.wavefront_dense_min_label(t.bvh, t.pts_sorted, t.r2, words, t.pts_sorted,
-                                       lab, t.half, qmask, n, order=t.bvh.leaf_perm)
+                                       lab, t.half, qmask, n, order=t.order)
     want = kw.wavefront_dense_min_label_plain(t.bvh, t.pts_sorted, t.r2, words,
                                               t.pts_sorted, lab, t.half, qmask, n)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _long_runs(rng):
+    """Clumps of 40, 70 and 150 coincident points, clumps of 100 and 300
+    points within a hundredth of a unit, and 500 uniform points: cell
+    runs past 32 and 64 points, scanned in chunks of a warp."""
+    parts = [np.repeat(rng.uniform(0.1, 0.9, (1, 3)), k, 0) for k in (40, 70, 150)]
+    parts += [rng.uniform(0.1, 0.9, (1, 3)) + rng.uniform(0, 0.01, (k, 3))
+              for k in (100, 300)]
+    parts.append(rng.uniform(0, 1, (500, 3)))
+    return np.concatenate(parts).astype(np.float32)
+
+
+DENSE_EDGE_CASES = ("long_runs", "ragged_q", "sparse_qmask", "codes32")
+
+
+@pytest.mark.parametrize("case", DENSE_EDGE_CASES)
+def test_dense_kernels_match_plain_at_the_edges(cuda, case):
+    """Both DenseBox kernels bit for bit against their plain versions:
+    runs longer than a warp, q not a multiple of 32 (a part of the points
+    as queries, in index order), a mask holding 3% of the queries, and a
+    tree on 32-bit Morton codes; DENSE_COUNT at stop_at 1, 2, 3, 7 and 50,
+    which lanes reach in the middle of a warp's walk and after a partial
+    cell's scan."""
+    from repro_torch.core.dbscan import densebox_tree
+    rng = np.random.default_rng(90 + DENSE_EDGE_CASES.index(case))
+    pts = (_long_runs(rng) if case == "long_runs"
+           else make_clustered_points(rng, 3001))
+    pts = torch.from_numpy(pts).to(cuda)
+    eps = 0.05 if case == "long_runs" else 0.03
+    t = densebox_tree(pts, eps, 3, use_64bit=case != "codes32")
+    n = pts.shape[0]
+    if case == "long_runs":
+        assert int(t.run_length.max()) > 64
+    lab = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(cuda)
+    words = t.words(lab)
+    centers, r2, order = t.pts_sorted, t.r2, t.order
+    if case == "ragged_q":
+        q = 777
+        centers, r2, order = centers[:q].contiguous(), r2[:q].contiguous(), None
+    q = centers.shape[0]
+    frac = 0.03 if case == "sparse_qmask" else 0.7
+    qmask = torch.from_numpy(rng.random(q) < frac).to(cuda)
+    for stop in (None, 1, 2, 3, 7, 50):
+        got = kw.wavefront_dense_count(t.bvh, centers, r2, words, t.pts_sorted, t.half,
+                                       stop_at=stop, qmask=qmask, order=order)
+        want = kw.wavefront_dense_count_plain(t.bvh, centers, r2, words, t.pts_sorted,
+                                              t.half, stop, qmask)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    tally = {}
+    got = kw.wavefront_dense_min_label(t.bvh, centers, r2, words, t.pts_sorted, lab,
+                                       t.half, qmask, n, order=order)
+    want = kw.wavefront_dense_min_label_plain(t.bvh, centers, r2, words, t.pts_sorted,
+                                              lab, t.half, qmask, n, tally)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert tally["scanned"] > 0
+
+
+def test_dense_scan_records_match_plain(cuda):
+    """The scan records' prologue kernel bit for bit against its plain
+    version, with labels (negative and past 2^23 included) and without."""
+    rng = np.random.default_rng(95)
+    n = 100_003
+    pts = torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32)).to(cuda)
+    lab = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)).to(cuda)
+    for scan_lab in (lab, None):
+        got = kw.dense_scan_records(pts, scan_lab)
+        want = kw.dense_scan_records_plain(pts, scan_lab)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_pair_and_densebox_card_equal_cpu(cuda):
@@ -1099,7 +1168,8 @@ def test_pair_and_densebox_card_equal_cpu(cuda):
     from repro_torch.core import dbscan as td
     pts = make_clustered_points(np.random.default_rng(84), 1 << 14)
     for fn, kwargs in ((td.fdbscan_pair, {"edge_capacity": 2}),
-                       (td.fdbscan_densebox, {})):
+                       (td.fdbscan_densebox, {}),
+                       (td.fdbscan_densebox, {"use_64bit": False})):
         a = fn(pts, 0.02, 5, device="cuda", **kwargs)
         b = fn(pts, 0.02, 5, device="cpu", **kwargs)
         for f in a._fields:
