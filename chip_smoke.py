@@ -678,7 +678,8 @@ WAVEFRONT_KERNELS = {"wavefront_count": wave_tag(0),
                      "wavefront_fixed": wave_tag(3),
                      "wavefront_potential": wave_tag(4),
                      "wavefront_edge": wave_tag(5),
-                     "wavefront_histogram": wave_tag(6),
+                     "wavefront_histogram": wave_tag(10),
+                     "wavefront_histogram_shared": wave_tag(6),
                      "wavefront_dense_count": "dense_kernelILi7EE",
                      "wavefront_dense_min_label": "dense_kernelILi8EE",
                      "wavefront_sphere_count": "sphere_count_kernelILb0E",
@@ -686,7 +687,9 @@ WAVEFRONT_KERNELS = {"wavefront_count": wave_tag(0),
                      "wavefront_pack": "pack_kernel",
                      "wavefront_dense_records": "dense_records_kernel",
                      "rsqrt_probe": "rsqrt_probe_kernel",
-                     "bin_probe": "bin_probe_kernel"}
+                     "bin_probe": "bin_probe_kernel",
+                     "histogram_edges": "histogram_edges_kernel",
+                     "threshold_probe": "threshold_probe_kernel"}
 for _pred, _leaf in NEW_KINDS:
     _k = f"{_pred}_{_leaf}"
     WAVEFRONT_KERNELS.update({
@@ -701,18 +704,23 @@ del _pred, _leaf, _k
 def wavefront_report():
     """Registers, spills, SASS opcode and load counts of every instance of
     the traversal kernel, of its pack prologue, of DenseBox's kernel and
-    its record prologue and of the 1/sqrt probe.
-    Fails if one spills; if an instance other than POTENTIAL holds an
-    FFMA (a contracted multiply-add would round the distance otherwise
-    than the plain version); if POTENTIAL holds another number of FFMAs
-    than the probe, whose only FFMAs are those of the IEEE square root and
-    reciprocal (so the distance of POTENTIAL has none either); or if a
+    its record prologue, of the histogram's thresholds prologue and of the
+    probes.
+    Fails if one spills; if a kernel other than POTENTIAL, the histogram's
+    IEEE-bin instance (past PRIVATE_HISTOGRAM_BINS) and the thresholds
+    prologue holds an FFMA (a contracted multiply-add would round the
+    distance otherwise than the plain version); if one of those holds
+    another number of FFMAs than its probe, whose only FFMAs are those of
+    the IEEE sequence (the 1/sqrt's, or the bin's square root and
+    division; so their distances have none either); if the private-bin
+    histogram instance holds a shared-memory atomic (``ATOMS``); or if a
     traversal instance has fewer than two 128-bit loads (the halves of an
     internal node's record, and of a box leaf's; with fewer, records would
     be read in pieces)."""
     out = kernel_report("wavefront", WAVEFRONT_KERNELS)
     probes = {"wavefront_potential": "rsqrt_probe",
-              "wavefront_histogram": "bin_probe"}
+              "wavefront_histogram_shared": "bin_probe",
+              "histogram_edges": "bin_probe"}
     for key, rep in out.items():
         require(rep["spill_stores"] == rep["spill_loads"] == 0,
                 f"{key}: ptxas reports spills {rep}")
@@ -725,9 +733,19 @@ def wavefront_report():
                 f"sequence {probe_ffma}")
         elif key not in probes.values():
             require(ffma == 0, f"{key}: SASS holds an FFMA")
-        if key not in ("wavefront_pack", "wavefront_dense_records", *probes.values()):
+        if key not in ("wavefront_pack", "wavefront_dense_records", "histogram_edges",
+                       "threshold_probe", *probes.values()):
             require(rep["sass"]["LDG.128"] >= 2,
                     f"{key}: fewer than two 128-bit loads {rep['sass']}")
+    private = out["wavefront_histogram"]
+    require(private["sass"]["ATOMS"] == 0,
+            f"wavefront_histogram (private bins): SASS holds ATOMS {private['sass']}")
+    log(f"[1] wavefront_histogram (private bins): {private['registers']} registers, "
+        f"spills {private['spill_stores']}/{private['spill_loads']}, "
+        f"{private['sass']['FFMA']} FFMA, {private['sass']['ATOMS']} ATOMS, "
+        f"{private['sass']['LDG.128']} LDG.E.128; the thresholds prologue "
+        f"{out['histogram_edges']['registers']} registers, "
+        f"{out['histogram_edges']['sass']['FFMA']} FFMA")
     return out
 
 
@@ -2983,6 +3001,46 @@ def c9_points(torch):
     return torch.cat([base, (lo + cells * cs).float()])
 
 
+def histogram_threshold_checks(torch, kw, n_bins: int = 16, chunk: int = 1 << 26):
+    """HISTOGRAM_PRIVATE's thresholds at phase 12's r_max (4 eps at 2^24
+    particles): the card's (``histogram_edges_kernel``) bit-equal to the
+    CPU twin's, also at other r_max and n_bins; and the bin the walk's
+    rule gives (``threshold_probe_kernel``: a first bin from rsqrtf, the
+    thresholds deciding near an edge) equal to the IEEE sequence's
+    (``bin_probe_kernel``) on every float32 in [0, fl(r_max)^2], the
+    squared distances a hit can have, at that r_max with 16, 23 and 1
+    bins and at two other r_max."""
+    from repro_torch.data.pipeline import hacc_benchmark_epsilon
+    r_max = 4 * hacc_benchmark_epsilon(1.0, 1 << 24)
+    for r, nb in ((r_max, n_bins), (r_max, kw.PRIVATE_HISTOGRAM_BINS), (1e-4, 7),
+                  (1.0, 3), (0.3, 100), (1e-4, 6145)):
+        got = kw.histogram_edges(r, nb, DEV)
+        want = kw.histogram_thresholds(r, nb, "cpu")
+        require(torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)),
+                f"histogram_edges r_max {r} n_bins {nb}: card == CPU twin")
+    t0 = time.perf_counter()
+    values = 0
+    for r, nb in ((r_max, n_bins), (r_max, kw.PRIVATE_HISTOGRAM_BINS), (r_max, 1),
+                  (1.0, 7), (1e-4, 2)):
+        edges = kw.histogram_edges(r, nb, DEV)
+        top = int(torch.tensor(r, dtype=torch.float32).square().view(torch.int32))
+        for lo in range(0, top + 1, chunk):
+            d2 = torch.arange(lo, min(lo + chunk, top + 1), dtype=torch.int32,
+                              device=DEV).view(torch.float32)
+            require(torch.equal(kw.threshold_bins_rn(d2, edges, r),
+                                kw.histogram_bins_rn(d2, r, nb)),
+                    f"r_max {r}, {nb} bins: the walk's bin against the IEEE bin on "
+                    f"floats {lo}..{lo + chunk}")
+        values += top + 1
+    torch.cuda.synchronize()
+    log(f"[2] HISTOGRAM's thresholds (r_max {r_max:.6g}, {n_bins} bins) card == CPU twin "
+        f"bit for bit (and at five other r_max, n_bins); the walk's bin == "
+        f"bin_probe_kernel's on every float32 in [0, fl(r_max)^2] at that r_max with "
+        f"{n_bins}, {kw.PRIVATE_HISTOGRAM_BINS} and 1 bins, at r_max 1 with 7 and at "
+        f"1e-4 with 2 ({values} values) in {time.perf_counter() - t0:.2f} s; "
+        f"thresholds {kw.histogram_edges(r_max, n_bins, DEV).tolist()}")
+
+
 def pair_kernel_checks(seed, bvh, pts, eps):
     """Phase 2's EDGE, HISTOGRAM and DenseBox checks on the 2^20 tree, and
     HISTOGRAM's bin sequence on 2^24 squared distances."""
@@ -3011,24 +3069,28 @@ def pair_kernel_checks(seed, bvh, pts, eps):
     got = kw.wavefront_histogram(bvh, centers, r2h, 2 * eps, 16, start=starts)
     want = kw.wavefront_histogram_plain(bvh, centers, r2h, 2 * eps, 16, starts)
     require(torch.equal(got, want), "wavefront_histogram 16 bins")
-    log(f"[2] wavefront_histogram 16 bins at 2 eps: exact, {int(got.sum())} "
+    log(f"[2] wavefront_histogram 16 bins (private) at 2 eps: exact, {int(got.sum())} "
         f"pairs, bins {got.tolist()}")
-    # Past SHARED_HISTOGRAM_BINS the hits go to the global bins: every 16th
-    # query, so that the plain version stays short.
-    wide = kw.SHARED_HISTOGRAM_BINS + 2048
+    # The three regimes: private bins up to PRIVATE_HISTOGRAM_BINS, the
+    # block's shared bins up to SHARED_HISTOGRAM_BINS, the global bins past
+    # it; every 16th query, so that the plain version stays short.
     sub = slice(None, None, 16)
     sc, sr, ss = centers[sub].contiguous(), r2h[sub].contiguous(), starts[sub].contiguous()
-    got = kw.wavefront_histogram(bvh, sc, sr, 2 * eps, wide, start=ss)
-    want = kw.wavefront_histogram_plain(bvh, sc, sr, 2 * eps, wide, ss)
-    require(torch.equal(got, want), f"wavefront_histogram {wide} bins (global)")
-    wide_ms = cuda_ms(torch, lambda: kw.wavefront_histogram(bvh, sc, sr, 2 * eps, wide,
-                                                            start=ss), 3)
-    shared_ms = cuda_ms(torch, lambda: kw.wavefront_histogram(bvh, sc, sr, 2 * eps, 16,
-                                                              start=ss), 3)
-    log(f"[2] wavefront_histogram {wide} bins in global memory at 2 eps: exact "
-        f"over {sc.shape[0]} queries, {int(got.sum())} pairs; {wide_ms:.4f} ms "
-        f"beside {shared_ms:.4f} ms for 16 bins in shared memory on the same "
-        f"queries ({card_identity()})")
+    times = {}
+    for nb, regime in ((kw.PRIVATE_HISTOGRAM_BINS, "private"),
+                       (kw.PRIVATE_HISTOGRAM_BINS + 1, "shared"),
+                       (kw.SHARED_HISTOGRAM_BINS + 2048, "global")):
+        got = kw.wavefront_histogram(bvh, sc, sr, 2 * eps, nb, start=ss)
+        want = kw.wavefront_histogram_plain(bvh, sc, sr, 2 * eps, nb, ss)
+        require(torch.equal(got, want), f"wavefront_histogram {nb} bins ({regime})")
+        times[f"{nb} ({regime})"] = cuda_ms(torch, lambda: kw.wavefront_histogram(
+            bvh, sc, sr, 2 * eps, nb, start=ss), 3)
+    times["16 (private)"] = cuda_ms(torch, lambda: kw.wavefront_histogram(
+        bvh, sc, sr, 2 * eps, 16, start=ss), 3)
+    log(f"[2] wavefront_histogram at 2 eps over {sc.shape[0]} queries, "
+        f"{int(got.sum())} pairs: exact in each regime; ms by bins {json.dumps(times)} "
+        f"({card_identity()})")
+    histogram_threshold_checks(torch, kw)
     d = torch.from_numpy(rng.random(1 << 24).astype(np.float32)).to(DEV) * (2 * eps)
     edges = (torch.arange(17, dtype=torch.float32, device=DEV) * (2 * eps / 16)) ** 2
     d2 = torch.cat([d * d, edges, torch.nextafter(edges, edges + 1),
@@ -3163,6 +3225,7 @@ def phase3_pair_and_densebox(seed: int, n: int = 1 << 15):
     reset_counts(kernels)
     a = tc.pair_count_histogram(pos, 2 * eps, 16, device=DEV)
     require(kernels["wavefront_histogram"].launches == 1, "one HISTOGRAM launch")
+    require(kernels["histogram_edges"].launches == 1, "one thresholds prologue launch")
     require(torch.equal(a.cpu(), tc.pair_count_histogram(pos, 2 * eps, 16, device="cpu")),
             "pair_count_histogram: card == CPU")
     log(f"[3] pair_count_histogram at {n}, 2 eps, 16 bins: card == CPU, "
@@ -3176,8 +3239,8 @@ def phase3_pair_and_densebox(seed: int, n: int = 1 << 15):
         f"(the reference's int32 ids wrap and give [-1, -1, 2, 2])")
 
 
-PAIR_KERNELS = ("wavefront_edge", "wavefront_histogram", "wavefront_dense_count",
-                "wavefront_dense_min_label")
+PAIR_KERNELS = ("wavefront_edge", "wavefront_histogram", "histogram_edges",
+                "wavefront_dense_count", "wavefront_dense_min_label")
 # fdbscan_densebox's stages, by the function of ``core.dbscan`` each runs in.
 DENSEBOX_STAGES = {"grid": "build_cell_grid", "tree": "densebox_tree",
                    "count": "wavefront_dense_count",
@@ -3288,6 +3351,8 @@ def phase12_pair_and_densebox(seed: int, n: int, card: str, wave: dict):
         steps.append(rec)
     require(rec["launches"].get("wavefront_histogram sphere/point", 0) == 1,
             "wavefront_histogram was not launched once in pair_count_histogram")
+    require(rec["launches"].get("histogram_edges", 0) == 1,
+            "histogram_edges was not launched once in pair_count_histogram")
     bvh = build_bvh(pts, lo, hi)
     within4 = int(tq.query_count(bvh, tq.within(pts, r_max), order=bvh.leaf_perm)
                   .sum(dtype=torch.int64))
@@ -3361,11 +3426,34 @@ def pair_rows(torch, kw, calls, steps, n, card, wave):
     require(torch.equal(kw.wavefront_histogram(bvh, sc, sr, r_max, n_bins, start=ss), want),
             "wavefront_histogram on a part of phase 12's input")
     pairs = int(got.sum())
+    # The thresholds prologue alone (launched by each call above, whose
+    # times include it), and its plain twin on the card.
+    edges_ms = cuda_ms(torch, lambda: kw.histogram_edges(r_max, n_bins, DEV), 10)
+    want_edges, edges_plain_ms = timed_once(
+        torch, lambda: kw.histogram_thresholds(r_max, n_bins, DEV))
+    require(torch.equal(kw.histogram_edges(r_max, n_bins, DEV).view(torch.int32),
+                        want_edges.view(torch.int32)),
+            "histogram_edges on phase 12's input == its plain twin")
     nb = tree_bytes(bvh) + n * (12 + 4 + 4) + n_bins * 8
     row("wavefront_histogram", bvh, False, ms, plain_ms, nb,
         hops * FLOPS_PER_HOP + pairs * OPS_PER_BIN, hops,
         "2^12 sampled queries", {"ms_at_plain_input": sub_ms, "pairs": pairs,
-                                 "n_bins": n_bins, "ops_per_pair": OPS_PER_BIN})
+                                 "n_bins": n_bins, "ops_per_pair": OPS_PER_BIN,
+                                 "private_bins": n_bins <= kw.PRIVATE_HISTOGRAM_BINS,
+                                 "edges_ms": edges_ms})
+    # Bisection: about 31 steps a threshold, each a bin by the IEEE sequence.
+    steps = 31 * (n_bins - 1)
+    b_ms, b_by = bound((n_bins - 1) * 4, steps * OPS_PER_BIN)
+    v, path = launches.get("histogram_edges", (0, None))
+    rows.append({"name": "histogram_edges", "route": "cuda", "source": src,
+                 "replaces": ref, "launches": v, "path": path, "card": card,
+                 "max_abs_err": 0.0, "ms": edges_ms, "plain_ms": edges_plain_ms,
+                 "plain_input": "the same r_max and n_bins", "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": None, "n_bins": n_bins,
+                 "registers": wave["histogram_edges"]["registers"]})
+    log(f"[12] histogram_edges: {edges_ms:.4f} ms a launch x {v} in {path}, plain "
+        f"{edges_plain_ms:.2f} ms, bound {b_ms:.6f} ms ({b_by}), "
+        f"{rows[-1]['registers']} registers; {card}")
     del stats, got, want
 
     for name in ("wavefront_dense_count", "wavefront_dense_min_label"):
@@ -3401,6 +3489,8 @@ def pair_rows(torch, kw, calls, steps, n, card, wave):
             {**extra, "queries": int(lanes.numel()), "tree_leaves": m, "points": n,
              **tally})
     for r in rows:
+        if "hops" not in r:
+            continue
         cells = "".join(f", {k} {r[k]}" for k in ("tree_leaves", "whole", "scanned",
                                                    "scan_tests") if k in r)
         log(f"[12] {r['name']}: {r['ms']:.4f} ms a launch x {r['launches']} in "
@@ -5731,6 +5821,7 @@ def kernel_wrappers(names=None) -> dict:
              "wavefront_potential": kw.wavefront_potential,
              "wavefront_edge": kw.wavefront_edge,
              "wavefront_histogram": kw.wavefront_histogram,
+             "histogram_edges": kw.histogram_edges,
              "wavefront_dense_count": kw.wavefront_dense_count,
              "wavefront_dense_min_label": kw.wavefront_dense_min_label,
              "wavefront_sphere_count": kw.wavefront_sphere_count,

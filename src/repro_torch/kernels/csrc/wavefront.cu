@@ -192,19 +192,52 @@
 // the walk's order decides which edges a full row holds, so the kernel
 // keeps the rope order exactly. A query that is not core walks nothing.
 // HISTOGRAM bins each hit by floor(sqrt(max(d2, 1e-30)) / r_max * n_bins)
-// (src/repro/core/correlation.py:146-149) with a correctly rounded square
-// root and division, as `histogram_bins` computes it, and adds it to the
-// block's 64-bit bins in shared memory; the bins go to global memory with
-// one integer atomic each a block, so the totals do not depend on the
-// order of the additions. Past kSharedBins bins (48 KiB) each hit adds
-// straight to its global bin, an integer atomic too. Its FFMAs are those
-// of the IEEE sequences (`chip_smoke.py` phase 1 holds them to
-// `bin_probe_kernel`'s).
+// (src/repro/core/correlation.py:35-36), `distance_bin` below: a correctly
+// rounded square root and division, as `histogram_bins` computes them.
+// Up to kPrivateBins bins it runs as HISTOGRAM_PRIVATE, which spends
+// neither the IEEE sequence nor an atomic on a pair:
+//   * Thresholds. distance_bin is monotone non-decreasing in d2 (max,
+//     the rounded sqrt, the division by r_max > 0, the product, the
+//     flushes, floor and the clip each are), so bin(d2) = #{k in
+//     1..n_bins-1 : d2 >= t_k}, t_k the least float32 whose bin is >= k.
+//     A prologue, `histogram_edges_kernel`, finds each t_k by bisection
+//     over the bit patterns of the non-negative floats, calling
+//     distance_bin itself, so the thresholds are exact by construction;
+//     it runs on the card, with no host round trip. The walk holds them
+//     in shared memory. A hit's bin is first floor(d2 * rsqrtf(d2) *
+//     n_bins / r_max), from the approximate reciprocal square root (one
+//     MUFU.RSQ) and two products; it is the bin wherever that x lies
+//     farther from an integer than its error bound allows, and where it
+//     does not the thresholds decide (`threshold_bin`). A count of the
+//     thresholds at or below d2 (16 compares) and a binary search of them
+//     (4 dependent loads), both exact for every d2, were slower than the
+//     IEEE sequence on an H100 (PERF.md §6, `tools/compare_histogram.py
+//     --variant`): each hit's dependent shared-memory loads cost more
+//     than its ALU work. NaN never reaches the bin: the hit test d2 <= r2
+//     rejects a NaN d2.
+//   * Private bins. Each thread owns n_bins uint32 counters in shared
+//     memory, bin-major and thread-minor (bins[b * kThreads + thread]), so
+//     a lane reads and writes only its own bank: no conflict and no
+//     atomic. A thread walks one query, so a counter stays below n < 2^31.
+//     At the block's end each warp sums its share of the bins over the
+//     block's threads in 64 bits and adds each to the global bin with one
+//     integer atomic, so the totals do not depend on the order.
+// Past kPrivateBins (23 bins: 512 threads' counters fill the 48 KiB of
+// shared memory a block has without opting in) each hit's bin comes from
+// distance_bin and is added with a 64-bit shared-memory atomic to the
+// block's bins (HISTOGRAM), and past kSharedBins (48 KiB of 64-bit bins)
+// straight to its global bin, an integer atomic too. Opting in to more
+// shared memory would take it from L1, which holds the node records. The
+// IEEE sequences' FFMAs are in HISTOGRAM and in the prologue
+// (`chip_smoke.py` phase 1 holds both to `bin_probe_kernel`'s), none in
+// HISTOGRAM_PRIVATE.
 //
-// EDGE 2.7 ms a round and HISTOGRAM at 4 eps 214 ms for 8.4e9 pairs on an
-// H100 80GB HBM3 at 700 W with 2^24 particles (HACC's linking length);
-// HISTOGRAM's shared-memory atomics on 16 bins are the likely limit (not
-// measured).
+// EDGE 2.7 ms a round on an H100 80GB HBM3 at 700 W with 2^24 particles
+// (HACC's linking length). HISTOGRAM at 4 eps took 212.67 ms there for
+// 8.36e9 pairs (2.13e10 hops, 100 Ghops/s against COUNT's 356) with one
+// shared-memory atomic and the IEEE sequence per pair; PERF.md §6 gives
+// HISTOGRAM_PRIVATE's time and what each of its two changes bought
+// (`tools/compare_histogram.py`).
 //
 // DenseBox (src/repro/core/dbscan.py:355-425), `dense_kernel`. The
 // reference builds its tree over n fixed leaves, because XLA needs static
@@ -279,10 +312,18 @@ constexpr int kSphereStack = 512;
 constexpr unsigned kFullMask = 0xffffffffu;
 // HISTOGRAM's bins a block holds in shared memory: 48 KiB of 64-bit bins.
 constexpr int kSharedBins = 6144;
+// HISTOGRAM_PRIVATE's bins: kThreads uint32 counters each, with the
+// n_bins - 1 thresholds, within 48 KiB.
+constexpr int kPrivateBins = 23;
+// The bit pattern of +inf, the last non-negative float32, and the NaN
+// that marks a threshold no float reaches.
+constexpr unsigned kInfBits = 0x7f800000u;
+constexpr int kNanBits = 0x7fc00000;
 
 enum Epilogue {
   COUNT = 0, MIN_LABEL = 1, FILL = 2, FIXED = 3, POTENTIAL = 4,
-  EDGE = 5, HISTOGRAM = 6, DENSE_COUNT = 7, DENSE_MIN_LABEL = 8, MIN_LABEL64 = 9
+  EDGE = 5, HISTOGRAM = 6, DENSE_COUNT = 7, DENSE_MIN_LABEL = 8, MIN_LABEL64 = 9,
+  HISTOGRAM_PRIVATE = 10
 };
 enum Predicate { SPHERE = 0, BOX = 1, RAY = 2 };
 // What a leaf of DenseBox's tree is (`DenseArgs::words`' w).
@@ -290,7 +331,8 @@ enum DenseLeaf { DENSE_POINT = 0, DENSE_CELL = 1 };
 
 // Resident blocks an SM must hold: 3 caps a thread at 42 registers; the
 // slab test's six t values and a ray's six floats take more, and so does
-// the histogram's bin, so those instances ask for 2 (64 registers).
+// the histogram's IEEE bin (HISTOGRAM), so those instances ask for 2 (64
+// registers); HISTOGRAM_PRIVATE's bin needs no more than COUNT.
 constexpr int min_blocks(int epi, int pred) {
   return (pred == RAY || epi == HISTOGRAM) ? 2 : kMinBlocks;
 }
@@ -390,6 +432,33 @@ __device__ __forceinline__ int distance_bin(float d2, float r_max, int n_bins) {
   return min(max(static_cast<int>(floorf(x)), 0), n_bins - 1);
 }
 
+// The same bin from the thresholds: edges[k - 1] = t_k, the least float32
+// whose distance_bin is >= k (NaN where none is, so never at or below a
+// d2), for k = 1 .. n_bins - 1, and scale = fl(n_bins / r_max). A first
+// bin is floor(x), x = d2 * rsqrtf(d2) * scale: sqrt(d2) / r_max * n_bins
+// from the approximate reciprocal square root (2 ulp) and two products,
+// within 6e-7 x (2^-20.6 x) of distance_bin's quotient (three correctly
+// rounded steps). So where x lies farther than x * 2^-18 from an integer
+// the two floors agree, and the first bin is the bin; where it lies
+// nearer (at most 2 x 2^-18 of the pairs at x, 1.2e-4 at x = 16), or is
+// NaN, the thresholds decide: the bin moves up while d2 >= t_{b+1} and
+// down while d2 < t_b, which is exact from any start. d2 is a hit's,
+// never NaN or negative.
+__device__ __forceinline__ int threshold_bin(float d2, const float* edges, int n_bins,
+                                             float scale) {
+  const float dd = max_nan(d2, 1e-30f);
+  const float x = __fmul_rn(__fmul_rn(dd, rsqrtf(dd)), scale);
+  const float whole = floorf(x);
+  int b = min(max(static_cast<int>(whole), 0), n_bins - 1);
+  const float frac = __fsub_rn(x, whole);
+  const float band = __fmul_rn(x, 0x1p-18f);
+  if (!(frac > band && frac < __fsub_rn(1.0f, band))) {
+    while (b < n_bins - 1 && d2 >= edges[b]) ++b;
+    while (b > 0 && !(d2 >= edges[b - 1])) --b;
+  }
+  return b;
+}
+
 struct Tree {
   const float4* inner;   // (n-1) x 2 records of the internal nodes
   const float4* leaves;  // (n,) records of the leaves, in leaf order
@@ -414,8 +483,10 @@ struct Epi {
   const int2* pair_key;     // EDGE: (n,) in leaf order {object, its root where
                             // core, else -1}
   float r_max;              // HISTOGRAM: the largest distance binned
-  int n_bins;               // HISTOGRAM: bins over [0, r_max]
-  unsigned long long* hist; // HISTOGRAM: (n_bins,) pair counts, added to
+  int n_bins;               // HISTOGRAM(_PRIVATE): bins over [0, r_max]
+  unsigned long long* hist; // HISTOGRAM(_PRIVATE): (n_bins,) pair counts, added to
+  const float* thresholds;  // HISTOGRAM_PRIVATE: (n_bins - 1,) t_1 .. t_{n_bins-1}
+  float scale;              // HISTOGRAM_PRIVATE: fl(n_bins / r_max)
   const long long* key64;   // MIN_LABEL64: (n,) key in leaf order
   long long sentinel64;     // MIN_LABEL64: result where no core object is hit
   long long* out64;         // MIN_LABEL64: (q,) output
@@ -434,17 +505,27 @@ struct Epi {
 //   rope[leaf qi]: the pair backend); one that is not core walks nothing.
 // HISTOGRAM: each hit's distance bin, added to the block's bins (past
 //   kSharedBins, to the global bins); no carry.
-// `out[qi]` receives the int carry (FILL and HISTOGRAM have none and write
-// no `out`; POTENTIAL writes `e.potential[qi]` instead).
+// HISTOGRAM_PRIVATE: each hit's bin from the thresholds, added to the
+//   thread's own counter of it; no carry.
+// `out[qi]` receives the int carry (FILL and the histograms have none and
+// write no `out`; POTENTIAL writes `e.potential[qi]` instead).
 // Per query: SPHERE reads its centre qa[qi] and r2 = qb[qi]; BOX its box
 // qa[qi] (lo), qb[qi] (hi); RAY its origin qa[qi] and inv qb[qi]; each row
 // of qa and of a 3-wide qb is 3 floats.
+// What a histogram's block keeps in shared memory.
+struct HistBlock {
+  unsigned long long* bins;  // HISTOGRAM: the block's n_bins bins
+  unsigned* own;             // HISTOGRAM_PRIVATE: this thread's bin 0 (bin b
+                             // at own[b * kThreads])
+  const float* edges;        // HISTOGRAM_PRIVATE: the n_bins - 1 thresholds
+};
+
 template <int EPI, int PRED, bool BOX_LEAF, typename Off, bool STATS>
 __device__ __forceinline__ void walk(const Tree& t, int lane, const int* __restrict__ order,
                                      const float* __restrict__ qa,
                                      const float* __restrict__ qb, int q,
                                      const int* __restrict__ start, const Epi<Off>& e,
-                                     int* __restrict__ out, unsigned long long* bins) {
+                                     int* __restrict__ out, const HistBlock& h) {
   const int qi = order ? __ldg(order + lane) : lane;
   int carry = EPI == MIN_LABEL ? e.sentinel : 0;
   long long carry64 = EPI == MIN_LABEL64 ? e.sentinel64 : 0;
@@ -544,8 +625,11 @@ __device__ __forceinline__ void walk(const Tree& t, int lane, const int* __restr
         }
       } else if constexpr (EPI == HISTOGRAM) {
         const int b = distance_bin(d2, e.r_max, e.n_bins);
-        if (e.n_bins <= kSharedBins) atomicAdd(bins + b, 1ULL);
+        if (e.n_bins <= kSharedBins) atomicAdd(h.bins + b, 1ULL);
         else atomicAdd(e.hist + b, 1ULL);
+      } else if constexpr (EPI == HISTOGRAM_PRIVATE) {
+        const int b = threshold_bin(d2, h.edges, e.n_bins, e.scale);
+        ++h.own[b * kThreads];
       }
     }
     // At a leaf both w lanes hold the rope.
@@ -564,16 +648,26 @@ __device__ __forceinline__ void walk(const Tree& t, int lane, const int* __restr
     e.potential[qi] = acc;
   } else if constexpr (EPI == MIN_LABEL64) {
     e.out64[qi] = carry64;
-  } else if constexpr (EPI != FILL && EPI != HISTOGRAM) {
+  } else if constexpr (EPI != FILL && EPI != HISTOGRAM && EPI != HISTOGRAM_PRIVATE) {
     out[qi] = carry;
   }
 }
 
-// One thread per query. HISTOGRAM adds its hits to the block's bins in
-// shared memory (n_bins 64-bit integers), which go to the global bins once
-// a block: integer sums, so the order of the additions changes nothing.
-// Past kSharedBins bins the block holds none and the hits go to the global
-// bins themselves.
+// The n_bins - 1 thresholds into shared memory; every thread of the block
+// takes part.
+__device__ __forceinline__ void load_edges(float* edges, const float* thresholds, int n_bins) {
+  for (int i = threadIdx.x; i < n_bins - 1; i += blockDim.x) edges[i] = thresholds[i];
+}
+
+// One thread per query (blocks of kThreads). HISTOGRAM adds its hits to the
+// block's bins in shared memory (n_bins 64-bit integers), which go to the
+// global bins once a block: integer sums, so the order of the additions
+// changes nothing. Past kSharedBins bins the block holds none and the hits
+// go to the global bins themselves. HISTOGRAM_PRIVATE keeps n_bins uint32
+// counters a thread and the thresholds in shared memory; at the
+// end warp w sums bins w, w + 16, ... over the block's threads (a lane
+// over threads lane, lane + 32, ..., then the warp's lanes) and adds each
+// to its global bin.
 template <int EPI, int PRED, bool BOX_LEAF, typename Off, bool STATS>
 __global__ void __launch_bounds__(kThreads, min_blocks(EPI, PRED))
 wavefront_kernel(Tree t, const int* __restrict__ order,
@@ -581,9 +675,10 @@ wavefront_kernel(Tree t, const int* __restrict__ order,
                  int q, const int* __restrict__ start, Epi<Off> e,
                  int* __restrict__ out) {
   static_assert((EPI != MIN_LABEL && EPI != MIN_LABEL64 && EPI != POTENTIAL && EPI != EDGE &&
-                 EPI != HISTOGRAM) ||
+                 EPI != HISTOGRAM && EPI != HISTOGRAM_PRIVATE) ||
                     (PRED == SPHERE && !BOX_LEAF),
-                "MIN_LABEL(64), POTENTIAL, EDGE and HISTOGRAM take spheres on point leaves");
+                "MIN_LABEL(64), POTENTIAL, EDGE and the histograms take spheres on point "
+                "leaves");
   static_assert(EPI != DENSE_COUNT && EPI != DENSE_MIN_LABEL,
                 "DenseBox's epilogues run in dense_kernel");
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -595,17 +690,40 @@ wavefront_kernel(Tree t, const int* __restrict__ order,
       for (int b = threadIdx.x; b < e.n_bins; b += blockDim.x) bins[b] = 0;
       __syncthreads();
     }
-    if (lane < q) walk<EPI, PRED, BOX_LEAF, Off, STATS>(t, lane, order, qa, qb, q, start, e, out,
-                                                       bins);
+    if (lane < q) {
+      walk<EPI, PRED, BOX_LEAF, Off, STATS>(t, lane, order, qa, qb, q, start, e, out,
+                                            HistBlock{bins, nullptr, nullptr});
+    }
     if (shared) {
       __syncthreads();
       for (int b = threadIdx.x; b < e.n_bins; b += blockDim.x) {
         if (bins[b]) atomicAdd(e.hist + b, bins[b]);
       }
     }
+  } else if constexpr (EPI == HISTOGRAM_PRIVATE) {
+    extern __shared__ unsigned long long block_smem[];
+    unsigned* priv = reinterpret_cast<unsigned*>(block_smem);  // n_bins x kThreads
+    float* edges = reinterpret_cast<float*>(priv + e.n_bins * kThreads);
+    load_edges(edges, e.thresholds, e.n_bins);
+    unsigned* own = priv + threadIdx.x;
+    for (int b = 0; b < e.n_bins; ++b) own[b * kThreads] = 0;
+    __syncthreads();
+    if (lane < q) {
+      walk<EPI, PRED, BOX_LEAF, Off, STATS>(t, lane, order, qa, qb, q, start, e, out,
+                                            HistBlock{nullptr, own, edges});
+    }
+    __syncthreads();
+    const int warp = threadIdx.x / kWarp, l = threadIdx.x % kWarp;
+    for (int b = warp; b < e.n_bins; b += kThreads / kWarp) {  // uniform over the warp
+      unsigned long long sum = 0;
+      for (int j = l; j < kThreads; j += kWarp) sum += priv[b * kThreads + j];
+      for (int d = kWarp / 2; d > 0; d >>= 1) sum += __shfl_down_sync(kFullMask, sum, d);
+      if (l == 0 && sum) atomicAdd(e.hist + b, sum);
+    }
   } else {
     if (lane >= q) return;
-    walk<EPI, PRED, BOX_LEAF, Off, STATS>(t, lane, order, qa, qb, q, start, e, out, nullptr);
+    walk<EPI, PRED, BOX_LEAF, Off, STATS>(t, lane, order, qa, qb, q, start, e, out,
+                                          HistBlock{});
   }
 }
 
@@ -626,6 +744,39 @@ bin_probe_kernel(const float* __restrict__ d2, int* __restrict__ bin, int n, flo
                  int n_bins) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) bin[i] = distance_bin(d2[i], r_max, n_bins);
+}
+
+// HISTOGRAM_PRIVATE's prologue, one thread per k in 1 .. n_bins - 1: t[k-1]
+// = t_k, the least non-negative float32 (by bit pattern, +0 to +inf, which
+// orders them as their values) whose distance_bin is >= k, found by
+// bisection with distance_bin itself; NaN where even +inf's bin is below
+// k. About 31 steps a thread, each the IEEE sequence of `bin_probe_kernel`.
+__global__ void __launch_bounds__(kPackThreads)
+histogram_edges_kernel(float r_max, int n_bins, float* __restrict__ t) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x + 1;
+  if (k >= n_bins) return;
+  unsigned lo = 0u, hi = kInfBits + 1u;  // t_k's bits lie in [lo, hi]; hi: none
+  while (lo < hi) {
+    const unsigned mid = lo + (hi - lo) / 2u;
+    if (distance_bin(__uint_as_float(mid), r_max, n_bins) >= k) {
+      hi = mid;
+    } else {
+      lo = mid + 1u;
+    }
+  }
+  t[k - 1] = lo > kInfBits ? __int_as_float(kNanBits) : __uint_as_float(lo);
+}
+
+// Nothing but HISTOGRAM_PRIVATE's bin from its thresholds, loaded into
+// shared memory as the walk loads them: bin[i] = threshold_bin(d2[i]).
+__global__ void __launch_bounds__(kPackThreads)
+threshold_probe_kernel(const float* __restrict__ d2, int* __restrict__ bin, int n,
+                       const float* __restrict__ thresholds, int n_bins, float scale) {
+  extern __shared__ float probe_edges[];
+  load_edges(probe_edges, thresholds, n_bins);
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) bin[i] = threshold_bin(d2[i], probe_edges, n_bins, scale);
 }
 
 // One thread per node: node i's box and links into its record; a leaf's
@@ -1052,24 +1203,45 @@ int wavefront_edge(const float* inner, const float* leaves, const int* key, int 
 }
 
 // HISTOGRAM (pair_count_histogram). hist: (n_bins,) uint64, set to 0 by the
-// caller, gets each hit's bin. SPHERE on point leaves only; n_bins >= 1,
-// summed in shared memory up to kSharedBins and in global memory past it.
+// caller, gets each hit's bin. SPHERE on point leaves only; n_bins >= 1.
+// Up to kPrivateBins bins HISTOGRAM_PRIVATE counts per thread, its bins
+// from thresholds: (n_bins - 1,) float32, `wavefront_histogram_edges`'s
+// (null only for one bin); past it HISTOGRAM sums in shared memory up to
+// kSharedBins and in global memory past that, thresholds unread.
 int wavefront_histogram(const float* inner, const float* leaves, const int* key, int n,
                         int box_leaves, const int* order, const float* qa,
                         const float* qb, int pred, int q, const int* start, float r_max,
-                        int n_bins, unsigned long long* hist, cudaStream_t stream) {
-  if (pred != SPHERE || box_leaves || n_bins < 1) {
+                        int n_bins, const float* thresholds, unsigned long long* hist,
+                        cudaStream_t stream) {
+  if (pred != SPHERE || box_leaves || n_bins < 1 ||
+      (n_bins > 1 && n_bins <= kPrivateBins && !thresholds)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Epi<int> e{};
   e.r_max = r_max;
   e.n_bins = n_bins;
   e.hist = hist;
-  return launch<HISTOGRAM, SPHERE, false, false>(tree(inner, leaves, key, n), order, qa, qb,
-                                                 q, start, e, nullptr, stream,
+  const Tree t = tree(inner, leaves, key, n);
+  if (n_bins <= kPrivateBins) {
+    e.thresholds = thresholds;
+    e.scale = static_cast<float>(n_bins) / r_max;
+    const size_t smem = (static_cast<size_t>(n_bins) * (kThreads + 1) - 1) * 4;
+    return launch<HISTOGRAM_PRIVATE, SPHERE, false, false>(t, order, qa, qb, q, start, e,
+                                                           nullptr, stream, smem);
+  }
+  return launch<HISTOGRAM, SPHERE, false, false>(t, order, qa, qb, q, start, e, nullptr, stream,
                                                  n_bins <= kSharedBins
                                                      ? n_bins * sizeof(unsigned long long)
                                                      : 0);
+}
+
+// HISTOGRAM_PRIVATE's thresholds: t, (n_bins - 1,) float32, t[k-1] the
+// least float32 whose bin (r_max, n_bins) is >= k, NaN where none is.
+int wavefront_histogram_edges(float r_max, int n_bins, float* t, cudaStream_t stream) {
+  if (n_bins < 2) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (n_bins - 1 + kPackThreads - 1) / kPackThreads;
+  histogram_edges_kernel<<<blocks, kPackThreads, 0, stream>>>(r_max, n_bins, t);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // DenseBox's scan records of the (n, 3) float32 grid-sorted points pts and
@@ -1136,6 +1308,17 @@ int wavefront_bin_probe(const float* d2, int* bin, int n, float r_max, int n_bin
                         cudaStream_t stream) {
   bin_probe_kernel<<<(n + kPackThreads - 1) / kPackThreads, kPackThreads, 0, stream>>>(
       d2, bin, n, r_max, n_bins);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bin[i] = HISTOGRAM_PRIVATE's bin of d2[i] from the (n_bins - 1,)
+// thresholds of (r_max, n_bins), for n values.
+int wavefront_threshold_probe(const float* d2, int* bin, int n, const float* thresholds,
+                              float r_max, int n_bins, cudaStream_t stream) {
+  const float scale = static_cast<float>(n_bins) / r_max;
+  threshold_probe_kernel<<<(n + kPackThreads - 1) / kPackThreads, kPackThreads,
+                           (n_bins - 1) * sizeof(float), stream>>>(d2, bin, n, thresholds,
+                                                                   n_bins, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -33,8 +33,14 @@ entry), all instantiations of one template in ``csrc/wavefront.cu``:
   the buffer is full; the queries are the tree's leaves in order, each
   from ``rope[leaf]`` (the pair backend, :func:`pair_starts`);
 * :func:`wavefront_histogram` — ``pair_count_histogram``'s DD bins
-  (``repro/core/correlation.py:146-149``): each hit's distance bin, summed
-  over the queries (integer counts, so in any order);
+  (``repro/core/correlation.py:35-36``): each hit's distance bin, summed
+  over the queries (integer counts, so in any order). Up to
+  ``PRIVATE_HISTOGRAM_BINS`` bins the card counts in each thread's own
+  bins, a pair's bin the number of exact squared-distance thresholds at
+  or below its d² (:func:`histogram_edges`, a prologue kernel, whose
+  plain twin is :func:`histogram_thresholds`), found from a first guess
+  by an approximate reciprocal square root that the thresholds settle
+  near an edge, with no correctly rounded square root or division;
 * :func:`wavefront_dense_count` and :func:`wavefront_dense_min_label` —
   DenseBox's two callbacks (``repro/core/dbscan.py:355-425``) on its tree
   of dense cells' boxes and loose points (``densebox_tree``): a dense cell
@@ -121,7 +127,9 @@ __all__ = ["PREDICATES", "pred_test", "leaf_boxes", "wavefront_count",
            "DENSE_POINT", "DENSE_CELL",
            "wavefront_sphere_count", "wavefront_sphere_count_plain",
            "sphere_spans", "point_aabb_far2",
-           "SHARED_HISTOGRAM_BINS",
+           "SHARED_HISTOGRAM_BINS", "PRIVATE_HISTOGRAM_BINS",
+           "histogram_edges", "histogram_thresholds", "bins_from_thresholds",
+           "threshold_bins_rn",
            "wavefront_count_plain", "wavefront_min_label_plain",
            "wavefront_fill_plain", "wavefront_fixed_plain",
            "wavefront_potential_plain", "wavefront_edge_plain",
@@ -145,6 +153,13 @@ DENSE_POINT, DENSE_CELL = 0, 1
 # Up to this many histogram bins sit in a block's shared memory, 8 bytes
 # each (48 KiB); more go straight to the global bins.
 SHARED_HISTOGRAM_BINS = 6144
+# Up to this many bins each of a block's 512 threads counts in bins of its
+# own in shared memory (4 bytes each, 48 KiB with the thresholds), each
+# pair's bin exact by the thresholds (``kPrivateBins`` in the kernel).
+PRIVATE_HISTOGRAM_BINS = 23
+# The bit patterns of +inf (the last non-negative float32) and of the NaN
+# that marks a threshold no float32 reaches.
+_INF_BITS, _NAN_BITS = 0x7F800000, 0x7FC00000
 
 
 def _check_inputs(bvh: Bvh, qa, qb, order, pred: str = "sphere"):
@@ -232,7 +247,9 @@ def _lib() -> ctypes.CDLL:
     lib.wavefront_fixed.argtypes = query + [_L, _P, _P, _P]
     lib.wavefront_potential.argtypes = query + [_P, ctypes.c_float, _P, _P]
     lib.wavefront_edge.argtypes = query + [_P, _L, _P, _P, _P]
-    lib.wavefront_histogram.argtypes = query + [ctypes.c_float, _I, _P, _P]
+    lib.wavefront_histogram.argtypes = query + [ctypes.c_float, _I, _P, _P, _P]
+    lib.wavefront_histogram_edges.argtypes = [ctypes.c_float, _I, _P, _P]
+    lib.wavefront_threshold_probe.argtypes = [_P, _P, _I, _P, ctypes.c_float, _I, _P]
     lib.wavefront_dense.argtypes = [_P, _P, _I, _P, _P, _P, _I, _I, _P, _P,
                                     ctypes.c_float, _I, _P, _I, _P, _P]
     lib.wavefront_dense_records.argtypes = [_P, _P, _I, _P, _P]
@@ -246,7 +263,8 @@ def _lib() -> ctypes.CDLL:
                lib.wavefront_fixed, lib.wavefront_potential,
                lib.wavefront_edge, lib.wavefront_histogram,
                lib.wavefront_dense, lib.wavefront_rsqrt_probe,
-               lib.wavefront_bin_probe, lib.wavefront_sphere_count):
+               lib.wavefront_bin_probe, lib.wavefront_sphere_count,
+               lib.wavefront_histogram_edges, lib.wavefront_threshold_probe):
         fn.restype = _I
     lib.cuda_error_string.argtypes = [_I]
     lib.cuda_error_string.restype = ctypes.c_char_p
@@ -598,13 +616,43 @@ def histogram_bins(d2: torch.Tensor, r_max: float, n_bins: int) -> torch.Tensor:
     r_max * n_bins)`` clipped to ``[0, n_bins - 1]``, each step a float32
     operation rounded correctly (the square root and the quotient taken
     in float64 and rounded, as :func:`inv_sqrt_plain` does) and flushed
-    as XLA:CPU flushes subnormals."""
+    as XLA:CPU flushes subnormals. The float goes to the clip as the
+    kernel's conversion takes it: +inf and values past the bins to the
+    last bin, NaN to bin 0."""
     f32 = torch.float32
     floor = torch.tensor(1e-30, dtype=f32, device=d2.device)
     dist = torch.maximum(d2, floor).double().sqrt().float()
     r = float(torch.tensor(r_max, dtype=f32))
     x = flush(flush((dist.double() / r).float()) * float(n_bins))
-    return torch.floor(x).long().clamp(0, n_bins - 1)
+    return torch.floor(x).nan_to_num(0.0).clamp(0, n_bins - 1).long()
+
+
+def histogram_thresholds(r_max: float, n_bins: int, device="cpu") -> torch.Tensor:
+    """(n_bins - 1,) float32: t_k for k = 1 .. n_bins - 1, the least
+    float32 whose :func:`histogram_bins` is >= k (NaN where none is), by
+    bisection over the bit patterns of the non-negative floats (+0 to
+    +inf, ordered as their values), the plain twin of
+    ``histogram_edges_kernel``. The bin is monotone in d², so a
+    non-negative d² is in bin #{k : d² >= t_k} (:func:`bins_from_thresholds`)."""
+    k = torch.arange(1, n_bins, device=device)
+    lo = torch.zeros_like(k)
+    hi = torch.full_like(k, _INF_BITS + 1)
+    for _ in range(31):            # the range holds fewer than 2^31 patterns
+        live = lo < hi
+        mid = lo + (hi - lo) // 2
+        ge = histogram_bins(mid.to(torch.int32).view(torch.float32), r_max, n_bins) >= k
+        hi = torch.where(live & ge, mid, hi)
+        lo = torch.where(live & ~ge, mid + 1, lo)
+    bits = torch.where(lo > _INF_BITS, _NAN_BITS, lo)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def bins_from_thresholds(d2: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
+    """int64 bin of each non-negative squared distance: the number of
+    thresholds (:func:`histogram_thresholds`) at or below it: what the
+    kernel's rule gives, in torch ops."""
+    t = thresholds[~torch.isnan(thresholds)]     # NaNs only at the end
+    return torch.searchsorted(t, d2.contiguous(), right=True)
 
 
 def histogram_epilogue(hist, r_max: float):
@@ -1116,9 +1164,12 @@ def wavefront_histogram(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
     """(n_bins,) int64: every hit of the queries binned by distance,
     :func:`histogram_bins` with ``r_max`` taken as float32 (for the pair
     correlation: ``centers`` the tree's points in leaf order, ``start``
-    :func:`pair_starts`). On the card up to ``SHARED_HISTOGRAM_BINS`` bins
-    are summed in a block's shared memory, more straight into the global
-    bins; integer sums, so both give the same counts. Spheres on a point
+    :func:`pair_starts`). On the card, up to ``PRIVATE_HISTOGRAM_BINS``
+    bins each thread counts in bins of its own, each hit's bin from the
+    thresholds of :func:`histogram_edges` (launched first, for two bins
+    or more); past that up to ``SHARED_HISTOGRAM_BINS`` bins are summed
+    in a block's shared memory, more straight into the global bins.
+    Integer sums, so all three give the same counts. Spheres on a point
     tree only."""
     _check_inputs(bvh, centers, r2, None)
     _spheres_on_points(bvh, "HISTOGRAM")
@@ -1131,14 +1182,39 @@ def wavefront_histogram(bvh: Bvh, centers: torch.Tensor, r2: torch.Tensor,
     hist = torch.zeros(n_bins, dtype=torch.int64, device=centers.device)
     if q == 0:
         return hist
+    edges = None
+    if 1 < n_bins <= PRIVATE_HISTOGRAM_BINS:
+        edges = histogram_edges(r_max, n_bins, centers.device)
     packed = _packed(bvh)
     lib = _lib()
     code = lib.wavefront_histogram(
         *_tree_args(packed, None), *_query_args(None, centers, r2, "sphere", start),
-        float(r_max), n_bins, _ptr(hist), _stream())
+        float(r_max), n_bins, _ptr(edges), _ptr(hist), _stream())
     _build.check(lib, code, "wavefront_histogram")
     _launched(wavefront_histogram, "sphere", packed)
     return hist
+
+
+@kernel_call
+def histogram_edges(r_max: float, n_bins: int, device) -> torch.Tensor:
+    """(n_bins - 1,) float32 thresholds of the histogram's bins
+    (:func:`histogram_thresholds`): on a CUDA device from its prologue
+    kernel (``histogram_edges_kernel``, one thread a threshold, no host
+    sync), on the CPU from the plain twin, whose bits the kernel's must
+    equal."""
+    n_bins = int(n_bins)
+    if n_bins < 1:
+        raise ValueError("n_bins must be >= 1")
+    device = torch.device(device)
+    if device.type != "cuda":
+        return histogram_thresholds(r_max, n_bins, device)
+    t = torch.empty(n_bins - 1, dtype=torch.float32, device=device)
+    if n_bins > 1:
+        lib = _lib()
+        code = lib.wavefront_histogram_edges(float(r_max), n_bins, _ptr(t), _stream())
+        _build.check(lib, code, "wavefront_histogram_edges")
+        _build.count_launch(histogram_edges)
+    return t
 
 
 def _check_dense(bvh, centers, words, pts, scan_lab, qmask):
@@ -1296,6 +1372,35 @@ def histogram_bins_rn(d2: torch.Tensor, r_max: float, n_bins: int) -> torch.Tens
     return out.long()
 
 
+@kernel_call
+def threshold_bins_rn(d2: torch.Tensor, thresholds: torch.Tensor,
+                      r_max: float) -> torch.Tensor:
+    """int64 bins of float32 squared distances from the (n_bins - 1,)
+    float32 thresholds of ``r_max`` and n_bins by the rule HISTOGRAM's
+    private-bin walk uses: on the card its own (``threshold_probe_kernel``:
+    a first bin from an approximate square root, the thresholds in shared
+    memory deciding near an edge), on the CPU :func:`bins_from_thresholds`,
+    which the kernel must equal."""
+    if d2.dtype != torch.float32 or thresholds.dtype != torch.float32:
+        raise ValueError("d2 and thresholds must be float32")
+    if not d2.is_cuda:
+        return bins_from_thresholds(d2, thresholds)
+    if thresholds.device != d2.device:
+        raise ValueError("thresholds must be on d2's device")
+    n_bins = thresholds.numel() + 1
+    if n_bins > 12288:
+        raise ValueError("the probe holds at most 12287 thresholds (48 KiB)")
+    d2, thresholds = d2.contiguous(), thresholds.contiguous()
+    out = torch.empty(d2.shape, dtype=torch.int32, device=d2.device)
+    if d2.numel():
+        lib = _lib()
+        code = lib.wavefront_threshold_probe(_ptr(d2), _ptr(out), d2.numel(),
+                                             _ptr(thresholds), float(r_max), n_bins,
+                                             _stream())
+        _build.check(lib, code, "wavefront_threshold_probe")
+    return out.long()
+
+
 for _wrapper in (wavefront_count, wavefront_min_label, wavefront_fill,
                  wavefront_fixed, wavefront_potential, wavefront_edge,
                  wavefront_histogram, wavefront_dense_count,
@@ -1303,6 +1408,7 @@ for _wrapper in (wavefront_count, wavefront_min_label, wavefront_fill,
     _wrapper.launches = 0
     _wrapper.instances = collections.Counter()
 del _wrapper
+histogram_edges.launches = 0
 # Of COUNT's launches, those of its counter instance (``depths`` given);
 # of the SO count's, those of its counter instance (``with_stats``).
 wavefront_count.counters = types.SimpleNamespace(launches=0)

@@ -1012,11 +1012,15 @@ def test_wavefront_edge_matches_plain(cuda, capacity):
     assert int(want[1].max()) == capacity
 
 
-@pytest.mark.parametrize("n_bins", [1, 16, 1000, kw.SHARED_HISTOGRAM_BINS,
+@pytest.mark.parametrize("n_bins", [1, 2, 16, kw.PRIVATE_HISTOGRAM_BINS - 1,
+                                    kw.PRIVATE_HISTOGRAM_BINS,
+                                    kw.PRIVATE_HISTOGRAM_BINS + 1, 1000,
+                                    kw.SHARED_HISTOGRAM_BINS,
                                     kw.SHARED_HISTOGRAM_BINS + 1, 10000])
 def test_wavefront_histogram_matches_plain(cuda, n_bins):
-    """Bins in a block's shared memory and, past SHARED_HISTOGRAM_BINS,
-    in global memory, against the plain version."""
+    """Each thread's own bins up to PRIVATE_HISTOGRAM_BINS, a block's
+    shared bins up to SHARED_HISTOGRAM_BINS and the global bins past it,
+    against the plain version."""
     n = 6000
     bvh, centers, r2, starts = _pair_inputs(cuda, n, 82, 0.1)
     got = kw.wavefront_histogram(bvh, centers, r2, 0.1, n_bins, start=starts)
@@ -1050,6 +1054,23 @@ def test_side_tensors_on_the_host_raise(cuda, side):
                                          args["pts"], args["scan_lab"], t.half,
                                          args["qmask"], n)
     assert kw.wavefront_edge.launches + kw.wavefront_dense_min_label.launches == before
+
+
+@pytest.mark.parametrize("r_max,n_bins", [(0.1, 16), (1e-4, 7), (1.0, 3), (0.3, 23),
+                                          (0.5, 100), (1e-4, 6145), (0.2, 2)])
+def test_histogram_edges_match_the_cpu_twin(cuda, r_max, n_bins):
+    """The thresholds prologue's bits equal the plain twin's, and the bin
+    the walk's rule finds with them equals the IEEE sequence's on random
+    squared distances, the thresholds and their neighbours."""
+    got = kw.histogram_edges(r_max, n_bins, cuda)
+    want = kw.histogram_thresholds(r_max, n_bins)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    rng = np.random.default_rng(n_bins)
+    r32 = np.float32(r_max)
+    d2 = torch.from_numpy((rng.random(1 << 20).astype(np.float32) * r32) ** 2).to(cuda)
+    d2 = torch.cat([d2, got, torch.nextafter(got, torch.zeros_like(got))])
+    torch.testing.assert_close(kw.threshold_bins_rn(d2, got, r_max),
+                               kw.histogram_bins_rn(d2, r_max, n_bins), rtol=0, atol=0)
 
 
 def test_histogram_bin_sequence_matches_plain(cuda):
@@ -1174,9 +1195,10 @@ def test_pair_and_densebox_card_equal_cpu(cuda):
         b = fn(pts, 0.02, 5, device="cpu", **kwargs)
         for f in a._fields:
             torch.testing.assert_close(getattr(a, f).cpu(), getattr(b, f), rtol=0, atol=0)
-    before = kw.wavefront_histogram.launches
+    before = kw.wavefront_histogram.launches, kw.histogram_edges.launches
     got = tc.pair_count_histogram(pts, 0.05, 16, device="cuda")
-    assert kw.wavefront_histogram.launches == before + 1
+    assert (kw.wavefront_histogram.launches, kw.histogram_edges.launches) == (
+        before[0] + 1, before[1] + 1)
     torch.testing.assert_close(got.cpu(), tc.pair_count_histogram(pts, 0.05, 16,
                                                                   device="cpu"),
                                rtol=0, atol=0)
